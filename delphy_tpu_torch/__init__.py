@@ -4,23 +4,26 @@ A port of the JAX package's device layer to PyTorch, with its three Pallas
 TPU kernels rewritten as hand-written CUDA kernels for Hopper (``csrc/``).
 Module names mirror ``delphy_tpu`` so each counterpart is easy to find.  The
 host layer (tree construction, MAPLE I/O, partition maps, native topology
-bursts) is reused from ``delphy_tpu`` by import, without jax
-(see ``_host.py``).
+bursts: ``phylo``, ``seq``, ``dates``, ``init_tree``, ``io/``,
+``parallel/partmaps``, ``topo/``, ``native/``) is the port's own copy of the
+reference package's numpy and ctypes modules, so the port imports nothing of
+``delphy_tpu``.
 
 Policy: every float is float64 (the H100 has native f64, so the reference's
 ledger tolerance of 1e-6 holds), randomness comes from an explicit
-``torch.Generator`` on the run's device, and a CUDA device is used only when
-asked for, never silently swapped for the CPU.
+``torch.Generator`` on the run's device, and the entry points run on the CUDA
+device unless the caller asks for the CPU; without CUDA they raise rather
+than fall back.
 """
 
 from __future__ import annotations
-
-from . import _host  # noqa: F401  (must run before any delphy_tpu import)
 
 import torch
 
 DTYPE = torch.float64
 ITYPE = torch.int32
+# device of the entry points when the caller names none
+DEFAULT_DEVICE = "cuda"
 
 
 def resolve_device(device) -> torch.device:

@@ -13,10 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from delphy_tpu.parallel.partmaps import PartMaps
-
-from . import DTYPE
+from . import DEFAULT_DEVICE, DTYPE, resolve_device
 from .evo import EvoParams
+from .parallel.partmaps import PartMaps
 from .pop import ExpPopParams
 from .state import TreeState
 
@@ -29,26 +28,27 @@ def _leaf_to_torch(x, device) -> torch.Tensor:
     return torch.as_tensor(a.copy(), device=device)
 
 
-def from_numpy(cls, obj, device="cpu"):
+def from_numpy(cls, obj, device=DEFAULT_DEVICE):
     """Instance of the port's NamedTuple ``cls`` from an object with the
     same field names (numpy or jax leaves)."""
+    device = resolve_device(device)
     return cls(**{f: _leaf_to_torch(getattr(obj, f), device)
                   for f in cls._fields})
 
 
-def tree_state_to_torch(ts, device="cpu") -> TreeState:
+def tree_state_to_torch(ts, device=DEFAULT_DEVICE) -> TreeState:
     return from_numpy(TreeState, ts, device)
 
 
-def evo_params_to_torch(evo, device="cpu") -> EvoParams:
+def evo_params_to_torch(evo, device=DEFAULT_DEVICE) -> EvoParams:
     return from_numpy(EvoParams, evo, device)
 
 
-def exp_pop_to_torch(pop, device="cpu") -> ExpPopParams:
+def exp_pop_to_torch(pop, device=DEFAULT_DEVICE) -> ExpPopParams:
     return from_numpy(ExpPopParams, pop, device)
 
 
-def part_maps_to_torch(pm, device="cpu") -> PartMaps:
+def part_maps_to_torch(pm, device=DEFAULT_DEVICE) -> PartMaps:
     return from_numpy(PartMaps, pm, device)
 
 

@@ -8,37 +8,89 @@
 // What bounds it on the card: latency of the dependent chain.  Every move
 // reads the times the previous move wrote, so a part is a serial string of
 // 3 x n_blocks small steps over O(n_cap + m_cap + C) data (about 25 KB at
-// Ebola size); parts are independent.  The work per step is a few thousand
-// flops, far below what an SM can do, so the cost is the number of
-// block-wide barriers per step and the latency of each.
+// Ebola size); parts are independent.  Bytes (each input read once, the
+// uniforms included) are well under a microsecond of device memory time and
+// the arithmetic a few thousand flops per step.  With the barriers cut to
+// five per step, what is left is the latency of each phase's serial f64
+// chain in its slowest node: a proposal's expm1/log1p/log and divisions,
+// then its loop over cells or slots.
+//
 // Design: one thread block per part, all of the part's rows resident in
-// shared memory for the whole chain, threads over nodes, slots and cells.
+// shared memory for the whole chain, threads over nodes, slots and cells;
+// in the batched move, the k_p scatter and the reform a group of GROUP = 4
+// lanes takes each node, computes its scalars alike in every lane and
+// splits the node's cells or slots over the lanes (4-lane shuffles), so
+// a node's loops cost a quarter of their length (4 NC threads, 64 to 512).
 // The TPU kernel's dense one-hot masks ((NC,NC), (NC,MC), (NC,C)) become
-// index gathers: t_par = t[par[n]], child bounds through c0/c1, per-node
-// slot lists (built once: the pool is static within a sweep) for own_max,
-// child_min and the reform's per-branch sums, and the parent veto
-// "a node drops out when its parent is selected" as a gather.  The batched
-// displacement loops each node over the few cells between its old and new
-// time (plus a 2-cell margin) instead of the dense (NC, C) dk: terms with
-// dk = 0 are exactly 0, so only the summation order differs.  Colour-block
-// selection keeps the accepted nodes' cells disjoint, and the k_p update
-// runs with one thread per cell, so it needs no atomics and is
-// deterministic.  f64 throughout, with expm1/log1p and +-inf.
+// index gathers through per-node slot lists, built once per launch (the pool
+// is static within a sweep).  A block step has five barriers:
+//   single move | B1 | colour-block windows | B2 | batched proposals |
+//   B3 | k_p scatter, own block | B4 | k_p margins + reform | B5
+// - The single node move runs in warp 0 alone: its bounds come from the
+//   per-node own_max / child_min rows, and dq is summed over the cells from
+//   cell_of(min(old, new)) - MARGIN to cell_of(max(old, new)) + MARGIN (dk is
+//   exactly 0 outside, as in the batched move), with a warp xor-shuffle
+//   reduction that leaves the same total in every lane, so all lanes take
+//   the same accept decision.  B1 publishes an accepted t / k_p change.
+// - The uniforms of block step i + 1 (pri, prop, acc, ref_acc, ref_u, the
+//   single-move scalars: 4 NC + MC + 7 doubles per part) are copied into
+//   shared memory with cp.async by the warps other than warp 0 while step i
+//   runs (double buffer), so no serial section waits on device memory.  Where two stages do not fit in
+//   227 KB the kernel keeps one stage and loads it at the start of the step.
+// - The segment maximum of the colour-block priorities is one pass over the
+//   nodes: a shared-memory atomicMax on the uniform's bit pattern (for
+//   doubles >= 0 the unsigned bit order is the numeric order).  A max does
+//   not depend on the order of the updates, so the result is deterministic,
+//   and ties are selected as in the plain version (pri == best).  The parent
+//   veto re-derives the parent's selection from the same rows, so it needs
+//   no barrier of its own.
+// - k_p is updated by a scatter from each accepted node over its own cells.
+//   Race-free because: a node is selected only in the colour segment that
+//   holds its current cell, its new time lies inside the segment's window,
+//   so its dk can be nonzero only within the segment's cells [F, L] plus
+//   MARGIN + 1 cells on either side (cell_of of a time at the window's edge
+//   can round one cell out).  With at most one accepted node per segment,
+//   the in-segment parts of the writes (B3..B4) are disjoint; the out-of-
+//   segment parts (B4..B5) of two segments are disjoint when
+//   cpb >= 2 MARGIN + 2, because segment b's upper margin ends at
+//   L_b + 1 + MARGIN and segment b + 2's lower margin starts at
+//   F_{b+2} - 1 - MARGIN = L_b + cpb - MARGIN.  (The last segment, into
+//   which the block index of cells past n_seg cpb is clamped, owns every
+//   cell up to C_real - 1.)  Writes skip cells where dk is exactly 0.  A tie
+//   (two accepted nodes in one segment, detected with an integer shared
+//   atomic) or a smaller cpb takes a per-cell sum over all accepted nodes
+//   instead.  No float atomics, so results are deterministic.
+// - The reform is one pass over nodes: each node's group proposes for its
+//   own slots, decides, writes them, and refreshes the node's own_max /
+//   child_min for the next step.
+// - dG, dC and the move count are summed per thread across the whole chain
+//   and reduced once at the end (warp shuffles, then one shared stage), so
+//   no reduction sits inside the chain.
+// Summation order differs from the plain version (warp-tree dq, per-thread
+// partial sums of dG and dC); accept decisions match.  f64 throughout, with
+// expm1/log1p and +-inf.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int MAX_THREADS = 512;
 constexpr int MARGIN = 2;  // cells beyond a node's old/new cells where dk == 0
+
+constexpr int SMEM_LIMIT = 227 * 1024;
 
 // sc lane assignments (block_pallas.py _SC_*)
 constexpr int SC_SEL = 0, SC_NODE_I = 1, SC_NODE_T = 2, SC_PROP = 3,
-              SC_ACC = 4, SC_OFF = 5;
+              SC_ACC = 4, SC_OFF = 5, SC_LANES = 6;
 
 struct Shared {
   double t_lo, t_step, t_max_tip, log_n0, g, t0, log_min_pop;
+};
+
+struct Uniforms {
+  const double *pri, *prop, *acc, *ref_acc, *ref_u, *sc, *norm;
+  int S, Z;
 };
 
 __device__ __forceinline__ double clip(double x, double lo, double hi) {
@@ -68,9 +120,12 @@ __device__ double bounded_exp_u(double u, double lam, double a, double b) {
   return clip(x, a, b);
 }
 
-// frac of cell c covered below t, clipped to [0, 1]
+// frac of cell c covered below t: clip((t - lb) / t_step, 0, 1), with the
+// division only inside the cell.  Exact: for x = t - lb, the rounded x / t_step
+// is >= 1 iff x >= t_step and > 0 iff x > 0 (and NaN clips to 0).
 __device__ __forceinline__ double frac(double t, double lb, double t_step) {
-  return clip((t - lb) / t_step, 0.0, 1.0);
+  double x = t - lb;
+  return x >= t_step ? 1.0 : (x > 0.0 ? x / t_step : 0.0);
 }
 
 __device__ __forceinline__ int cell_of(double t, const Shared& s, int C) {
@@ -78,29 +133,105 @@ __device__ __forceinline__ int cell_of(double t, const Shared& s, int C) {
   return (int)clip(c, -MARGIN - 1.0, (double)(C + MARGIN + 1));
 }
 
-// block-wide sum of up to 3 values; every thread gets the totals
-__device__ void block_sum3(double& a, double& b, double& c, double* red) {
-  const int T = blockDim.x, i = threadIdx.x;
-  red[i] = a;
-  red[T + i] = b;
-  red[2 * T + i] = c;
-  __syncthreads();
-  for (int s = T / 2; s > 0; s >>= 1) {
-    if (i < s) {
-      red[i] += red[i + s];
-      red[T + i] += red[T + i + s];
-      red[2 * T + i] += red[2 * T + i + s];
-    }
-    __syncthreads();
-  }
-  a = red[0];
-  b = red[T];
-  c = red[2 * T];
-  __syncthreads();
+// k_p change of one displacement from ot to nt in cell c
+__device__ __forceinline__ double dk_at(int c, double ot, double nt,
+                                        double sign, const Shared& s) {
+  double lb = s.t_lo + s.t_step * (double)c;
+  return sign * (frac(nt, lb, s.t_step) - frac(ot, lb, s.t_step));
 }
 
-__global__ void __launch_bounds__(THREADS) sweep_chain_kernel(
-    int NC, int MC, int C, int C_real, int cpb, int n_blocks,
+// quadratic-prior change of adding dk to cell c
+__device__ __forceinline__ double dq_at(double dkc, double k, double inv,
+                                        double A, double b) {
+  return inv * (0.5 * ((k + dkc) * (k + dkc) - k * k) * A - b * dkc);
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// GROUP lanes of one warp work on one node in the batched move, the k_p
+// scatter and the reform (cells and slots split over the group's lanes);
+// the group's lanes compute the node's scalars alike and take the same
+// branches, so a shuffle over the group's own mask is always complete.
+constexpr int GROUP = 4;
+
+__device__ __forceinline__ unsigned group_mask() {
+  return ((1u << GROUP) - 1) << ((threadIdx.x & 31) & ~(GROUP - 1));
+}
+
+__device__ __forceinline__ double group_sum(double v) {
+  for (int o = 1; o < GROUP; o <<= 1)
+    v += __shfl_xor_sync(group_mask(), v, o);
+  return v;
+}
+
+__device__ __forceinline__ double group_max(double v) {
+  for (int o = 1; o < GROUP; o <<= 1)
+    v = fmax(v, __shfl_xor_sync(group_mask(), v, o));
+  return v;
+}
+
+__device__ __forceinline__ double group_min(double v) {
+  for (int o = 1; o < GROUP; o <<= 1)
+    v = fmin(v, __shfl_xor_sync(group_mask(), v, o));
+  return v;
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// doubles of one block step's uniforms in shared memory:
+// pri, prop, acc, ref_acc (NC each), ref_u (MC), sc lanes, norm lane 0
+__host__ __device__ __forceinline__ int stage_doubles(int NC, int MC) {
+  return 4 * NC + MC + SC_LANES + 1;
+}
+
+// start copying block step ub's uniforms of this part into buf, with the
+// threads from `first` on
+__device__ void fetch_uniforms(double* buf, const Uniforms& u, long ub,
+                               int NC, int MC, int first) {
+  const int i = threadIdx.x - first, nt = blockDim.x - first;
+  if (i < 0) return;
+  for (int k = i; k < NC; k += nt) {
+    cp_async8(buf + k, u.pri + ub * NC + k);
+    cp_async8(buf + NC + k, u.prop + ub * NC + k);
+    cp_async8(buf + 2 * NC + k, u.acc + ub * NC + k);
+    cp_async8(buf + 3 * NC + k, u.ref_acc + ub * NC + k);
+  }
+  for (int k = i; k < MC; k += nt)
+    cp_async8(buf + 4 * NC + k, u.ref_u + ub * MC + k);
+  for (int k = i; k <= SC_LANES; k += nt)
+    cp_async8(buf + 4 * NC + MC + k,
+              k < SC_LANES ? u.sc + ub * u.S + k : u.norm + ub * u.Z);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__host__ __device__ size_t smem_bytes(int NC, int MC, int C_real, int cpb,
+                                      int stages) {
+  int n_seg = C_real / cpb + 1;
+  size_t doubles = 11 * (size_t)NC + 2 * (size_t)MC + 4 * (size_t)C_real +
+                   (size_t)stages * stage_doubles(NC, MC) + 3 * 32;
+  size_t u64s = n_seg;
+  size_t ints = 9 * (size_t)NC + 1 + 3 * (size_t)MC + n_seg + 2;
+  return doubles * sizeof(double) + u64s * 8 + ints * sizeof(int);
+}
+
+int stages_for(int NC, int MC, int C_real, int cpb) {
+  return smem_bytes(NC, MC, C_real, cpb, 2) <= (size_t)SMEM_LIMIT ? 2 : 1;
+}
+
+__global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
+    int NC, int MC, int C, int C_real, int cpb, int n_blocks, int stages,
     const double* __restrict__ t_in,
     const double* __restrict__ mut_in, const double* __restrict__ kp_in,
     const int* __restrict__ par_g, const int* __restrict__ c0_g,
@@ -111,60 +242,60 @@ __global__ void __launch_bounds__(THREADS) sweep_chain_kernel(
     const double* __restrict__ slope_g, const double* __restrict__ b_g,
     const double* __restrict__ A_g, const double* __restrict__ nbar_g,
     const int* __restrict__ isc, const double* __restrict__ fsc, int NB,
-    const double* __restrict__ u_pri, const double* __restrict__ u_prop,
-    const double* __restrict__ u_acc, const double* __restrict__ u_refu,
-    const double* __restrict__ u_refacc, const double* __restrict__ u_sc,
-    const double* __restrict__ u_norm, int S, int Z, double* t_out,
-    double* mut_out, double* kp_out, double* acc_out) {
+    Uniforms un, double* t_out, double* mut_out, double* kp_out,
+    double* acc_out) {
   const int p = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  // node groups: group g (lanes r = 0..GROUP-1) takes nodes g, g + NG, ...
+  const int grp = tid / GROUP, r = tid % GROUP, NG = T / GROUP;
   const int part_root = isc[p * 4 + 0];
   const int is_run_root = isc[p * 4 + 1];
   const int n_leaves = isc[p * 4 + 2];
   const int n_nodes = isc[p * 4 + 3];
   const Shared sh{fsc[0], fsc[1], fsc[2], fsc[3], fsc[4], fsc[5], fsc[6]};
   const int n_seg = C_real / cpb + 1;
+  const int UB = stage_doubles(NC, MC);
 
-  // ---- shared memory carve-up (doubles first, then ints) ----
+  // ---- shared memory carve-up (doubles, then u64, then ints) ----
   extern __shared__ double smem[];
   double* t = smem;                 // NC
   double* t_min = t + NC;           // NC
   double* t_max = t_min + NC;       // NC
   double* lam = t_max + NC;         // NC
   double* dlam = lam + NC;          // NC
-  double* own_max = dlam + NC;      // NC
-  double* child_min = own_max + NC; // NC
+  double* own_max = dlam + NC;      // NC: latest mutation time on the branch
+  double* child_min = own_max + NC; // NC: earliest mutation time on it
   double* win_lo = child_min + NC;  // NC
   double* win_hi = win_lo + NC;     // NC
-  double* pri = win_hi + NC;        // NC
-  double* new_t = pri + NC;         // NC
-  double* mut_t = new_t + NC;       // MC
+  double* new_t = win_hi + NC;      // NC
+  double* t_old = new_t + NC;       // NC
+  double* mut_t = t_old + NC;       // MC
   double* slope = mut_t + MC;       // MC
-  double* new_mut = slope + MC;     // MC
-  double* per_slot = new_mut + MC;  // MC
-  double* kp = per_slot + MC;       // C_real
+  double* kp = slope + MC;          // C_real
   double* bc = kp + C_real;         // C_real
   double* Ac = bc + C_real;         // C_real
   double* inv = Ac + C_real;        // C_real: t_step / nbar
-  double* dk = inv + C_real;        // C_real: single-move dk
-  double* best = dk + C_real;       // n_seg
-  double* red = best + n_seg;       // 3 * T
-  double* scal = red + 3 * T;       // 8 broadcast scalars
-  int* par = (int*)(scal + 8);      // NC
+  double* ubuf = inv + C_real;      // stages x UB
+  double* red = ubuf + stages * UB; // 3 x 32
+  unsigned long long* best = (unsigned long long*)(red + 3 * 32);  // n_seg
+  int* par = (int*)(best + n_seg);  // NC
   int* c0 = par + NC;               // NC
   int* c1 = c0 + NC;                // NC
   int* blk = c1 + NC;               // NC
-  int* flag = blk + NC;             // NC: bit0 fits, bit1 sel0, bit2 sel,
-                                    //     bit3 in_bounds, bit4 accept
-  int* c_lo = flag + NC;            // NC
+  int* fits = blk + NC;             // NC
+  int* accn = fits + NC;            // NC: accepted in the batched move
+  int* c_lo = accn + NC;            // NC
   int* c_hi = c_lo + NC;            // NC
   int* slot_start = c_hi + NC;      // NC + 1
   int* slot_list = slot_start + NC + 1;  // MC
   int* mnode = slot_list + MC;      // MC
-  int* sflag = mnode + MC;          // MC: bit0 valid, bit1 single, bit2 mut_in
-  int* iscal = sflag + MC;          // 4 broadcast ints
+  int* sflag = mnode + MC;          // MC: bit0 valid, bit1 single
+  int* seg_acc = sflag + MC;        // n_seg: accepted nodes per segment
+  int* iscal = seg_acc + n_seg;     // [0] tie flag, [1] reform batch size
 
-  // ---- load the part's rows ----
+  // ---- load the part's rows and the first step's uniforms ----
+  if (n_blocks > 0) fetch_uniforms(ubuf, un, (long)p * NB, NC, MC, 0);
   for (int n = tid; n < NC; n += T) {
     long g = (long)p * NC + n;
     t[n] = t_in[g];
@@ -191,6 +322,11 @@ __global__ void __launch_bounds__(THREADS) sweep_chain_kernel(
     Ac[c] = A_g[c];
     inv[c] = sh.t_step / nbar_g[c];
   }
+  for (int s = tid; s < n_seg; s += T) {
+    best[s] = 0ull;
+    seg_acc[s] = 0;
+  }
+  if (tid == 0) iscal[0] = 0;
   __syncthreads();
 
   // ---- per-node slot lists (the pool is static within a sweep) ----
@@ -207,189 +343,162 @@ __global__ void __launch_bounds__(THREADS) sweep_chain_kernel(
     int nb = 0;
     for (int n = 0; n < NC; ++n)
       if (n < n_nodes && n != part_root) ++nb;
-    iscal[0] = nb;  // nodes in the reform batch
+    iscal[1] = nb;  // nodes in the reform batch
   }
   __syncthreads();
   for (int n = tid; n < NC; n += T) {
     int k = slot_start[n];
+    double mx = -INFINITY, mn = INFINITY;
     for (int j = 0; j < MC; ++j)
-      if ((sflag[j] & 1) && mnode[j] == n) slot_list[k++] = j;
+      if ((sflag[j] & 1) && mnode[j] == n) {
+        slot_list[k++] = j;
+        mx = fmax(mx, mut_t[j]);
+        mn = fmin(mn, mut_t[j]);
+      }
+    own_max[n] = mx;
+    child_min[n] = mn;
   }
+  cp_async_wait_all();
   __syncthreads();
 
   const double grid_lo = sh.t_lo + sh.t_step;
-  double dG = 0.0, dC = 0.0, cntm = 0.0;  // meaningful in thread 0
+  const int nb_reform = iscal[1];
+  const bool scatter_ok = cpb >= 2 * MARGIN + 2;
+  // this thread's share of the part's dG, dC and move count
+  double dG = 0.0, dC = 0.0, cntm = 0.0;
 
   for (int blk_i = 0; blk_i < n_blocks; ++blk_i) {
     const long ub = (long)p * NB + blk_i;
-    const double* usc = u_sc + ub * S;
-    const double* unorm = u_norm + ub * Z;
-
-    // =========== single node / tip displacement ===========
-    {
-      if (tid == 0) {
-        bool inner = usc[SC_SEL] < 0.5;
-        int n_inner = n_nodes - n_leaves;
-        int node_i = n_leaves +
-            (int)floor(usc[SC_NODE_I] * (double)max(n_inner, 1));
-        int node_t = (int)floor(usc[SC_NODE_T] * (double)max(n_leaves, 1));
-        int node = inner ? node_i : node_t;
-        bool ok = node >= 0 && node < NC;
-        int nd = ok ? node : 0;
-        bool is_root_move = inner && node == part_root;
-        double tmin_n = ok ? t_min[nd] : 0.0, tmax_n = ok ? t_max[nd] : 0.0;
-        bool valid = inner ? (!is_root_move || is_run_root != 0)
-                           : (tmin_n < tmax_n);
-        double own = -INFINITY;
-        if (ok)
-          for (int k = slot_start[nd]; k < slot_start[nd + 1]; ++k)
-            own = fmax(own, mut_t[slot_list[k]]);
-        int par_n = ok ? par[nd] : 0;
-        int safe_par = max(par_n, 0);
-        double t_par = is_root_move ? grid_lo : t[safe_par];
-        double t_lo_b = fmax(t_par, own);
-        if (!inner) t_lo_b = fmax(t_lo_b, tmin_n);
-        int c0n = ok ? c0[nd] : 0, c1n = ok ? c1[nd] : 0;
-        double cb[2];
-        int cn2[2] = {c0n, c1n};
-        for (int q = 0; q < 2; ++q) {
-          int cn = cn2[q];
-          if (cn < 0) {
-            cb[q] = INFINITY;
-            continue;
-          }
-          double mm = INFINITY;
-          for (int k = slot_start[cn]; k < slot_start[cn + 1]; ++k)
-            mm = fmin(mm, mut_t[slot_list[k]]);
-          cb[q] = fmin(t[cn], mm);
-        }
-        double t_hi = inner ? fmin(cb[0], cb[1]) : tmax_n;
-        double lam_n = ok ? lam[nd] : 0.0;
-        double lam_b0 = c0n >= 0 ? lam_n + dlam[max(c0n, 0)] : 0.0;
-        double lam_b1 = c1n >= 0 ? lam_n + dlam[max(c1n, 0)] : 0.0;
-        double d = inner ? ((is_root_move ? 0.0 : -lam_n) + lam_b0 + lam_b1)
-                         : -lam_n;
-        double old_t = ok ? t[nd] : 0.0;
-        double tree_span = fmax(sh.t_max_tip - t_hi, 0.0);
-        double delta_scale = fmin(0.5 / fmax(lam_n, 1e-30), tree_span);
-        double root_t = old_t + delta_scale * unorm[0];
-        double a = t_lo_b > -INFINITY ? t_lo_b : old_t - 1.0;
-        double bnd = t_hi < INFINITY ? t_hi : old_t + 1.0;
-        double nt = is_root_move
-            ? root_t
-            : bounded_exp_u(usc[SC_PROP], d, fmin(a, bnd), bnd);
-        bool in_bounds = valid && nt > t_lo_b && nt < t_hi && t_lo_b < t_hi;
-        double dlg = d * (nt - old_t);
-        double log_alpha = is_root_move ? 0.0 : dlg;
-        double dlogn = inner ? -(log_pop(nt, sh) - log_pop(old_t, sh)) : 0.0;
-        scal[0] = old_t;
-        scal[1] = nt;
-        scal[2] = inner ? -1.0 : 1.0;
-        scal[3] = dlg;
-        scal[4] = dlogn;
-        scal[5] = log_alpha;
-        iscal[1] = ok ? node : -1;
-        iscal[2] = in_bounds ? 1 : 0;
-      }
+    double* U = ubuf + (stages == 2 ? (blk_i & 1) * UB : 0);
+    if (stages == 1 && blk_i > 0) {
+      fetch_uniforms(ubuf, un, ub, NC, MC, 0);
+      cp_async_wait_all();
       __syncthreads();
-      const double old_t = scal[0], nt = scal[1], sign = scal[2];
-      double dq = 0.0, z1 = 0.0, z2 = 0.0;
-      for (int c = tid; c < C_real; c += T) {
-        double lb = sh.t_lo + sh.t_step * (double)c;
-        double dkc = sign * (frac(nt, lb, sh.t_step) - frac(old_t, lb, sh.t_step));
-        dk[c] = dkc;
-        double k = kp[c];
-        dq += inv[c] * (0.5 * ((k + dkc) * (k + dkc) - k * k) * Ac[c] -
-                        bc[c] * dkc);
+    } else if (stages == 2 && blk_i + 1 < n_blocks) {
+      // warps other than warp 0, which runs the single move meanwhile
+      fetch_uniforms(ubuf + ((blk_i + 1) & 1) * UB, un, ub + 1, NC, MC,
+                     T > 32 ? 32 : 0);
+    }
+    const double* upri = U;
+    const double* uprop = U + NC;
+    const double* uacc = U + 2 * NC;
+    const double* urefacc = U + 3 * NC;
+    const double* uref = U + 4 * NC;
+    const double* usc = U + 4 * NC + MC;
+    const double unorm0 = usc[SC_LANES];
+    const int offset = (int)floor(usc[SC_OFF] * (double)cpb);
+
+    // =========== single node / tip displacement (warp 0) ===========
+    if (warp == 0) {
+      bool inner = usc[SC_SEL] < 0.5;
+      int n_inner = n_nodes - n_leaves;
+      int node_i = n_leaves +
+          (int)floor(usc[SC_NODE_I] * (double)max(n_inner, 1));
+      int node_t = (int)floor(usc[SC_NODE_T] * (double)max(n_leaves, 1));
+      int node = inner ? node_i : node_t;
+      bool ok = node >= 0 && node < NC;
+      int nd = ok ? node : 0;
+      bool is_root_move = inner && node == part_root;
+      double tmin_n = ok ? t_min[nd] : 0.0, tmax_n = ok ? t_max[nd] : 0.0;
+      bool valid = inner ? (!is_root_move || is_run_root != 0)
+                         : (tmin_n < tmax_n);
+      double own = ok ? own_max[nd] : -INFINITY;
+      int par_n = ok ? par[nd] : 0;
+      int safe_par = max(par_n, 0);
+      double t_par = is_root_move ? grid_lo : t[safe_par];
+      double t_lo_b = fmax(t_par, own);
+      if (!inner) t_lo_b = fmax(t_lo_b, tmin_n);
+      int c0n = ok ? c0[nd] : 0, c1n = ok ? c1[nd] : 0;
+      double cb0 = c0n < 0 ? INFINITY : fmin(t[c0n], child_min[c0n]);
+      double cb1 = c1n < 0 ? INFINITY : fmin(t[c1n], child_min[c1n]);
+      double t_hi = inner ? fmin(cb0, cb1) : tmax_n;
+      double lam_n = ok ? lam[nd] : 0.0;
+      double lam_b0 = c0n >= 0 ? lam_n + dlam[max(c0n, 0)] : 0.0;
+      double lam_b1 = c1n >= 0 ? lam_n + dlam[max(c1n, 0)] : 0.0;
+      double d = inner ? ((is_root_move ? 0.0 : -lam_n) + lam_b0 + lam_b1)
+                       : -lam_n;
+      double old_t = ok ? t[nd] : 0.0;
+      double tree_span = fmax(sh.t_max_tip - t_hi, 0.0);
+      double delta_scale = fmin(0.5 / fmax(lam_n, 1e-30), tree_span);
+      double root_t = old_t + delta_scale * unorm0;
+      double a = t_lo_b > -INFINITY ? t_lo_b : old_t - 1.0;
+      double bnd = t_hi < INFINITY ? t_hi : old_t + 1.0;
+      double nt = is_root_move
+          ? root_t
+          : bounded_exp_u(usc[SC_PROP], d, fmin(a, bnd), bnd);
+      bool in_bounds = valid && nt > t_lo_b && nt < t_hi && t_lo_b < t_hi;
+      double dlg = d * (nt - old_t);
+      double log_alpha = is_root_move ? 0.0 : dlg;
+      double dlogn = inner ? -(log_pop(nt, sh) - log_pop(old_t, sh)) : 0.0;
+      double sign = inner ? -1.0 : 1.0;
+      int lo = max(cell_of(fmin(old_t, nt), sh, C_real) - MARGIN, 0);
+      int hi = min(cell_of(fmax(old_t, nt), sh, C_real) + MARGIN, C_real - 1);
+      double dq = 0.0;
+      for (int c = lo + lane; c <= hi; c += 32) {
+        double dkc = dk_at(c, old_t, nt, sign, sh);
+        if (dkc != 0.0) dq += dq_at(dkc, kp[c], inv[c], Ac[c], bc[c]);
       }
-      block_sum3(dq, z1, z2, red);
-      bool accept = false;
-      if (tid == 0) {
-        double dcoal = -dq + scal[4];
-        double dlg = scal[3];
-        double log_mh = dlg + dcoal - scal[5];
-        accept = iscal[2] != 0 &&
-                 (log_mh >= 0.0 || log(fmax(usc[SC_ACC], 1e-30)) < log_mh);
-        if (accept) {
-          // iscal[1] >= 0 whenever in_bounds (valid needs a real node)
-          if (iscal[1] >= 0) t[iscal[1]] = nt;
+      dq = warp_sum(dq);  // the same total in every lane
+      double dcoal = -dq + dlogn;
+      double log_mh = dlg + dcoal - log_alpha;
+      bool accept = in_bounds &&
+                    (log_mh >= 0.0 || log(fmax(usc[SC_ACC], 1e-30)) < log_mh);
+      if (accept) {
+        for (int c = lo + lane; c <= hi; c += 32) {
+          double dkc = dk_at(c, old_t, nt, sign, sh);
+          if (dkc != 0.0) kp[c] += dkc;
+        }
+        if (lane == 0) {
+          if (ok) t[node] = nt;
           dG += dlg;
           dC += dcoal;
         }
-        cntm += n_nodes > 1 ? 1.0 : 0.0;
-        iscal[3] = accept ? 1 : 0;
       }
-      __syncthreads();
-      if (iscal[3])
-        for (int c = tid; c < C_real; c += T) kp[c] += dk[c];
-      __syncthreads();
+      if (lane == 0 && n_nodes > 1) cntm += 1.0;
     }
+    __syncthreads();  // B1
 
     // =========== batched cell-block-coloured displacement ===========
-    {
-      const int offset = (int)floor(usc[SC_OFF] * (double)cpb);
-      const double* upri = u_pri + ub * NC;
-      const double* uprop = u_prop + ub * NC;
-      const double* uacc = u_acc + ub * NC;
-      // own_max / child_min per node from the slot lists
-      for (int n = tid; n < NC; n += T) {
-        double mx = -INFINITY, mn = INFINITY;
-        for (int k = slot_start[n]; k < slot_start[n + 1]; ++k) {
-          double v = mut_t[slot_list[k]];
-          mx = fmax(mx, v);
-          mn = fmin(mn, v);
-        }
-        own_max[n] = mx;
-        child_min[n] = mn;
-      }
-      __syncthreads();
-      for (int n = tid; n < NC; n += T) {
-        bool is_leaf = c0[n] < 0;
-        double t_par = par[n] >= 0 ? t[par[n]] : 0.0;
-        double cb0 = c0[n] >= 0 ? fmin(t[c0[n]], child_min[c0[n]]) : INFINITY;
-        double cb1 = c1[n] >= 0 ? fmin(t[c1[n]], child_min[c1[n]]) : INFINITY;
-        double tl = fmax(t_par, own_max[n]);
-        if (is_leaf) tl = fmax(tl, t_min[n]);
-        double th = is_leaf ? t_max[n] : fmin(cb0, cb1);
-        bool movable = n < n_nodes && n != part_root && tl < th;
-        double cf = floor((t[n] - sh.t_lo) / sh.t_step);
-        bool in_grid = cf >= 0.0 && cf < (double)C_real;
-        int cell = (int)clip(cf, -1.0, (double)C_real);
-        int q = cell + offset;
-        int b = (q >= 0 ? q / cpb : -((-q + cpb - 1) / cpb));
-        b = min(max(b, 0), n_seg - 1);
-        double blo = sh.t_lo + (double)(b * cpb - offset) * sh.t_step;
-        double bhi = blo + (double)cpb * sh.t_step;
-        double wl = fmax(tl, blo), wh = fmin(th, bhi);
-        bool fits = movable && in_grid && wl < wh;
-        blk[n] = b;
-        win_lo[n] = wl;
-        win_hi[n] = wh;
-        pri[n] = fits ? upri[n] : -1.0;
-        flag[n] = fits ? 1 : 0;
-      }
-      __syncthreads();
-      for (int s = tid; s < n_seg; s += T) {
-        double m = -1.0;
-        for (int n = 0; n < NC; ++n)
-          if (blk[n] == s) m = fmax(m, pri[n]);
-        best[s] = m;
-      }
-      __syncthreads();
-      for (int n = tid; n < NC; n += T)
-        if ((flag[n] & 1) && pri[n] >= 0.0 && pri[n] == best[blk[n]])
-          flag[n] |= 2;
-      __syncthreads();
-      // parent veto: a node drops out when its parent is selected
-      for (int n = tid; n < NC; n += T) {
-        bool sel = (flag[n] & 2) && !(par[n] >= 0 && (flag[par[n]] & 2));
-        if (sel) flag[n] |= 4;
-      }
-      __syncthreads();
-      double sum_g = 0.0, sum_c = 0.0, n_sel = 0.0;
-      for (int n = tid; n < NC; n += T) {
-        if (!(flag[n] & 4)) continue;
-        n_sel += 1.0;
+    // windows, and the segment maximum of the priorities
+    for (int n = tid; n < NC; n += T) {
+      bool is_leaf = c0[n] < 0;
+      double t_par = par[n] >= 0 ? t[par[n]] : 0.0;
+      double cb0 = c0[n] >= 0 ? fmin(t[c0[n]], child_min[c0[n]]) : INFINITY;
+      double cb1 = c1[n] >= 0 ? fmin(t[c1[n]], child_min[c1[n]]) : INFINITY;
+      double tl = fmax(t_par, own_max[n]);
+      if (is_leaf) tl = fmax(tl, t_min[n]);
+      double th = is_leaf ? t_max[n] : fmin(cb0, cb1);
+      bool movable = n < n_nodes && n != part_root && tl < th;
+      double cf = floor((t[n] - sh.t_lo) / sh.t_step);
+      bool in_grid = cf >= 0.0 && cf < (double)C_real;
+      int cell = (int)clip(cf, -1.0, (double)C_real);
+      int q = cell + offset;
+      int b = (q >= 0 ? q / cpb : -((-q + cpb - 1) / cpb));
+      b = min(max(b, 0), n_seg - 1);
+      double blo = sh.t_lo + (double)(b * cpb - offset) * sh.t_step;
+      double bhi = blo + (double)cpb * sh.t_step;
+      double wl = fmax(tl, blo), wh = fmin(th, bhi);
+      bool f = movable && in_grid && wl < wh;
+      blk[n] = b;
+      win_lo[n] = wl;
+      win_hi[n] = wh;
+      fits[n] = f ? 1 : 0;
+      if (f && upri[n] >= 0.0)
+        atomicMax(&best[b], (unsigned long long)__double_as_longlong(upri[n]));
+    }
+    __syncthreads();  // B2
+
+    // proposals: selection, parent veto, dq over the node's cells (split over
+    // the node's group), accept
+    for (int n = grp; n < NC; n += NG) {
+      int acc_n = 0;
+      bool sel0 = fits[n] && upri[n] >= 0.0 &&
+                  upri[n] == __longlong_as_double((long long)best[blk[n]]);
+      int pn = par[n];
+      bool psel0 = pn >= 0 && fits[pn] && upri[pn] >= 0.0 &&
+                   upri[pn] == __longlong_as_double((long long)best[blk[pn]]);
+      if (sel0 && !psel0) {
+        if (r == 0) cntm += 1.0;
         bool is_leaf = c0[n] < 0;
         double lb0 = c0[n] >= 0 ? lam[n] + dlam[c0[n]] : 0.0;
         double lb1 = c1[n] >= 0 ? lam[n] + dlam[c1[n]] : 0.0;
@@ -397,120 +506,161 @@ __global__ void __launch_bounds__(THREADS) sweep_chain_kernel(
         double wl = win_lo[n], wh = win_hi[n];
         double nt = bounded_exp_u(uprop[n], d, wl, wh > wl ? wh : wl + 1.0);
         nt = clip(nt, wl, wh);
-        if (!(nt > wl && nt < wh)) continue;
-        flag[n] |= 8;
-        double ot = t[n];
-        double sign = is_leaf ? 1.0 : -1.0;
-        int lo = max(cell_of(fmin(ot, nt), sh, C_real) - MARGIN, 0);
-        int hi = min(cell_of(fmax(ot, nt), sh, C_real) + MARGIN, C_real - 1);
-        double dq = 0.0;
-        for (int c = lo; c <= hi; ++c) {
-          double lb = sh.t_lo + sh.t_step * (double)c;
-          double dkc = sign * (frac(nt, lb, sh.t_step) - frac(ot, lb, sh.t_step));
-          double k = kp[c];
-          dq += inv[c] * (0.5 * ((k + dkc) * (k + dkc) - k * k) * Ac[c] -
-                          bc[c] * dkc);
-        }
-        double dcoal = -dq + (is_leaf ? 0.0
-                                      : -(log_pop(nt, sh) - log_pop(ot, sh)));
-        double lu = log(fmax(uacc[n], 1e-30));
-        if (dcoal >= 0.0 || lu < dcoal) {
-          flag[n] |= 16;
-          new_t[n] = nt;
-          c_lo[n] = lo;
-          c_hi[n] = hi;
-          sum_g += d * (nt - ot);
-          sum_c += dcoal;
+        if (nt > wl && nt < wh) {
+          double ot = t[n];
+          double sign = is_leaf ? 1.0 : -1.0;
+          int lo = max(cell_of(fmin(ot, nt), sh, C_real) - MARGIN, 0);
+          int hi = min(cell_of(fmax(ot, nt), sh, C_real) + MARGIN,
+                       C_real - 1);
+          double dq = 0.0;
+          for (int c = lo + r; c <= hi; c += GROUP) {
+            double dkc = dk_at(c, ot, nt, sign, sh);
+            if (dkc != 0.0) dq += dq_at(dkc, kp[c], inv[c], Ac[c], bc[c]);
+          }
+          dq = group_sum(dq);  // the same total in the group's lanes
+          double dcoal = -dq + (is_leaf ? 0.0
+                                        : -(log_pop(nt, sh) - log_pop(ot, sh)));
+          if (dcoal >= 0.0 || log(fmax(uacc[n], 1e-30)) < dcoal) {
+            acc_n = 1;
+            if (r == 0) {
+              new_t[n] = nt;
+              t_old[n] = ot;
+              c_lo[n] = lo;
+              c_hi[n] = hi;
+              dG += d * (nt - ot);
+              dC += dcoal;
+              if (atomicAdd(&seg_acc[blk[n]], 1) > 0) iscal[0] = 1;  // a tie
+            }
+          }
         }
       }
-      block_sum3(sum_g, sum_c, n_sel, red);
-      if (tid == 0) {
-        dG += sum_g;
-        dC += sum_c;
-        cntm += n_sel;
-      }
-      // k_p update, one thread per cell over the accepted nodes (their
-      // cells are disjoint, but summing per cell needs no such promise)
+      if (r == 0) accn[n] = acc_n;
+    }
+    __syncthreads();  // B3: every dq has read the old k_p
+
+    // k_p scatter over each accepted node's own segment, and the new times
+    const bool serial = iscal[0] != 0 || !scatter_ok;
+    if (serial) {
+      // per-cell sum over all accepted nodes (ties, or cpb too small)
       for (int c = tid; c < C_real; c += T) {
-        double lb = sh.t_lo + sh.t_step * (double)c;
         double add = 0.0;
         for (int n = 0; n < NC; ++n) {
-          if (!(flag[n] & 16) || c < c_lo[n] || c > c_hi[n]) continue;
-          double sign = c0[n] < 0 ? 1.0 : -1.0;
-          add += sign * (frac(new_t[n], lb, sh.t_step) -
-                         frac(t[n], lb, sh.t_step));
+          if (!accn[n] || c < c_lo[n] || c > c_hi[n]) continue;
+          add += dk_at(c, t_old[n], new_t[n], c0[n] < 0 ? 1.0 : -1.0, sh);
         }
         kp[c] += add;
       }
-      __syncthreads();
-      for (int n = tid; n < NC; n += T)
-        if (flag[n] & 16) t[n] = new_t[n];
-      __syncthreads();
     }
-
-    // =========== batched branch reform ===========
-    {
-      const double* uref = u_refu + ub * MC;
-      const double* urefacc = u_refacc + ub * NC;
-      for (int j = tid; j < MC; j += T) {
-        int f = sflag[j] & 3;
-        double nm = mut_t[j], ps = 0.0;
-        if ((f & 1) && (f & 2)) {
-          int n = mnode[j];
-          if (n < n_nodes && n != part_root) {
-            double tX = t[n];
-            double tP = par[n] >= 0 ? t[par[n]] : 0.0;
-            double u = fmax(uref[j], 1e-16);
-            nm = tP + u * (tX - tP);
-            ps = -slope[j] * (nm - mut_t[j]);
-            f |= 4;
-          }
+    for (int n = grp; n < NC; n += NG) {
+      if (!accn[n]) continue;
+      if (!serial) {
+        int first = blk[n] * cpb - offset;
+        int last = blk[n] == n_seg - 1 ? C_real - 1 : first + cpb - 1;
+        double sign = c0[n] < 0 ? 1.0 : -1.0;
+        for (int c = max(c_lo[n], first) + r; c <= min(c_hi[n], last);
+             c += GROUP) {
+          double dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
+          if (dkc != 0.0) kp[c] += dkc;
         }
-        sflag[j] = f;
-        new_mut[j] = nm;
-        per_slot[j] = ps;
       }
-      __syncthreads();
-      double sum_g = 0.0, z1 = 0.0, z2 = 0.0;
-      for (int n = tid; n < NC; n += T) {
-        double delta = 0.0;
-        for (int k = slot_start[n]; k < slot_start[n + 1]; ++k)
-          delta += per_slot[slot_list[k]];
-        bool in_batch = n < n_nodes && n != part_root;
-        bool acc = in_batch &&
-                   (delta >= 0.0 || log(fmax(urefacc[n], 1e-30)) < delta);
-        flag[n] = acc ? 32 : 0;
-        if (acc) sum_g += delta;
+      if (r == 0) t[n] = new_t[n];
+    }
+    __syncthreads();  // B4
+
+    // k_p margins outside the segments, then the batched branch reform
+    for (int n = grp; n < NC; n += NG) {
+      if (!serial && accn[n]) {
+        int first = blk[n] * cpb - offset;
+        int last = blk[n] == n_seg - 1 ? C_real - 1 : first + cpb - 1;
+        double sign = c0[n] < 0 ? 1.0 : -1.0;
+        for (int c = c_lo[n] + r; c <= min(c_hi[n], first - 1); c += GROUP) {
+          double dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
+          if (dkc != 0.0) kp[c] += dkc;
+        }
+        for (int c = max(c_lo[n], last + 1) + r; c <= c_hi[n]; c += GROUP) {
+          double dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
+          if (dkc != 0.0) kp[c] += dkc;
+        }
       }
-      __syncthreads();
-      for (int j = tid; j < MC; j += T)
-        if ((sflag[j] & 4) && (flag[mnode[j]] & 32)) mut_t[j] = new_mut[j];
-      block_sum3(sum_g, z1, z2, red);
-      if (tid == 0) {
-        dG += sum_g;
-        cntm += (double)iscal[0];
+      // reform: node n's group proposes for its own slots and decides
+      bool in_batch = n < n_nodes && n != part_root;
+      const int k0 = slot_start[n], k1 = slot_start[n + 1];
+      double tX = t[n];
+      double tP = par[n] >= 0 ? t[par[n]] : 0.0;
+      double delta = 0.0;
+      if (in_batch)
+        for (int k = k0 + r; k < k1; k += GROUP) {
+          int j = slot_list[k];
+          if (!(sflag[j] & 2)) continue;
+          double nm = tP + fmax(uref[j], 1e-16) * (tX - tP);
+          delta += -slope[j] * (nm - mut_t[j]);
+        }
+      delta = group_sum(delta);  // the same total in the group's lanes
+      bool acc = in_batch &&
+                 (delta >= 0.0 || log(fmax(urefacc[n], 1e-30)) < delta);
+      if (acc && r == 0) dG += delta;
+      double mx = -INFINITY, mn = INFINITY;
+      for (int k = k0 + r; k < k1; k += GROUP) {
+        int j = slot_list[k];
+        double v = mut_t[j];
+        if (acc && (sflag[j] & 2)) {
+          v = tP + fmax(uref[j], 1e-16) * (tX - tP);
+          mut_t[j] = v;
+        }
+        mx = fmax(mx, v);
+        mn = fmin(mn, v);
+      }
+      mx = group_max(mx);
+      mn = group_min(mn);
+      if (r == 0) {
+        own_max[n] = mx;
+        child_min[n] = mn;
       }
     }
+    for (int s = tid; s < n_seg; s += T) {
+      best[s] = 0ull;
+      seg_acc[s] = 0;
+    }
+    if (tid == 0) {
+      iscal[0] = 0;
+      cntm += (double)nb_reform;
+    }
+    if (stages == 2) cp_async_wait_all();
+    __syncthreads();  // B5
   }
 
-  // ---- write back ----
+  // ---- reduce the per-thread sums once, and write back ----
+  dG = warp_sum(dG);
+  dC = warp_sum(dC);
+  cntm = warp_sum(cntm);
+  if (lane == 0) {
+    red[warp * 3 + 0] = dG;
+    red[warp * 3 + 1] = dC;
+    red[warp * 3 + 2] = cntm;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0;
+    for (int w = 0; w < T / 32; ++w) {
+      s0 += red[w * 3 + 0];
+      s1 += red[w * 3 + 1];
+      s2 += red[w * 3 + 2];
+    }
+    acc_out[p * 3 + 0] = s0;
+    acc_out[p * 3 + 1] = s1;
+    acc_out[p * 3 + 2] = s2;
+  }
   for (int n = tid; n < NC; n += T) t_out[(long)p * NC + n] = t[n];
   for (int j = tid; j < MC; j += T) mut_out[(long)p * MC + j] = mut_t[j];
   for (int c = tid; c < C; c += T)
     kp_out[(long)p * C + c] = c < C_real ? kp[c] : kp_in[(long)p * C + c];
-  if (tid == 0) {
-    acc_out[p * 3 + 0] = dG;
-    acc_out[p * 3 + 1] = dC;
-    acc_out[p * 3 + 2] = cntm;
-  }
 }
 
-size_t smem_bytes(int NC, int MC, int C_real, int cpb) {
-  int n_seg = C_real / cpb + 1;
-  size_t doubles = 11 * (size_t)NC + 4 * (size_t)MC + 5 * (size_t)C_real +
-                   n_seg + 3 * THREADS + 8;
-  size_t ints = 8 * (size_t)NC + 1 + 3 * (size_t)MC + 4;
-  return doubles * sizeof(double) + ints * sizeof(int);
+// threads per block: GROUP per node, in whole warps, 64 to MAX_THREADS
+// (at NC = 64, 256 threads beat fixed 64, 128 and 512 on an H100: PERF.md)
+int threads_for(int NC) {
+  int t = (GROUP * NC + 31) / 32 * 32;
+  return t < 64 ? 64 : (t > MAX_THREADS ? MAX_THREADS : t);
 }
 
 }  // namespace
@@ -527,22 +677,25 @@ extern "C" int delphy_sweep_chain(
     const double* u_refu, const double* u_refacc, const double* u_sc,
     const double* u_norm, int S, int Z, double* t_out, double* mut_out,
     double* kp_out, double* acc_out, void* stream) {
-  size_t smem = smem_bytes(NC, MC, C_real, cpb);
+  int stages = stages_for(NC, MC, C_real, cpb);
+  size_t smem = smem_bytes(NC, MC, C_real, cpb, stages);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         sweep_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sweep_chain_kernel<<<P, THREADS, smem, (cudaStream_t)stream>>>(
-      NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in, kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle,
-      slope, b, A, nbar, isc, fsc, NB, u_pri, u_prop, u_acc, u_refu,
-      u_refacc, u_sc, u_norm, S, Z, t_out, mut_out, kp_out, acc_out);
+  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
+  sweep_chain_kernel<<<P, threads_for(NC), smem, (cudaStream_t)stream>>>(
+      NC, MC, C, C_real, cpb, n_blocks, stages, t_in, mut_in, kp_in, par, c0,
+      c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A, nbar,
+      isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out);
   return (int)cudaGetLastError();
 }
 
 extern "C" unsigned long long delphy_sweep_chain_smem_bytes(int NC, int MC,
                                                             int C_real,
                                                             int cpb) {
-  return (unsigned long long)smem_bytes(NC, MC, C_real, cpb);
+  return (unsigned long long)smem_bytes(NC, MC, C_real, cpb,
+                                        stages_for(NC, MC, C_real, cpb));
 }

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import DTYPE, ITYPE
+from . import DEFAULT_DEVICE, DTYPE, ITYPE, resolve_device
 
 # transition (A<->G, C<->T) and transversion indicator matrices
 _TRANSITION = [[0.0, 0.0, 1.0, 0.0],
@@ -63,7 +63,9 @@ class EvoParams(NamedTuple):
 
 def make_evo_params(num_sites: int, mu=1e-3 / 365.0, kappa=1.0,
                     pi=(0.25, 0.25, 0.25, 0.25), alpha=10.0,
-                    device="cpu") -> EvoParams:
+                    device=DEFAULT_DEVICE) -> EvoParams:
+    device = resolve_device(device)
+
     def f(x):
         return torch.as_tensor(x, dtype=DTYPE, device=device)
     pi = f(pi)

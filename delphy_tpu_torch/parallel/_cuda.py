@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled on first use with ``nvcc`` into one shared library
-with a plain C interface (``-gencode arch=compute_90a,code=sm_90a``), cached
+The sources are compiled on first use with ``nvcc`` (one process per
+source, in parallel) and linked into one shared library with a plain C
+interface (``-gencode arch=compute_90a,code=sm_90a``), cached
 in ``delphy_tpu_torch/_build/`` under a hash of the sources and flags, and
 loaded with ctypes.  Each C entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +30,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("hky_chain.cu", "exp_pop_chain.cu", "sweep_chain.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 launch_counts = {"hky_chain": 0, "exp_pop_chain": 0, "sweep_chain": 0}
 
@@ -48,6 +51,15 @@ _ARGTYPES = {
 }
 
 
+class Packed(NamedTuple):
+    """A C entry point's arguments, checked and packed by a wrapper: ``args``
+    (ints, floats and device pointers), the output tensors ``outs``, and
+    ``keep``, the packed input tensors the pointers refer to."""
+    args: tuple
+    outs: tuple
+    keep: tuple
+
+
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
@@ -63,29 +75,66 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into the cached shared library; returns its path.
-    verbose=True adds ``-Xptxas -v`` and prints the compiler's report."""
-    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+def build(verbose: bool = False, csrc_dir: str = CSRC_DIR,
+          sources=SOURCES) -> str:
+    """Compile the CUDA sources into a cached shared library; returns its
+    path.  One nvcc per source, all started together, then one link.
+    verbose=True adds ``-Xptxas -v`` and prints the compiler's report.
+    ``csrc_dir`` and ``sources`` let chip_smoke.py build another tree's
+    kernels, or the empty kernel of ``launch_floor.cu``, into a library of
+    their own."""
+    flags = list(NVCC_FLAGS)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"libdelphy_kernels_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"libdelphy_kernels_{tag}.so")
     if os.path.exists(so) and not verbose:
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    obj_dir = os.path.join(BUILD_DIR, f"obj_{tag}_{os.getpid()}")
+    os.makedirs(obj_dir, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for name in sources:
+        obj = os.path.join(obj_dir, name + ".o")
+        objs.append(obj)
+        procs.append((name, subprocess.Popen(
+            [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []), "-c",
+             os.path.join(csrc_dir, name), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report = []
+    for name, proc in procs:
+        out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} "
+                               f"({proc.returncode}):\n{out}")
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *flags, "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stdout}\n{res.stderr}")
     if verbose:
-        print(res.stdout + res.stderr, flush=True)
+        print("".join(report), flush=True)
     os.replace(tmp, so)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     return so
+
+
+def load(path: str):
+    """ctypes handle of a built library with the entry points' signatures."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.delphy_cuda_error_string.argtypes = [ctypes.c_int]
+    handle.delphy_cuda_error_string.restype = ctypes.c_char_p
+    handle.delphy_sweep_chain_smem_bytes.argtypes = [_I] * 4
+    handle.delphy_sweep_chain_smem_bytes.restype = ctypes.c_ulonglong
+    return handle
 
 
 def lib():
@@ -93,17 +142,7 @@ def lib():
     if _LIB is None:
         with _LOCK:
             if _LIB is None:
-                handle = ctypes.CDLL(build())
-                for name, argtypes in _ARGTYPES.items():
-                    fn = getattr(handle, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                handle.delphy_cuda_error_string.argtypes = [ctypes.c_int]
-                handle.delphy_cuda_error_string.restype = ctypes.c_char_p
-                handle.delphy_sweep_chain_smem_bytes.argtypes = [_I] * 4
-                handle.delphy_sweep_chain_smem_bytes.restype = \
-                    ctypes.c_ulonglong
-                _LIB = handle
+                _LIB = load(build())
     return _LIB
 
 

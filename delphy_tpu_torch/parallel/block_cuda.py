@@ -330,8 +330,10 @@ def sweep_chain_kernel(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     return _launch(stat, n_blocks, ctx_arrs, shared, u)
 
 
-def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
-            u: BlockUniforms):
+def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
+                u: BlockUniforms) -> _cuda.Packed:
+    """Check and pack the chain's inputs for ``delphy_sweep_chain``; outs are
+    (t (P,1,NC), mut_t (P,1,MC), k_p (P,1,C), acc (P,3))."""
     dev = ctx_arrs["t"].device
     P = ctx_arrs["t"].shape[0]
     NC, MC, C = stat.NC, stat.MC, stat.C
@@ -364,8 +366,8 @@ def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         _cuda.require(a, name, DTYPE, (P, NB, None), dev)
         if a.shape[2] < X:
             raise ValueError(f"{name}: last axis {a.shape[2]} < {X}")
-    lib = _cuda.lib()
-    smem = lib.delphy_sweep_chain_smem_bytes(NC, MC, stat.C_real, stat.cpb)
+    smem = _cuda.lib().delphy_sweep_chain_smem_bytes(NC, MC, stat.C_real,
+                                                      stat.cpb)
     if smem > 227 * 1024:
         raise ValueError(f"sweep chain needs {smem} bytes of shared memory "
                          f"per part, above the 227 KB a block can use")
@@ -375,7 +377,7 @@ def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     acc_o = torch.empty((P, 3), dtype=DTYPE, device=dev)
     R = {k: _cuda.ptr(v) for k, v in rows.items()}
     P_ = _cuda.ptr
-    rc = lib.delphy_sweep_chain(
+    args = (
         P, NC, MC, C, stat.C_real, stat.cpb, int(n_blocks),
         R["t"], R["mut_t"], R["k_p"], R["par"], R["c0"], R["c1"],
         R["t_min"], R["t_max"], R["lam"], R["dlam"], R["mnode"], R["mvalid"],
@@ -383,8 +385,16 @@ def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         NB, P_(u.pri), P_(u.prop), P_(u.acc), P_(u.ref_u), P_(u.ref_acc),
         P_(u.sc), P_(u.norm), u.sc.shape[2], u.norm.shape[2],
         P_(t_o), P_(mut_o), P_(kp_o), P_(acc_o), _cuda.stream_ptr())
-    _cuda.check(rc, "sweep_chain")
+    return _cuda.Packed(args, (t_o, mut_o, kp_o, acc_o),
+                        (*rows.values(), isc, fsc, A, nbar, *u))
+
+
+def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
+            u: BlockUniforms):
+    pk = pack_launch(stat, n_blocks, ctx_arrs, shared, u)
+    _cuda.check(_cuda.lib().delphy_sweep_chain(*pk.args), "sweep_chain")
     _cuda.launch_counts["sweep_chain"] += 1
+    t_o, mut_o, kp_o, acc_o = pk.outs
     return t_o, mut_o, kp_o, acc_o[:, 0], acc_o[:, 1], acc_o[:, 2]
 
 

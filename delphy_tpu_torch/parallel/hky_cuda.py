@@ -92,8 +92,10 @@ def hky_chain_kernel(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
                    n_rounds)
 
 
-def _launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
-            n_rounds: int):
+def pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
+                n_rounds: int) -> _cuda.Packed:
+    """Check and pack the chain's inputs for ``delphy_hky_chain``; outs are
+    (kappa, pi (1, 4), q (4, 4))."""
     kappa_m, kappa_s = hypf
     dev = u.device
     _cuda.require(u, "u", DTYPE, (None, None), dev)
@@ -111,13 +113,19 @@ def _launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
     pi = torch.empty((1, 4), dtype=DTYPE, device=dev)
     q = torch.empty((4, 4), dtype=DTYPE, device=dev)
     P = _cuda.ptr
-    rc = _cuda.lib().delphy_hky_chain(
-        P(u), u.shape[1], n_rounds, P(fsc), P(ins[0]), P(ins[1]), P(M),
-        P(ins[2]), float(kappa_m), float(kappa_s), P(kappa), P(pi), P(q),
-        _cuda.stream_ptr())
-    _cuda.check(rc, "hky_chain")
+    args = (P(u), u.shape[1], n_rounds, P(fsc), P(ins[0]), P(ins[1]), P(M),
+            P(ins[2]), float(kappa_m), float(kappa_s), P(kappa), P(pi), P(q),
+            _cuda.stream_ptr())
+    return _cuda.Packed(args, (kappa, pi, q), (u, fsc, *ins, M))
+
+
+def _launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
+            n_rounds: int):
+    pk = pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
+                     n_rounds)
+    _cuda.check(_cuda.lib().delphy_hky_chain(*pk.args), "hky_chain")
     _cuda.launch_counts["hky_chain"] += 1
-    return kappa, pi, q
+    return pk.outs
 
 
 def hky_chain(gen: torch.Generator, evo, Ttwiddle_a, M_ab, root_freq, hyp,

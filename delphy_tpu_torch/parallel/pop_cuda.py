@@ -119,8 +119,11 @@ def exp_pop_chain_kernel(u, lbs, k2, t_row, inner, t_step, t0, min_pop,
                    hypf, n_rounds)
 
 
-def _launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0, hypf,
-            n_rounds: int):
+def pack_launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0,
+                hypf, n_rounds: int) -> _cuda.Packed:
+    """Check and pack the chain's inputs for ``delphy_exp_pop_chain``; outs
+    is (out,), with out = [n0, g, n0 proposals evaluated per cell (the others
+    were folded to scalars), g proposals evaluated]."""
     (alpha, beta, g_min, g_max, g_mu, g_scale,
      size_enabled, growth_enabled) = hypf
     dev = u.device
@@ -137,14 +140,22 @@ def _launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0, hypf,
     _cuda.require(inner_, "inner", torch.int32, (N,), dev)
     fsc = torch.stack([torch.as_tensor(x, dtype=DTYPE, device=dev).reshape(())
                        for x in (t_step, t0, min_pop, n0_0, g_0)])
-    out = torch.empty(2, dtype=DTYPE, device=dev)
+    out = torch.empty(4, dtype=DTYPE, device=dev)
     P = _cuda.ptr
-    rc = _cuda.lib().delphy_exp_pop_chain(
-        P(u), u.shape[1], n_rounds, P(lbs_), P(k2_), C, P(t_), P(inner_), N,
-        P(fsc), alpha, beta, g_min, g_max, g_mu, g_scale,
-        int(size_enabled), int(growth_enabled), P(out), _cuda.stream_ptr())
-    _cuda.check(rc, "exp_pop_chain")
+    args = (P(u), u.shape[1], n_rounds, P(lbs_), P(k2_), C, P(t_), P(inner_),
+            N, P(fsc), alpha, beta, g_min, g_max, g_mu, g_scale,
+            int(size_enabled), int(growth_enabled), P(out),
+            _cuda.stream_ptr())
+    return _cuda.Packed(args, (out,), (u, lbs_, k2_, t_, inner_, fsc))
+
+
+def _launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0, hypf,
+            n_rounds: int):
+    pk = pack_launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0,
+                     g_0, hypf, n_rounds)
+    _cuda.check(_cuda.lib().delphy_exp_pop_chain(*pk.args), "exp_pop_chain")
     _cuda.launch_counts["exp_pop_chain"] += 1
+    out = pk.outs[0]
     return out[0], out[1]
 
 

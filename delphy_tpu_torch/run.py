@@ -4,7 +4,7 @@ exponential population model, one device).
 Owns the device state and the step/cadence bookkeeping.  Each
 ``do_mcmc_steps`` call runs dispatches of partitioned boundaries (global
 moves + local sweep) on the run's device, and host topology bursts through
-the native C++ kernel of the reused host layer.  The host syncs where the
+the port's native C++ topology kernel (``native/``).  The host syncs where the
 reference ``Run`` does: draining the attempted-move counts and fetching the
 fused state bundle at a burst.
 """
@@ -16,12 +16,7 @@ import os
 import numpy as np
 import torch
 
-from delphy_tpu.parallel.partmaps import (auto_num_partitions,
-                                          build_part_maps, host_mut_nodes,
-                                          pad_part_maps, part_size_cap)
-from delphy_tpu.phylo import FlatTree
-
-from . import DTYPE, resolve_device
+from . import DEFAULT_DEVICE, DTYPE, resolve_device
 from . import pop as popm
 from .convert import part_maps_to_torch
 from .evo import make_evo_params
@@ -29,11 +24,18 @@ from .mcmc import global_moves as gm
 from .mcmc.global_moves import PriorConfig
 from .mcmc.kernel import boundary_grid_bounds
 from .mcmc.moves import Ledger
+from .native import native_available, run_burst_native
 from .ops import coalescent as coal
 from .ops import likelihood as lk
+from .parallel.partmaps import (auto_num_partitions, build_part_maps,
+                                host_mut_nodes, pad_part_maps, part_size_cap)
 from .parallel.sweep import NB_MAX, parts_multi_super_step
+from .phylo import FlatTree, rereference_to_root_sequence
 from .state import TreeState, fetch_fused, pack_state, split_for_host, \
     unpack_state
+from .topo.mixer import HostCoalGrid, HostExpPop
+from .topo.parallel import run_partitioned_bursts
+from .topo.reform import resample_multi_site_chains
 
 # Dispatch cap: at most this many local moves of boundaries per dispatch.
 MAX_DISPATCH_MOVES = 32_000_000
@@ -68,14 +70,12 @@ class Run:
                  hyp: PriorConfig = PriorConfig(), num_cells: int = 512,
                  local_moves_per_global_move: int = -1,
                  topology_moves_enabled: bool = True,
-                 device_partitions: int = 0, device="cpu"):
+                 device_partitions: int = 0, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         if hyp.mpox_enabled or hyp.alpha_move_enabled:
             raise NotImplementedError("mpox and alpha/nu moves are not ported")
         if topology_moves_enabled:
-            # without the native kernel the reused host layer would fall back
-            # to a spawn pool whose children import delphy_tpu afresh
-            from delphy_tpu.native import native_available
+            # the port has no Python topology mixer to fall back to
             if not native_available():
                 raise RuntimeError("topology moves need the native topology "
                                    "kernel (g++), which failed to build")
@@ -288,12 +288,6 @@ class Run:
                    min(1024, T // 100))
 
     def _topology_burst(self, n_moves: int):
-        from delphy_tpu.native import run_burst_native
-        from delphy_tpu.phylo import rereference_to_root_sequence
-        from delphy_tpu.topo.mixer import HostCoalGrid, HostExpPop
-        from delphy_tpu.topo.parallel import run_partitioned_bursts
-        from delphy_tpu.topo.reform import resample_multi_site_chains
-
         # one fused device->host transfer for everything the burst needs
         if self._fused_bundle is not None:
             ints, flts = self._fused_bundle

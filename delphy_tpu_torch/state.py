@@ -15,9 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from delphy_tpu.phylo import FlatTree, Mutation, NO_NODE
-
-from . import DTYPE, ITYPE
+from . import DEFAULT_DEVICE, DTYPE, ITYPE, resolve_device
+from .phylo import FlatTree, Mutation, NO_NODE
 
 ROOT_MUT_T = -1.0e30  # sentinel time for root-sequence deltas
 
@@ -76,7 +75,9 @@ def _pad(rows, cap: int, dtypes):
 
 def pack_state(tree: FlatTree, mut_capacity: int | None = None,
                miss_capacity: int | None = None,
-               fs_capacity: int | None = None, device="cpu") -> TreeState:
+               fs_capacity: int | None = None,
+               device=DEFAULT_DEVICE) -> TreeState:
+    device = resolve_device(device)
     N = tree.num_nodes
     T = tree.num_tips
     for i in range(T):

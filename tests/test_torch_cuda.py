@@ -4,6 +4,14 @@ on a host without one.  This file imports no jax, so it also runs on a host
 that has none:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+Beside the main path's shapes, the sweep and exp-pop kernels are held to
+their plain versions where the main path does not go: rows that are not a
+multiple of a warp, padded nodes, slots and cells, a part with no valid
+mutation slot, a part near the 227 KB shared-memory bound, many accepted
+nodes in one batched move, tied priorities, colour blocks too narrow for
+the k_p scatter, and the exp-pop chain with one move off, g = 0 and the
+min_pop clamp inside the grid.
 """
 
 import os
@@ -14,6 +22,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAPLE = os.path.join(REPO, "data", "ebola2014_like_81x18959.maple")
+F64 = torch.float64
 
 pytestmark = pytest.mark.cuda
 
@@ -25,21 +34,122 @@ def device():
     return torch.device("cuda", 0)
 
 
-@pytest.fixture(scope="module")
-def run(device):
-    from delphy_tpu.init_tree import build_initial_tree
-    from delphy_tpu.io.maple import read_maple
-    from delphy_tpu_torch.run import Run
+def ebola_tree(n_tips=None):
+    from delphy_tpu_torch.init_tree import build_initial_tree
+    from delphy_tpu_torch.io.maple import read_maple
     mf = read_maple(MAPLE)
-    tips = mf.tips[:40]
-    tree = build_initial_tree(mf.ref_seq, [t.deltas for t in tips],
+    tips = mf.tips[:n_tips] if n_tips else mf.tips
+    return build_initial_tree(mf.ref_seq, [t.deltas for t in tips],
                               [t.miss_intervals for t in tips],
                               [(t.t_min, t.t_max) for t in tips],
                               names=[t.name for t in tips],
                               rng=np.random.default_rng(42))
-    r = Run(tree, seed=3, num_cells=256, device=device)
+
+
+def make_run(device, n_tips=None, seed=3, num_cells=256, **kw):
+    from delphy_tpu_torch.run import Run
+    r = Run(ebola_tree(n_tips), seed=seed, num_cells=num_cells,
+            device=device, **kw)
     r.do_mcmc_steps(r.local_moves_per_global_move)
     return r
+
+
+def sweep_boundary(run):
+    """(stat, ctx_arrs, shared) of the sweep of one boundary of ``run``."""
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel.sweep import prepare_sweep
+    ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
+        run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.t_max_tip,
+        run.hyp, run.num_cells)
+    stat, ctx, shared, _t_p, _ = prepare_sweep(
+        ts, evo, pop, grid, caches, run.pm, run.gen, run.t_max_tip,
+        run.num_cells)
+    return stat, ctx, shared
+
+
+def pad_chain(stat, ctx, shared, NC=None, MC=None, C=None):
+    """The same chain on rows padded to (NC, MC, C) with the JAX package's
+    inert padding (block_pallas.pack_chain_inputs): padded nodes have no
+    parent or children, padded slots are invalid, cells beyond C_real have
+    k_p = b = 0 and A = nbar = 1."""
+    from delphy_tpu_torch.parallel.block_cuda import _WIDTH, ChainStatics
+    width = {"NC": NC or stat.NC, "MC": MC or stat.MC, "C": C or stat.C}
+    fill = {"par": -1, "c0": -1, "c1": -1, "mnode": -1}
+    out = dict(ctx)
+    for k, w in _WIDTH.items():
+        out[k] = torch.nn.functional.pad(
+            ctx[k], (0, width[w] - ctx[k].shape[-1]), value=fill.get(k, 0))
+    sh = dict(shared)
+    for k in ("A", "nbar"):
+        sh[k] = torch.nn.functional.pad(shared[k], (0, width["C"] - stat.C),
+                                        value=1.0)
+    return ChainStatics(NC=width["NC"], MC=width["MC"], C=width["C"],
+                        C_real=stat.C_real, cpb=stat.cpb), out, sh
+
+
+def sweep_cases(device):
+    """(name, stat, ctx_arrs, shared, uniforms, n_blocks) away from the main
+    path's shapes (see the module docstring)."""
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+
+    def uni(stat, P, nb=24):
+        return bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device)
+
+    cases = []
+    stat, ctx, shared = sweep_boundary(make_run(device, n_tips=40))
+    P = ctx["t"].shape[0]
+    s, c, h = pad_chain(stat, ctx, shared, NC=stat.NC + 13, MC=stat.MC + 5,
+                        C=stat.C + 37)
+    c["mvalid"] = c["mvalid"].clone()
+    c["mvalid"][0] = 0                       # part 0: no valid slot
+    cases.append(("ragged", s, c, h, uni(s, P), 24))
+    u = uni(stat, P)
+    cases.append(("tied priorities", stat, ctx, shared,
+                  u._replace(pri=torch.full_like(u.pri, 0.5)), 24))
+    s = stat._replace(cpb=4)
+    cases.append(("narrow colour blocks", s, ctx, shared, uni(s, P), 24))
+    # the whole Ebola tree as one part: many nodes accepted per move
+    stat, ctx, shared = sweep_boundary(
+        make_run(device, num_cells=400, device_partitions=1))
+    s = stat._replace(cpb=8)
+    cases.append(("one part, many accepted", s, ctx, shared, uni(s, 1, 32),
+                  32))
+    for MC in (1600, 2400):     # two uniform stages fit, then only one
+        s, c, h = pad_chain(stat, ctx, shared, NC=768, MC=MC)
+        cases.append((f"NC=768 MC={MC}", s, c, h, uni(s, 1), 8))
+    return cases
+
+
+def pop_cases(run, boundary):
+    """(name, args of exp_pop_chain_kernel) off the main path."""
+    from delphy_tpu_torch.parallel import pop_cuda
+    ts, evo, pop, grid, caches, ledger, stats = boundary
+    dev = ts.t.device
+    u = torch.rand((50, 4), generator=run.gen, dtype=F64, device=dev)
+    rows = pop_cuda.pack_rows(grid, ts.t, ts.is_tip)
+
+    def f(x, default):
+        return default if x is None else torch.tensor(x, dtype=F64,
+                                                      device=dev)
+
+    def args(n0=None, g=None, min_pop=None, size=True, growth=True):
+        hypf = pop_cuda.hyp_floats(run.hyp)[:6] + (size, growth)
+        return (u, *rows, grid.t_step, pop.t0, f(min_pop, pop.min_pop),
+                f(n0, pop.n0), f(g, pop.g), hypf, 50)
+
+    return [("size move off", args(size=False)),
+            ("growth move off", args(growth=False)),
+            ("g = 0", args(g=0.0)),
+            ("clamp crosses the grid, g > 0", args(n0=3.0, g=0.01)),
+            ("clamp crosses the grid, g < 0", args(n0=3.0, g=-0.01)),
+            ("no min_pop floor", args(min_pop=0.0, g=0.003))]
+
+
+@pytest.fixture(scope="module")
+def run(device):
+    return make_run(device, n_tips=40)
 
 
 @pytest.fixture(scope="module")
@@ -49,10 +159,10 @@ def boundary(run):
                             run.tout, run.t_max_tip, run.hyp, run.num_cells)
 
 
-def _close(got, want, rtol, atol):
+def _close(got, want, rtol, atol, msg=None):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.reshape(-1), w.reshape(-1), rtol=rtol,
-                                   atol=atol)
+                                   atol=atol, msg=msg)
 
 
 def test_hky_kernel_matches_plain(run, boundary, device):
@@ -79,6 +189,15 @@ def test_exp_pop_kernel_matches_plain(run, boundary, device):
            pop_cuda.exp_pop_chain_torch(*args), rtol=1e-12, atol=1e-15)
 
 
+@pytest.mark.parametrize("case", range(6))
+def test_exp_pop_kernel_off_main_path(run, boundary, case):
+    from delphy_tpu_torch.parallel import pop_cuda
+    name, args = pop_cases(run, boundary)[case]
+    _close(pop_cuda.exp_pop_chain_kernel(*args),
+           pop_cuda.exp_pop_chain_torch(*args), rtol=1e-12, atol=1e-15,
+           msg=name)
+
+
 def test_sweep_kernel_matches_plain(run, boundary, device):
     from delphy_tpu_torch.parallel import block_cuda as bc
     from delphy_tpu_torch.parallel.sweep import prepare_sweep
@@ -94,6 +213,24 @@ def test_sweep_kernel_matches_plain(run, boundary, device):
     _close(got[3:5], want[3:5], rtol=1e-10, atol=1e-12)
     torch.testing.assert_close(got[5], want[5], rtol=0.0, atol=0.0)
     assert float(got[5].sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def off_path_sweeps(device):
+    return sweep_cases(device)
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_sweep_kernel_off_main_path(off_path_sweeps, case):
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    name, stat, ctx, shared, u, nb = off_path_sweeps[case]
+    got = bc.sweep_chain_kernel(stat, nb, ctx, shared, u)
+    want = bc.sweep_chain_torch(stat, nb, ctx, shared, u)
+    _close(got[:3], want[:3], rtol=0.0, atol=1e-9, msg=name)
+    _close(got[3:5], want[3:5], rtol=1e-10, atol=1e-12, msg=name)
+    torch.testing.assert_close(got[5], want[5], rtol=0.0, atol=0.0, msg=name)
+    moved = (got[0] - ctx["t"].reshape(got[0].shape)).abs().max()
+    assert float(moved) > 0.0, name
 
 
 def test_wrappers_reject_bad_inputs(run, device):

@@ -131,7 +131,7 @@ def test_exp_pop_chain_matches_jax_twin(seed):
         assert float(g_) == pytest.approx(float(w), rel=1e-9, abs=1e-15)
     assert float(got[0]) != pytest.approx(500.0)
     # the port's own unpadded rows give the same chain
-    grid_t = convert.from_numpy(CoalGrid, grid)
+    grid_t = convert.from_numpy(CoalGrid, grid, device="cpu")
     rows_t = pop_cuda.pack_rows(grid_t, T(t), T(is_tip))
     again = pop_cuda.exp_pop_chain_kernel(
         T(u), *rows_t, grid_t.t_step, T(p.t0), T(p.min_pop), T(p.n0),
@@ -218,7 +218,7 @@ def test_sweep_chain_matches_jax_twin(jax_boundary):
 @pytest.fixture(scope="module")
 def port_boundary():
     run = Run(_tree(23), seed=23, num_cells=200, device_partitions=4,
-              topology_moves_enabled=False)
+              topology_moves_enabled=False, device="cpu")
     ts, evo, pop_params, grid, caches, ledger, stats = run_global_moves(
         run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.t_max_tip,
         run.hyp, run.num_cells)

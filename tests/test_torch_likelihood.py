@@ -47,8 +47,8 @@ def both():
                                nu=nu)
     tin, tout = tree.euler_positions()
     return dict(tree=tree, ts_j=ts_j, e_j=e_j,
-                ts=convert.tree_state_to_torch(ts_j),
-                e=convert.evo_params_to_torch(e_j),
+                ts=convert.tree_state_to_torch(ts_j, device="cpu"),
+                e=convert.evo_params_to_torch(e_j, device="cpu"),
                 tin_j=jnp.asarray(tin), tout_j=jnp.asarray(tout),
                 tin=torch.as_tensor(np.asarray(tin)),
                 tout=torch.as_tensor(np.asarray(tout)))
@@ -111,7 +111,7 @@ def test_coalescent_matches_jax(both, n0, g, mp):
     ts, ts_j = both["ts"], both["ts_j"]
     p_j = jpop.ExpPopParams(t0=jnp.float64(0.0), n0=jnp.float64(n0),
                             g=jnp.float64(g), min_pop=jnp.float64(mp))
-    p = convert.exp_pop_to_torch(p_j)
+    p = convert.exp_pop_to_torch(p_j, device="cpu")
     t_lo, t_step, C = -420.0, 2.5, 200
     grid_j, lp_j = _jax_grid(p_j, ts_j.t, ts_j.is_tip, jnp.float64(t_lo),
                              jnp.float64(t_step), C)
@@ -215,8 +215,9 @@ def ref_fixture():
                     name=["a", "b", "c", "x", "r"])
     tree.check_integrity()
     from delphy_tpu_torch.state import pack_state
-    ts = pack_state(tree, 16, 8, 8)
-    e = evo.make_evo_params(4, mu=1.0, kappa=1.0, alpha=1.0)
+    ts = pack_state(tree, 16, 8, 8, device="cpu")
+    e = evo.make_evo_params(4, mu=1.0, kappa=1.0, alpha=1.0,
+                            device="cpu")
     e = e._replace(nu=torch.as_tensor(NU), part=torch.as_tensor(PART),
                    q_tab=torch.as_tensor(np.stack([MU_P[0] * Q0,
                                                    MU_P[1] * Q1])))

@@ -54,7 +54,7 @@ def test_initial_part_maps_match_jax(case):
     else:
         tree, kw = _ebola_tree(), dict(seed=1, num_cells=400)
     jrun = JRun(tree, **kw)
-    run = Run(tree, **kw)
+    run = Run(tree, **kw, device="cpu")
     assert run.device_partitions == jrun.device_partitions
     pm_j = jax.device_get(jrun.pm)
     for f in pm_j._fields:
@@ -76,7 +76,8 @@ def test_initial_part_maps_match_jax(case):
 @pytest.fixture(scope="module")
 def stepped_run():
     _cuda.reset_launch_counts()
-    run = Run(_sim_tree(23), seed=23, num_cells=200, device_partitions=4)
+    run = Run(_sim_tree(23), seed=23, num_cells=200, device_partitions=4,
+              device="cpu")
     lm = run.local_moves_per_global_move
     run.do_mcmc_steps(3 * lm)
     run.do_mcmc_steps(2 * lm)

@@ -1,6 +1,8 @@
 """Port (delphy_tpu_torch) state layout against the JAX package: pack_state,
 unpack_state, fuse_for_host/split_for_host and the converters, all exact."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,7 +30,8 @@ def tree():
 def _params():
     pi = np.array([0.3, 0.2, 0.24, 0.26])
     e_j = jevo.make_evo_params(300, mu=2e-3, kappa=1.7, pi=pi, alpha=10.0)
-    e_t = evo.make_evo_params(300, mu=2e-3, kappa=1.7, pi=pi, alpha=10.0)
+    e_t = evo.make_evo_params(300, mu=2e-3, kappa=1.7, pi=pi, alpha=10.0,
+                              device="cpu")
     p_j = jpop.ExpPopParams(t0=jnp.float64(3.0), n0=jnp.float64(700.0),
                             g=jnp.float64(0.002), min_pop=jnp.float64(1.0))
     f = lambda x: torch.tensor(x, dtype=torch.float64)  # noqa: E731
@@ -41,7 +44,7 @@ def test_pack_state_matches_jax(tree, caps):
     kw = {} if caps is None else dict(zip(
         ("mut_capacity", "miss_capacity", "fs_capacity"), caps))
     want = jstate.pack_state(tree, **kw)
-    got = state.pack_state(tree, **kw)
+    got = state.pack_state(tree, **kw, device="cpu")
     for f in jstate.TreeState._fields:
         w = np.asarray(getattr(want, f))
         g = getattr(got, f).numpy()
@@ -50,18 +53,21 @@ def test_pack_state_matches_jax(tree, caps):
 
 
 def test_unpack_state_round_trip(tree):
-    ts = state.pack_state(tree)
+    ts = state.pack_state(tree, device="cpu")
     back = state.unpack_state(ts, names=tree.name)
     back.check_integrity()
     again = state.pack_state(back, ts.mut_node.shape[0],
-                             ts.miss_node.shape[0], ts.fs_node.shape[0])
+                             ts.miss_node.shape[0], ts.fs_node.shape[0],
+                             device="cpu")
     for f in state.TreeState._fields:
         np.testing.assert_array_equal(getattr(again, f).numpy(),
                                       getattr(ts, f).numpy(), err_msg=f)
-    # same content as the JAX unpack of the JAX pack
+    # same content as the JAX unpack of the JAX pack (the port's Mutation is
+    # its own class, so compare fields)
     jb = jstate.unpack_state(jstate.pack_state(tree), names=tree.name)
     for n in range(tree.num_nodes):
-        assert back.mutations[n] == jb.mutations[n]
+        assert [dataclasses.astuple(m) for m in back.mutations[n]] == \
+            [dataclasses.astuple(m) for m in jb.mutations[n]]
         assert back.miss_intervals[n] == jb.miss_intervals[n]
         assert back.miss_from_states[n] == jb.miss_from_states[n]
 
@@ -69,7 +75,7 @@ def test_unpack_state_round_trip(tree):
 def test_fuse_split_matches_jax(tree):
     e_j, e_t, p_j, p_t = _params()
     ts_j = jstate.pack_state(tree)
-    ts_t = state.pack_state(tree)
+    ts_t = state.pack_state(tree, device="cpu")
     ints_j, flts_j = jstate.fuse_for_host((ts_j, e_j, p_j))
     ints_t, flts_t = state.fuse_for_host((ts_t, e_t, p_t))
     assert ints_t.dtype == torch.int32 and flts_t.dtype == torch.float64
@@ -96,7 +102,7 @@ def test_convert_round_trip(tree):
             (ts_j, convert.tree_state_to_torch, jstate.TreeState),
             (e_j, convert.evo_params_to_torch, jevo.EvoParams),
             (p_j, convert.exp_pop_to_torch, jpop.ExpPopParams)):
-        t = to_t(obj)
+        t = to_t(obj, device="cpu")
         back = cls(**{k: jnp.asarray(v)
                       for k, v in convert.to_numpy(t).items()})
         for f in cls._fields:

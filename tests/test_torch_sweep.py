@@ -38,10 +38,10 @@ def both():
                     static_argnames=("hyp", "num_cells", "param_moves"))(
         jrun.ts, jrun.evo, jrun.pop, jrun.key, jrun.tin, jrun.tout,
         jrun.t_max_tip, hyp, jrun.num_cells, param_moves=False)
-    ts = convert.tree_state_to_torch(jrun.ts)
-    evo = convert.evo_params_to_torch(jrun.evo)
-    pop = convert.exp_pop_to_torch(jrun.pop)
-    pm = convert.part_maps_to_torch(jax.device_get(jrun.pm))
+    ts = convert.tree_state_to_torch(jrun.ts, device="cpu")
+    evo = convert.evo_params_to_torch(jrun.evo, device="cpu")
+    pop = convert.exp_pop_to_torch(jrun.pop, device="cpu")
+    pm = convert.part_maps_to_torch(jax.device_get(jrun.pm), device="cpu")
     out_t = run_global_moves(ts, evo, pop, torch.Generator(),
                              torch.as_tensor(np.array(jrun.tin)),
                              torch.as_tensor(np.array(jrun.tout)),
