@@ -240,9 +240,11 @@ def compare_kernels(run, device, base, floor_so):
     records = []
     X = TRANSCENDENTAL_OPS
 
-    # K1: HKY chain.  Operations per round: two HKY rate matrices (~60
-    # each), two log-likelihood ratios over 12 off-diagonal rates (a log
-    # each) and the root-frequency term (4 logs).
+    # K1: HKY chain.  Operations per round, as the folded chain needs them:
+    # four logs on the state (log1p of +-d / pi and R'/R for the frequency
+    # move, R'/R for the kappa move), three on the uniforms (log scale and
+    # the two accept tests) and ~60 other operations; then one HKY rate
+    # matrix (~60).
     hyp = run.hyp
     n_rounds = 10
     u = torch.rand((n_rounds, hky_cuda.N_LANES), generator=gen, dtype=DTYPE,
@@ -255,16 +257,17 @@ def compare_kernels(run, device, base, floor_so):
     want = hky_cuda.hky_chain_torch(*args)
     err = max(assert_close(f"hky_chain {n}", g, w, rtol=1e-12, atol=1e-15)
               for n, g, w in zip(("kappa", "pi", "q"), got, want))
+    path = hky_cuda.kernel_path(evo.kappa, evo.pi)
+    log(f"hky_chain path: {path}")
     rec = dict(name="hky_chain", route="cuda",
                source="delphy_tpu_torch/csrc/hky_chain.cu",
                replaces="delphy_tpu/parallel/hky_pallas.py:135",
-               max_abs_err=err)
+               max_abs_err=err, path=path)
     rec.update(measure(
         "hky_chain", "delphy_hky_chain", hky_cuda.pack_launch(*args),
         lambda: hky_cuda.hky_chain_kernel(*args),
         lambda: hky_cuda.hky_chain_torch(*args),
-        n_rounds * (2 * 60 + 2 * (12 * X + 40) + 4 * X), base,
-        [(1e-12, 1e-15)] * 3, device))
+        n_rounds * (7 * X + 60) + 60, base, [(1e-12, 1e-15)] * 3, device))
     records.append(rec)
 
     # K2: exp-pop chain.  Operations, from the work the kernel reports in

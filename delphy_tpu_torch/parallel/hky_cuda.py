@@ -92,6 +92,17 @@ def hky_chain_kernel(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
                    n_rounds)
 
 
+def kernel_path(kappa0, pi0) -> str:
+    """Which chain the kernel runs for these starting values: "folded"
+    (a few logs per MH step; exact while kappa and every pi_b are positive)
+    or "per-entry" (the plain version's 4x4 formula), by the kernel's own
+    rule (csrc/hky_chain.cu)."""
+    start = torch.cat([torch.as_tensor(kappa0, dtype=DTYPE).reshape(1).cpu(),
+                       torch.as_tensor(pi0, dtype=DTYPE).reshape(4).cpu()])
+    ok = bool((torch.isfinite(start) & (start > 0.0)).all())
+    return "folded" if ok else "per-entry"
+
+
 def pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
                 n_rounds: int) -> _cuda.Packed:
     """Check and pack the chain's inputs for ``delphy_hky_chain``; outs are

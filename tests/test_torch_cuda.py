@@ -10,8 +10,10 @@ their plain versions where the main path does not go: rows that are not a
 multiple of a warp, padded nodes, slots and cells, a part with no valid
 mutation slot, a part near the 227 KB shared-memory bound, many accepted
 nodes in one batched move, tied priorities, colour blocks too narrow for
-the k_p scatter, and the exp-pop chain with one move off, g = 0 and the
-min_pop clamp inside the grid.
+the k_p scatter, the exp-pop chain with one move off, g = 0 and the
+min_pop clamp inside the grid, and the HKY chain at the simplex edge, with
+a zero column of M, at extreme kappa, on its per-entry path (pi0 with a
+zero entry), over 1 and 64 rounds and from 256 random states.
 """
 
 import os
@@ -147,6 +149,57 @@ def pop_cases(run, boundary):
             ("no min_pop floor", args(min_pop=0.0, g=0.003))]
 
 
+def hky_cases(run, boundary):
+    """(name, kernel path, [args of hky_chain_kernel, ...]) off the main
+    path: the states where the folded chain's guards matter, the per-entry
+    path, 1 and 64 rounds, and 256 random states (numpy seed 7)."""
+    ts, evo, pop, grid, caches, ledger, stats = boundary
+    dev = ts.t.device
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
+
+    def args(n_rounds=10, kappa=None, pi=None, M=None, rf=None):
+        u = torch.rand((n_rounds, 6), generator=run.gen, dtype=F64,
+                       device=dev)
+        return (u, evo.mu, evo.kappa if kappa is None else t(kappa),
+                (evo.pi if pi is None else t(pi)).reshape(1, 4),
+                stats["Ttwiddle_a"],
+                stats["M_ab"].double() if M is None else t(M),
+                (caches.root_freq if rf is None else t(rf)).reshape(1, 4),
+                (1.0, 1.25), n_rounds)
+
+    M0 = stats["M_ab"].double().cpu().numpy().reshape(4, 4).copy()
+    rf0 = caches.root_freq.double().cpu().numpy().reshape(4).copy()
+    M0[:, 2] = 0.0
+    rf0[[0, 3]] = 0.0
+    rng = np.random.default_rng(7)
+    rand = []
+    for _ in range(256):
+        M = np.where(~np.eye(4, dtype=bool), rng.integers(0, 200, (4, 4)),
+                     0.0)
+        rand.append((t(rng.uniform(size=(10, 6))),
+                     t(10 ** rng.uniform(-4, -2)),
+                     t(np.exp(rng.normal(1.0, 1.25))),
+                     t(rng.dirichlet(np.ones(4))).reshape(1, 4),
+                     t(rng.uniform(1e3, 1e5, 4)), t(M),
+                     t(rng.integers(0, 40, 4)).reshape(1, 4), (1.0, 1.25),
+                     10))
+    edge = (0.004, 0.332, 0.332, 0.332)
+    return [("pi at the simplex edge", "folded", [args(pi=edge)]),
+            ("pi at the simplex edge, 64 rounds", "folded",
+             [args(64, pi=edge)]),
+            ("zero column of M, zero root frequencies", "folded",
+             [args(M=M0, rf=rf0)]),
+            ("kappa 0.05", "folded", [args(kappa=0.05)]),
+            ("kappa 200", "folded", [args(kappa=200.0)]),
+            ("pi0 with a zero entry", "per-entry",
+             [args(pi=(0.0, 0.4, 0.3, 0.3))]),
+            ("n_rounds 1", "folded", [args(1)]),
+            ("n_rounds 64", "folded", [args(64)]),
+            ("256 random states", "folded", rand)]
+
+
 @pytest.fixture(scope="module")
 def run(device):
     return make_run(device, n_tips=40)
@@ -175,6 +228,22 @@ def test_hky_kernel_matches_plain(run, boundary, device):
             (1.0, 1.25), 10)
     _close(hky_cuda.hky_chain_kernel(*args), hky_cuda.hky_chain_torch(*args),
            rtol=1e-12, atol=1e-15)
+
+
+@pytest.fixture(scope="module")
+def off_path_hky(run, boundary):
+    return hky_cases(run, boundary)
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_hky_kernel_off_main_path(off_path_hky, case):
+    from delphy_tpu_torch.parallel import hky_cuda
+    name, path, chains = off_path_hky[case]
+    for args in chains:
+        assert hky_cuda.kernel_path(args[2], args[3]) == path, name
+        _close(hky_cuda.hky_chain_kernel(*args),
+               hky_cuda.hky_chain_torch(*args), rtol=1e-12, atol=1e-15,
+               msg=name)
 
 
 def test_exp_pop_kernel_matches_plain(run, boundary, device):

@@ -53,20 +53,33 @@ def T(x):
 # K1: HKY chain
 # ---------------------------------------------------------------------------
 
-def _hky_inputs(seed):
+def _hky_inputs(seed, state=None):
+    """(u, evo, tt, M, rf) from ``seed``; ``state`` moves the start where the
+    kernel's guards matter: pi at the simplex edge (some frequency
+    proposals leave (0, 1)), a zero column of M with zero root
+    frequencies, or kappa far from the prior mean."""
     rng = np.random.default_rng(seed)
-    evo = j_make_evo(100, mu=1e-3, kappa=1.7,
-                     pi=np.array([0.3, 0.2, 0.25, 0.25]), alpha=10.0)
+    pi = np.array([0.004, 0.332, 0.332, 0.332]) if state == "pi_edge" \
+        else np.array([0.3, 0.2, 0.25, 0.25])
+    kappa = {"kappa_0.05": 0.05, "kappa_200": 200.0}.get(state, 1.7)
+    evo = j_make_evo(100, mu=1e-3, kappa=kappa, pi=pi, alpha=10.0)
     tt = rng.uniform(1e4, 1e5, 4)
     M = np.where(~np.eye(4, dtype=bool), rng.integers(0, 200, (4, 4)), 0.0)
     rf = rng.integers(0, 40, 4).astype(np.float64)
+    if state == "M_zero_column":
+        M[:, 2] = 0.0
+        rf[[0, 3]] = 0.0
     u = rng.uniform(size=(10, 128))
     return u, evo, tt, M, rf
 
 
-@pytest.mark.parametrize("seed", [0, 4, 9])
-def test_hky_chain_matches_jax_twin(seed):
-    u, evo, tt, M, rf = _hky_inputs(seed)
+@pytest.mark.parametrize("seed,state", [
+    (0, None), (4, None), (9, None), (1, "pi_edge"), (2, "M_zero_column"),
+    (3, "kappa_0.05"), (5, "kappa_200")],
+    ids=["0", "4", "9", "pi_edge", "M_zero_column", "kappa_0.05",
+         "kappa_200"])
+def test_hky_chain_matches_jax_twin(seed, state):
+    u, evo, tt, M, rf = _hky_inputs(seed, state)
     hyp = JPriorConfig()
     hypf = (float(hyp.kappa_prior_mean_log), float(hyp.kappa_prior_sigma_log))
     # the JAX twin's two extra flags switch its moves on; the port always
@@ -84,6 +97,79 @@ def test_hky_chain_matches_jax_twin(seed):
     # the chain moved, and q stays a proper rate matrix
     assert float(got[0]) != pytest.approx(float(evo.kappa))
     np.testing.assert_allclose(got[2].sum(1).numpy(), 0.0, atol=1e-12)
+    if state == "pi_edge":      # a proposal took pi_A out of (0, 1)
+        ia = np.floor(u[:, 1] * 4.0)
+        ib = (ia + 1 + np.floor(u[:, 2] * 3.0)) % 4
+        assert np.any((ib == 0) & (u[:, 0] * 0.01 > 0.004))
+
+
+def _np_hky_r(kappa):
+    a, b = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    return np.where((a != b) & (a % 2 == b % 2), kappa, 0.0) \
+        + np.where(a % 2 != b % 2, 1.0, 0.0)
+
+
+def _np_hky_q(kappa, pi):
+    """evo.hky_q in numpy: q_ab = r_ab pi_b / R, R = pi r pi, q_aa = -row
+    sum."""
+    r = _np_hky_r(kappa)
+    q = r * pi[None, :] / (pi @ r @ pi)
+    return q - np.diag(q.sum(1))
+
+
+@pytest.mark.parametrize("move", ["frequency", "kappa"])
+def test_hky_folded_log_ratio_identities(move):
+    """The identities csrc/hky_chain.cu folds the HKY log-likelihood ratio
+    with: per-entry sum over hky_q's rates against the folded form (W_ia,
+    W_ib, M_tot, M_ts and the closed forms of R and of the diagonal sum D),
+    on random states with zero entries of M and rf."""
+    rng = np.random.default_rng(11 if move == "frequency" else 12)
+    off = ~np.eye(4, dtype=bool)
+    transition = off & (np.arange(4)[:, None] % 2 == np.arange(4) % 2)
+
+    def closed(kappa, p, tt):
+        y, z = p[0] + p[2], p[1] + p[3]
+        R = 2.0 * (kappa * (p[0] * p[2] + p[1] * p[3]) + y * z)
+        D = (kappa * (tt[0] * p[2] + tt[2] * p[0] + tt[1] * p[3]
+                      + tt[3] * p[1])
+             + (tt[0] + tt[2]) * z + (tt[1] + tt[3]) * y)
+        return R, D / R
+
+    for _ in range(500):
+        pi = rng.dirichlet(np.ones(4))
+        kappa = float(np.exp(rng.normal(1.0, 1.25)))
+        mu, tt = 10 ** rng.uniform(-4, -2), rng.uniform(1e3, 1e5, 4)
+        M = np.where(off & (rng.uniform(size=(4, 4)) < 0.7),
+                     rng.integers(0, 200, (4, 4)), 0.0)
+        rf = np.where(rng.uniform(size=4) < 0.7, rng.integers(0, 40, 4), 0.0)
+        Mpos = off & (M > 0)
+        m_tot = M[Mpos].sum()
+        if move == "frequency":
+            ia = rng.integers(4)
+            ib = (ia + 1 + rng.integers(3)) % 4
+            d = rng.uniform(0.0, 0.01)
+            if not (pi[ib] - d > 0.0):
+                continue
+            new_pi, new_kappa = pi.copy(), kappa
+            new_pi[ia] += d
+            new_pi[ib] -= d
+        else:
+            new_pi, new_kappa = pi, kappa * rng.uniform(0.75, 1.0 / 0.75)
+        q, new_q = _np_hky_q(kappa, pi), _np_hky_q(new_kappa, new_pi)
+        plain = (-mu * np.sum((-np.diag(new_q) + np.diag(q)) * tt)
+                 + np.sum(M[Mpos] * np.log(new_q[Mpos] / q[Mpos]))
+                 + np.sum(np.where(rf > 0, rf * np.log(new_pi / pi), 0.0)))
+        R, DR = closed(kappa, pi, tt)
+        R_new, DR_new = closed(new_kappa, new_pi, tt)
+        np.testing.assert_allclose(R, pi @ _np_hky_r(kappa) @ pi, rtol=1e-14)
+        fold = -m_tot * np.log(R_new / R) - mu * (DR_new - DR)
+        if move == "frequency":
+            W = np.where(Mpos, M, 0.0).sum(0) + np.maximum(rf, 0.0)
+            fold += (W[ia] * np.log1p(d / pi[ia])
+                     + W[ib] * np.log1p(-d / pi[ib]))
+        else:
+            fold += M[Mpos & transition].sum() * np.log(new_kappa / kappa)
+        assert abs(fold - plain) < 1e-11, (move, fold, plain)
 
 
 # ---------------------------------------------------------------------------
