@@ -23,7 +23,22 @@ Phases, each of which raises (exit code != 0) on failure:
      initial tree, Run(tree, seed=1, num_cells=400) on the card, several
      dispatches of do_mcmc_steps with topology bursts; then the ledger check
      at 1e-6 in f64, the tree's integrity and the kernels' launch counts;
-  5. with --profile only: where a boundary's time goes (profile_path).
+  5. with --profile only: where a boundary's time goes (profile_path);
+  6. the command line at the same width: delphy_tpu_torch.cli.main in this
+     process on the Ebola file with --v0-paranoid, writing .log, .trees, MCC
+     and an npz snapshot; the .log's header and rows, the .trees read back,
+     the snapshot loaded on the card and stepped beside the CLI's own run
+     that never stopped (log_posterior compared with ==), the launch counts,
+     and the three BEAST XML exports;
+  7. the engine server: serve_in_thread on the card and, over the socket,
+     create_run, run_steps twice with a get_state in between, set_params,
+     get_tree_newick, both probers, get_mcc_nexus, save_snapshot +
+     load_snapshot + both runs stepped at once and compared, list_runs,
+     close_run and an unknown run_id (an RPC error); each request's wall
+     time is printed; then the ledger check at 1e-6, the tree's integrity
+     and the worker threads' launch counts.
+Phases 6 and 7 also write a .dphy stream and read it back where the
+flatbuffers package imports, and say so in one line where it does not.
 The last three lines are the kernels' JSON record, the card line and
 {"ok": true, "device": {...}}.  Needs a CUDA device; imports no jax.
 """
@@ -31,11 +46,15 @@ The last three lines are the kernels' JSON record, the card line and
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -372,7 +391,7 @@ def main_path(device, card: str):
     total = run.local_moves_attempted - base
     sync(device)
     dt = time.perf_counter() - t0
-    counts = dict(_cuda.launch_counts)
+    counts = check_counts("on the main path")
     log(f"dispatches {run.dispatch_count}, bursts {run.burst_count}, "
         f"topology moves {run.topology_proposed} proposed / "
         f"{run.topology_accepted} accepted")
@@ -384,14 +403,283 @@ def main_path(device, card: str):
     if not (np.all(np.isfinite(tree_out.t))
             and math.isfinite(run.log_posterior)):
         raise AssertionError("non-finite state after the main path")
-    for k, v in counts.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
     log(run.stats_line())
-    log(f"launch counts on the main path: {counts}")
     log(f"main path: {total} local moves in {dt:.3f} s = "
         f"{total / dt:.1f} moves/s (f64, {card})")
     return counts
+
+
+def have_flatbuffers() -> bool:
+    """Whether the .dphy legs can run: the writer needs the flatbuffers
+    package, which a GPU host may lack."""
+    try:
+        import flatbuffers  # noqa: F401
+    except ImportError:
+        log("no flatbuffers package on this host: the .dphy leg of phases 6 "
+            "and 7 did NOT run (every other output path did)")
+        return False
+    return True
+
+
+def check_counts(what: str) -> dict:
+    from delphy_tpu_torch.parallel import _cuda
+    counts = dict(_cuda.launch_counts)
+    for k, v in counts.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched {what}")
+    log(f"launch counts {what}: {counts}")
+    return counts
+
+
+LOG_HEADER = ["Sample", "posterior", "likelihood_really_logG",
+              "prior_for_Delphy", "treeLikelihood_really_logG", "TreeHeight",
+              "clockRate", "kappa", "Coalescent", "ePopSize", "growthRate",
+              "freqParameter.1", "freqParameter.2", "freqParameter.3",
+              "freqParameter.4"]
+
+
+def cli_path(device, card: str, dphy_leg: bool) -> dict:
+    """Phase 6: the command line at full width, and exact resume."""
+    from delphy_tpu_torch import cli
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.io.dphy import read_dphy
+    from delphy_tpu_torch.io.newick import read_beast_trees
+    from delphy_tpu_torch.io.snapshot import load_run
+    from delphy_tpu_torch.parallel import _cuda
+
+    built = []
+
+    class KeptRun(run_mod.Run):     # a handle on the Run the CLI builds
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    lm = 8050                       # 50 x 161 nodes: one boundary
+    chunk = 62 * lm                 # four chunks: phase 4's 248 boundaries
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {k: os.path.join(tmp, f"ebola.{k}")
+               for k in ("log", "trees", "mcc", "npz", "dphy")}
+        argv = ["--v0-in-maple", MAPLE, "--v0-seed", str(SEED),
+                "--v0-target-coal-prior-cells", str(NUM_CELLS),
+                "--v0-paranoid", "--v0-steps", str(4 * chunk),
+                "--v0-log-every", str(chunk), "--v0-tree-every", str(chunk),
+                "--v0-delphy-snapshot-every", str(2 * chunk),
+                "--v0-out-log-file", out["log"],
+                "--v0-out-trees-file", out["trees"],
+                "--v0-out-mcc-file", out["mcc"],
+                "--v0-out-delphy-file", out["npz"]]
+        _cuda.reset_launch_counts()
+        err = io.StringIO()
+        plain_run, run_mod.Run = run_mod.Run, KeptRun
+        try:
+            with contextlib.redirect_stderr(err):
+                t0 = time.perf_counter()
+                code = cli.main(argv)
+                sync(device)
+                wall = time.perf_counter() - t0
+        finally:
+            run_mod.Run = plain_run
+        for line in err.getvalue().splitlines():
+            log(f"cli: {line}")
+        if code != 0:
+            raise AssertionError(f"cli.main returned {code}")
+        counts = check_counts("on the CLI path")
+        (run,) = built
+        if run.device.type != "cuda" or run.local_moves_per_global_move != lm:
+            raise AssertionError("the CLI's run is not the Ebola run on CUDA")
+        if run.dispatch_count < 2 or run.burst_count < 1:
+            raise AssertionError("CLI path needs >= 2 dispatches and a burst")
+        rates = re.findall(r"\[([0-9.]+) Mmoves/s\]", err.getvalue())
+        log(f"CLI loop: {run.dispatch_count} dispatches, {run.burst_count} "
+            f"bursts, {run.local_moves_attempted} moves; its own last "
+            f"reading {rates[-1]} Mmoves/s; cli.main as a whole (file read, "
+            f"tree build and outputs included) {wall:.3f} s = "
+            f"{run.local_moves_attempted / wall:.1f} moves/s (f64, {card})")
+
+        with open(out["log"]) as f:
+            rows = [ln.rstrip("\n").split("\t") for ln in f]
+        if rows[0] != LOG_HEADER:
+            raise AssertionError(f".log header {rows[0]}")
+        if [r[0] for r in rows[1:]] != [str(chunk * i) for i in (1, 2, 3, 4)]:
+            raise AssertionError(f".log samples {[r[0] for r in rows[1:]]}")
+        vals = np.array([[float(v) for v in r] for r in rows[1:]])
+        if vals.shape != (4, len(LOG_HEADER)) or not np.all(np.isfinite(vals)):
+            raise AssertionError(".log rows are not finite")
+        trees = read_beast_trees(out["trees"], np.zeros(18959, np.int8))
+        if len(trees) != 4 or any(t.num_tips != 81 for _, t in trees):
+            raise AssertionError(".trees did not read back with 81 tips")
+        with open(out["mcc"]) as f:
+            if "tree MCC =" not in f.read():
+                raise AssertionError("no MCC tree written")
+
+        # the snapshot of the last step against the run that never stopped
+        loaded = load_run(out["npz"])
+        if loaded.device.type != "cuda" or loaded.step != run.step:
+            raise AssertionError("snapshot did not load on the card")
+        for r in (run, loaded):
+            r.do_mcmc_steps(12 * lm)
+        a, b = run.log_posterior, loaded.log_posterior
+        log(f"resume: never stopped {a!r}, from snapshot {b!r} at step "
+            f"{run.step}")
+        if a != b or not torch.equal(run.ts.t, loaded.ts.t):
+            raise AssertionError(f"resume is not bit-equal: {a!r} != {b!r}")
+        loaded.check_derived_quantities(1e-6)
+        loaded.tree().check_integrity()
+
+        # the CLI's BEAST XML exports read the run's parameters on the card
+        for version in ("2.6.2", "2.7.7", "X-10.5.0"):
+            path = os.path.join(tmp, f"beast_{version}.xml")
+            code = cli.main(["--v0-in-maple", MAPLE, "--v0-seed", str(SEED),
+                             "--v0-out-beast-version", version,
+                             "--v0-out-beast-xml", path])
+            with open(path) as f:
+                xml = f.read()
+            if code != 0 or not xml.rstrip().endswith("</beast>") \
+                    or xml.count("<sequence") != 81:
+                raise AssertionError(f"BEAST {version} XML export failed")
+        log("cli: BEAST 2.6.2, 2.7.7 and X-10.5.0 XML exports written")
+
+        if dphy_leg:
+            code = cli.main(["--v0-in-maple", MAPLE, "--v0-seed", str(SEED),
+                             "--v0-target-coal-prior-cells", str(NUM_CELLS),
+                             "--v0-steps", str(4 * lm),
+                             "--v0-log-every", str(2 * lm),
+                             "--v0-tree-every", str(2 * lm),
+                             "--v0-delphy-snapshot-every", str(2 * lm),
+                             "--v0-out-delphy-file", out["dphy"]])
+            df = read_dphy(out["dphy"])
+            if code != 0 or len(df.samples) != 2 or len(df.names) != 161 \
+                    or df.samples[1][1]["step"] != 4 * lm:
+                raise AssertionError("the CLI's .dphy did not read back")
+            log(f"cli .dphy: {os.path.getsize(out['dphy'])} bytes, 2 samples "
+                f"read back")
+    return counts
+
+
+def server_path(device, card: str, dphy_leg: bool) -> dict:
+    """Phase 7: the engine server answers a few requests on the card."""
+    from delphy_tpu_torch.io.dphy import parse_params_fb, read_dphy
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.server import Client, serve_in_thread
+
+    srv, engine, _th = serve_in_thread()     # the default device: CUDA
+    if engine.device.type != "cuda":
+        raise AssertionError("the server did not default to CUDA")
+    client = Client(*srv.server_address)
+    times = []
+
+    def call(method, label=None, **params):
+        t0 = time.perf_counter()
+        res = client.call(method, **params)
+        ms = (time.perf_counter() - t0) * 1e3
+        times.append((label or method, ms))
+        log(f"server request {label or method}: {ms:.3f} ms ({card})")
+        return res
+
+    def job(method, **params):
+        """Submit a job: (job id, the time it was submitted)."""
+        t0 = time.perf_counter()
+        return client.call(method, **params)["job_id"], t0
+
+    def wait(jid, t0, what):
+        res = client.wait_job(jid, poll_s=0.005)
+        ms = (time.perf_counter() - t0) * 1e3
+        times.append((what, ms))
+        log(f"server job {what}: {ms:.3f} ms to done ({card})")
+        return res
+
+    lm = 8050
+    _cuda.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            res = wait(*job("create_run", maple=MAPLE, seed=SEED,
+                            num_cells=NUM_CELLS), "create_run")
+            rid = res["run_id"]
+            if (res["num_tips"], res["num_sites"]) != (81, 18959):
+                raise AssertionError(f"create_run: {res}")
+            res = wait(*job("run_steps", run_id=rid, n=10 * lm),
+                       "run_steps (10 boundaries + burst)")
+            if res["step"] != 10 * lm or not math.isfinite(
+                    res["log_posterior"]):
+                raise AssertionError(f"run_steps: {res}")
+            jid, t0 = job("run_steps", run_id=rid, n=10 * lm)
+            # waits for the step job's lock, held for a chunk of boundaries
+            st = call("get_state", "get_state (beside a step job)",
+                      run_id=rid)
+            wait(jid, t0, "run_steps (second)")
+            if st["num_nodes"] != 161 or not st["kappa"] > 0:
+                raise AssertionError(f"get_state: {st}")
+            call("set_params", run_id=rid, mu=1.1e-3 / 365.0)
+            st = call("get_state", run_id=rid)
+            if abs(st["mu"] - 1.1e-3 / 365.0) > 1e-15 \
+                    or st["step"] != 20 * lm \
+                    or not math.isfinite(st["log_posterior"]):
+                raise AssertionError(f"get_state after set_params: {st}")
+            nwk = call("get_tree_newick", run_id=rid)["newick"]
+            if nwk.count("(") != 80 or not nwk.endswith(";"):
+                raise AssertionError("get_tree_newick: not an 81-tip tree")
+            t_lo, t_hi = st["t_root"], st["t_root"] + 400.0
+            pa = np.asarray(call("probe_ancestors", run_id=rid,
+                                 marked_ancestors=[81, 82], t_start=t_lo,
+                                 t_end=t_hi, num_t_cells=32)["p"])
+            ps = np.asarray(call("probe_site_states", run_id=rid, site=100,
+                                 t_start=t_lo, t_end=t_hi,
+                                 num_t_cells=32)["p"])
+            for name, p, shape in (("probe_ancestors", pa, (3, 32)),
+                                   ("probe_site_states", ps, (4, 32))):
+                if p.shape != shape or not (np.all(p >= -1e-9)
+                                            and np.all(p <= 1 + 1e-9)):
+                    raise AssertionError(f"{name}: bad probabilities")
+            mcc = call("get_mcc_nexus", run_id=rid)
+            if "begin trees;" not in mcc["nexus"].lower() \
+                    or mcc["num_base_trees"] < 2:
+                raise AssertionError("get_mcc_nexus: no MCC tree")
+            snap = os.path.join(tmp, "served.npz")
+            call("save_snapshot", run_id=rid, path=snap)
+            rid2 = call("load_snapshot", path=snap)["run_id"]
+            j1, j2 = (job("run_steps", run_id=r, n=12 * lm)
+                      for r in (rid, rid2))
+            r1 = wait(*j1, "run_steps (served run, beside its twin)")
+            r2 = wait(*j2, "run_steps (loaded twin)")
+            log(f"two runs stepped at once: {r1['log_posterior']!r} and "
+                f"{r2['log_posterior']!r}")
+            if r1 != r2:
+                raise AssertionError(f"the twin diverged: {r1} != {r2}")
+            if dphy_leg:
+                path = os.path.join(tmp, "served.dphy")
+                res = call("export_dphy", run_id=rid, path=path)
+                df = read_dphy(path)
+                pfb = call("get_params_fb", run_id=rid)["params_fb"]
+                import base64
+                if res["bytes"] < 100 or len(df.samples) != 1 \
+                        or parse_params_fb(base64.b64decode(pfb))["step"] \
+                        != 32 * lm:
+                    raise AssertionError("export_dphy did not read back")
+            runs = {r["run_id"] for r in call("list_runs")["runs"]}
+            if not runs >= {rid, rid2}:
+                raise AssertionError(f"list_runs: {runs}")
+            call("close_run", run_id=rid2)
+            try:
+                client.call("get_state", run_id=99999)
+            except RuntimeError as e:
+                log(f"unknown run_id came back as an RPC error: {e}")
+            else:
+                raise AssertionError("unknown run_id did not fail")
+            if call("list_runs")["runs"] != [{"run_id": rid,
+                                              "step": 32 * lm}]:
+                raise AssertionError("the connection or the run list broke")
+            run = engine._runs[rid].run
+            if run.ts.t.device.type != "cuda":
+                raise AssertionError("the served run is not on the card")
+            run.check_derived_quantities(1e-6)
+            run.tree().check_integrity()
+    finally:
+        client.close()
+        srv.shutdown()
+        srv.server_close()
+    log("server request times, ms: " + json.dumps(
+        {k: round(v, 3) for k, v in times}) + f" ({card})")
+    return check_counts("from the server's worker threads")
 
 
 def _union_us(spans) -> float:
@@ -532,6 +820,9 @@ def main(argv=None) -> int:
         r["launches"] = counts[r["name"]]
     if opts.profile:
         profile_path(device)
+    dphy_leg = have_flatbuffers()
+    cli_path(device, card, dphy_leg)
+    server_path(device, card, dphy_leg)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -5,7 +5,9 @@ array ``np.asarray`` accepts); fields are matched by name, so a
 ``delphy_tpu`` ``TreeState``, ``EvoParams``, ``ExpPopParams`` or ``PartMaps``
 converts into the port's class of the same name.  ``to_numpy`` goes back: it
 returns a ``{field: numpy array}`` dict from which the JAX class is rebuilt
-with ``Cls(**d)``.  This module imports no jax.
+with ``Cls(**d)``.  ``load_jax_snapshot`` carries a whole run across: it
+reads a snapshot file written by the JAX package's ``io.snapshot.save_run``
+into a port ``Run``.  This module imports no jax.
 """
 
 from __future__ import annotations
@@ -28,12 +30,16 @@ def _leaf_to_torch(x, device) -> torch.Tensor:
     return torch.as_tensor(a.copy(), device=device)
 
 
+def from_dict(cls, fields: dict, device=DEFAULT_DEVICE):
+    """Instance of the port's NamedTuple ``cls`` from ``{field: array}``."""
+    device = resolve_device(device)
+    return cls(**{f: _leaf_to_torch(fields[f], device) for f in cls._fields})
+
+
 def from_numpy(cls, obj, device=DEFAULT_DEVICE):
     """Instance of the port's NamedTuple ``cls`` from an object with the
     same field names (numpy or jax leaves)."""
-    device = resolve_device(device)
-    return cls(**{f: _leaf_to_torch(getattr(obj, f), device)
-                  for f in cls._fields})
+    return from_dict(cls, {f: getattr(obj, f) for f in cls._fields}, device)
 
 
 def tree_state_to_torch(ts, device=DEFAULT_DEVICE) -> TreeState:
@@ -57,3 +63,23 @@ def to_numpy(obj) -> dict:
     return {f: getattr(obj, f).detach().cpu().numpy()
             if isinstance(getattr(obj, f), torch.Tensor)
             else np.asarray(getattr(obj, f)) for f in obj._fields}
+
+
+# the JAX package's snapshot format (its io/snapshot.py MAGIC and VERSION)
+JAX_SNAPSHOT_MAGIC = "delphy-tpu-snapshot"
+JAX_SNAPSHOT_VERSION = 3
+
+
+def load_jax_snapshot(path, gen_seed: int = 0, device=DEFAULT_DEVICE):
+    """A port ``Run`` in the state of a snapshot written by the JAX package:
+    tree state, partition maps, ``evo``, the exponential ``pop``, the host
+    generator and the run's scalars.  The JAX PRNG key has no counterpart
+    in a ``torch.Generator``, so the run's generator is seeded with
+    ``gen_seed``: the run continues from the same state on a trajectory of
+    its own.  Raises for a skygrid, alpha-move or mpox snapshot."""
+    from .io.snapshot import read_snapshot, restore_run   # it imports us
+    meta, data = read_snapshot(path, JAX_SNAPSHOT_MAGIC, JAX_SNAPSHOT_VERSION)
+    if "driver" not in meta:
+        raise ValueError(f"{path}: snapshot predates version 3 and lacks the "
+                         f"run's adaptive state")
+    return restore_run(meta, data, resolve_device(device), gen_seed=gen_seed)

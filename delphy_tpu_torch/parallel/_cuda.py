@@ -10,7 +10,9 @@ Nothing here is touched when a module is imported, so the CPU tests never
 need ``nvcc``.
 
 ``launch_counts`` holds one plain integer per kernel; each wrapper adds one
-where it launches its kernel and nowhere else.
+(``count_launch``) where it launches its kernel and nowhere else.  The counts
+are per process, over every run and thread: the engine server steps runs on
+worker threads, so the increment takes a lock.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 launch_counts = {"hky_chain": 0, "exp_pop_chain": 0, "sweep_chain": 0}
 
 _LIB = None
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()          # building and loading the library
+_COUNT_LOCK = threading.Lock()    # launch_counts
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGTYPES = {
     "delphy_hky_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _D, _D,
@@ -61,8 +64,14 @@ class Packed(NamedTuple):
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _COUNT_LOCK:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _COUNT_LOCK:
+        launch_counts[name] += 1
 
 
 def _nvcc() -> str:
@@ -152,8 +161,11 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream_ptr(device=None) -> int:
+    """The calling thread's current stream on ``device`` (None: the thread's
+    current device).  A thread that has made no stream current gets the
+    device's default stream."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def ptr(t: torch.Tensor) -> int:

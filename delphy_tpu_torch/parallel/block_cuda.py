@@ -384,7 +384,8 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         R["msingle"], R["slope"], R["b"], P_(A), P_(nbar), P_(isc), P_(fsc),
         NB, P_(u.pri), P_(u.prop), P_(u.acc), P_(u.ref_u), P_(u.ref_acc),
         P_(u.sc), P_(u.norm), u.sc.shape[2], u.norm.shape[2],
-        P_(t_o), P_(mut_o), P_(kp_o), P_(acc_o), _cuda.stream_ptr())
+        P_(t_o), P_(mut_o), P_(kp_o), P_(acc_o),
+        _cuda.stream_ptr(t_o.device))
     return _cuda.Packed(args, (t_o, mut_o, kp_o, acc_o),
                         (*rows.values(), isc, fsc, A, nbar, *u))
 
@@ -393,7 +394,7 @@ def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
             u: BlockUniforms):
     pk = pack_launch(stat, n_blocks, ctx_arrs, shared, u)
     _cuda.check(_cuda.lib().delphy_sweep_chain(*pk.args), "sweep_chain")
-    _cuda.launch_counts["sweep_chain"] += 1
+    _cuda.count_launch("sweep_chain")
     t_o, mut_o, kp_o, acc_o = pk.outs
     return t_o, mut_o, kp_o, acc_o[:, 0], acc_o[:, 1], acc_o[:, 2]
 

@@ -126,7 +126,7 @@ def pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
     P = _cuda.ptr
     args = (P(u), u.shape[1], n_rounds, P(fsc), P(ins[0]), P(ins[1]), P(M),
             P(ins[2]), float(kappa_m), float(kappa_s), P(kappa), P(pi), P(q),
-            _cuda.stream_ptr())
+            _cuda.stream_ptr(q.device))
     return _cuda.Packed(args, (kappa, pi, q), (u, fsc, *ins, M))
 
 
@@ -135,7 +135,7 @@ def _launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
     pk = pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
                      n_rounds)
     _cuda.check(_cuda.lib().delphy_hky_chain(*pk.args), "hky_chain")
-    _cuda.launch_counts["hky_chain"] += 1
+    _cuda.count_launch("hky_chain")
     return pk.outs
 
 

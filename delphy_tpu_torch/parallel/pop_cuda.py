@@ -145,7 +145,7 @@ def pack_launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0,
     args = (P(u), u.shape[1], n_rounds, P(lbs_), P(k2_), C, P(t_), P(inner_),
             N, P(fsc), alpha, beta, g_min, g_max, g_mu, g_scale,
             int(size_enabled), int(growth_enabled), P(out),
-            _cuda.stream_ptr())
+            _cuda.stream_ptr(out.device))
     return _cuda.Packed(args, (out,), (u, lbs_, k2_, t_, inner_, fsc))
 
 
@@ -154,7 +154,7 @@ def _launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0, hypf,
     pk = pack_launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0,
                      g_0, hypf, n_rounds)
     _cuda.check(_cuda.lib().delphy_exp_pop_chain(*pk.args), "exp_pop_chain")
-    _cuda.launch_counts["exp_pop_chain"] += 1
+    _cuda.count_launch("exp_pop_chain")
     out = pk.outs[0]
     return out[0], out[1]
 

@@ -12,6 +12,7 @@ fused state bundle at a burst.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,7 +20,7 @@ import torch
 from . import DEFAULT_DEVICE, DTYPE, resolve_device
 from . import pop as popm
 from .convert import part_maps_to_torch
-from .evo import make_evo_params
+from .evo import EvoParams, make_evo_params
 from .mcmc import global_moves as gm
 from .mcmc.global_moves import PriorConfig
 from .mcmc.kernel import boundary_grid_bounds
@@ -31,8 +32,8 @@ from .parallel.partmaps import (auto_num_partitions, build_part_maps,
                                 host_mut_nodes, pad_part_maps, part_size_cap)
 from .parallel.sweep import NB_MAX, parts_multi_super_step
 from .phylo import FlatTree, rereference_to_root_sequence
-from .state import TreeState, fetch_fused, pack_state, split_for_host, \
-    unpack_state
+from .state import TreeState, fetch_fused, fetch_one, pack_state, \
+    split_for_host, unpack_state
 from .topo.mixer import HostCoalGrid, HostExpPop
 from .topo.parallel import run_partitioned_bursts
 from .topo.reform import resample_multi_site_chains
@@ -50,6 +51,19 @@ def _round_cap(n: int) -> int:
 
 def _round16(n: int) -> int:
     return (max(n, 16) + 15) // 16 * 16
+
+
+class HostView(NamedTuple):
+    """What the I/O layer reads of a run, on the host: ``evo`` and ``pop``
+    with numpy leaves, the ledger's terms as numpy floats (None before the
+    first dispatch), the node times, the root and the last boundary's
+    mutation count."""
+    evo: EvoParams
+    pop: popm.ExpPopParams
+    ledger: Ledger | None
+    t: np.ndarray
+    root: int
+    num_muts: int | None
 
 
 def calc_ledger(ts: TreeState, evo, pop_params, t_max_tip, num_cells: int,
@@ -70,6 +84,7 @@ class Run:
                  hyp: PriorConfig = PriorConfig(), num_cells: int = 512,
                  local_moves_per_global_move: int = -1,
                  topology_moves_enabled: bool = True,
+                 topology_partitions: int = 0,
                  device_partitions: int = 0, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
         if hyp.mpox_enabled or hyp.alpha_move_enabled:
@@ -97,6 +112,7 @@ class Run:
         self.hyp = hyp
         self.num_cells = num_cells
         self.topology_moves_enabled = topology_moves_enabled
+        self.topology_partitions = topology_partitions
         self._topo_debt = 0
         self.host_rng = np.random.default_rng(np.uint64(seed)
                                               + 0x9E3779B97F4A7C15)
@@ -221,6 +237,25 @@ class Run:
             self._per_block_rate = float(self.device_partitions
                                          * (1 + n_cap // 4 + n_cap // 2))
 
+    # -- parameter setters (subset of the reference's Run API) --------------
+
+    def _scalar(self, x) -> torch.Tensor:
+        return torch.tensor(float(x), dtype=DTYPE, device=self.device)
+
+    def set_mu(self, mu: float):
+        self.evo = self.evo._replace(mu=self._scalar(mu))
+        self._fused_bundle = None
+
+    def set_alpha(self, alpha: float):
+        self.evo = self.evo._replace(alpha=self._scalar(alpha))
+        self._fused_bundle = None
+
+    def set_pop(self, n0=None, g=None, min_pop=None):
+        given = {k: self._scalar(v) for k, v in
+                 (("n0", n0), ("g", g), ("min_pop", min_pop)) if v is not None}
+        self.pop = self.pop._replace(**given)
+        self._fused_bundle = None
+
     # -- MCMC ---------------------------------------------------------------
 
     def do_mcmc_steps(self, n_steps: int):
@@ -283,6 +318,8 @@ class Run:
         self.step += n_steps
 
     def _topology_num_parts(self) -> int:
+        if self.topology_partitions > 0:
+            return self.topology_partitions
         T = self.ts.num_tips
         return max(1, min(2 * (os.cpu_count() or 1), T // 10),
                    min(1024, T // 100))
@@ -369,7 +406,7 @@ class Run:
         return float(self.ledger.log_posterior)
 
     def tree(self) -> FlatTree:
-        return unpack_state(self.ts, names=self.names)
+        return unpack_state(fetch_fused(self.ts), names=self.names)
 
     def calc_cur_ledger(self) -> Ledger:
         """Full from-scratch recompute of the ledger under the current
@@ -389,16 +426,30 @@ class Run:
         if not abs(got - want) < tol:
             raise AssertionError(f"log_G drift: {got} != {want}")
 
-    def stats_line(self) -> str:
-        led = self.ledger
-        pi = self.evo.pi.cpu().numpy()
+    def host_view(self) -> HostView:
+        """``evo``, ``pop``, the ledger, the node times and the root on the
+        host, in one device-to-host copy.  Host code (log and snapshot
+        writers, the server's getters) reads a run's parameters through this
+        instead of field by field: each ``float()`` of a device scalar is a
+        sync of its own."""
+        ledger = self.ledger if self.ledger is not None else ()
+        muts = (self.last_stats["num_muts"],) if self.last_stats else ()
+        evo, pop, led, t, root, muts = fetch_one(
+            (self.evo, self.pop, ledger, self.ts.t, self.ts.root, muts))
+        return HostView(evo=evo, pop=pop, ledger=led or None, t=t,
+                        root=int(root),
+                        num_muts=int(muts[0]) if muts else None)
+
+    def stats_line(self, hv: HostView | None = None) -> str:
+        hv = hv or self.host_view()
+        led, pi = hv.ledger, hv.evo.pi
         return (f"step {self.step}  log_post {float(led.log_posterior):.4f}  "
                 f"log_G {float(led.log_G):.4f}  "
                 f"log_coal {float(led.log_coal):.4f}  "
-                f"muts {int(self.last_stats['num_muts'])}  "
-                f"mu {float(self.evo.mu) * 365.0:.3e}/yr  "
-                f"kappa {float(self.evo.kappa):.3f}  "
+                f"muts {hv.num_muts}  "
+                f"mu {float(hv.evo.mu) * 365.0:.3e}/yr  "
+                f"kappa {float(hv.evo.kappa):.3f}  "
                 f"pi [{pi[0]:.2f} {pi[1]:.2f} {pi[2]:.2f} {pi[3]:.2f}]  "
-                f"n0 {float(self.pop.n0):.2f}  "
-                f"g {float(self.pop.g) * 365.0:.3f}/yr  "
-                f"t_root {float(self.ts.t[self.ts.root.long()]):.2f}")
+                f"n0 {float(hv.pop.n0):.2f}  "
+                f"g {float(hv.pop.g) * 365.0:.3f}/yr  "
+                f"t_root {float(hv.t[hv.root]):.2f}")

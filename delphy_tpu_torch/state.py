@@ -239,3 +239,20 @@ def fetch_fused(pytree):
     """The whole structure on the host in two copies (see fuse_for_host)."""
     ints, flts = fuse_for_host(pytree)
     return split_for_host(pytree, ints.cpu(), flts.cpu())
+
+
+def fetch_one(pytree):
+    """The whole structure on the host in ONE copy, for small structures
+    read by host code between dispatches: every leaf rides in one float64
+    vector (exact for the int32 leaves) and gets its dtype back on the
+    host."""
+    leaves = [torch.as_tensor(leaf) for leaf in _leaves(pytree)]
+    flat = _np(torch.cat([leaf.reshape(-1).to(DTYPE) for leaf in leaves]))
+    out, o = [], 0
+    for leaf in leaves:
+        n = leaf.numel()
+        v = flat[o:o + n].reshape(tuple(leaf.shape)).astype(
+            _NP_DTYPE[leaf.dtype])
+        o += n
+        out.append(v if leaf.dim() else v[()])
+    return _rebuild(pytree, iter(out))

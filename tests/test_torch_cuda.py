@@ -319,3 +319,113 @@ def test_run_on_card_keeps_ledger(run):
     run.check_derived_quantities(1e-6)
     run.tree().check_integrity()
     assert all(v > 0 for v in _cuda.launch_counts.values())
+
+
+def test_snapshot_resumes_exactly_on_card(device, tmp_path):
+    """A run saved and loaded on the card and the run that never stopped
+    reach the same state after the same further steps, a burst included
+    (compared with ``==``)."""
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    r = make_run(device, n_tips=40)
+    lm = r.local_moves_per_global_move
+    r.do_mcmc_steps(3 * lm)
+    path = tmp_path / "card.npz"
+    save_run(r, path)
+    r2 = load_run(path)                       # the default device is CUDA
+    assert r2.device.type == "cuda" and r2.step == r.step
+    assert torch.equal(r2.gen.get_state(), r.gen.get_state())
+    bursts = r.burst_count
+    n = lm * r.topology_burst_chunks + 3 * lm
+    r.do_mcmc_steps(n)
+    r2.do_mcmc_steps(n)
+    assert r.burst_count > bursts
+    assert r.log_posterior == r2.log_posterior
+    assert torch.equal(r.ts.t, r2.ts.t) and torch.equal(r.ts.mut_t,
+                                                        r2.ts.mut_t)
+    r2.check_derived_quantities(1e-6)
+
+
+def test_snapshot_does_not_cross_device_types(device, tmp_path):
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    from delphy_tpu_torch.run import Run
+    r = Run(ebola_tree(20), seed=3, num_cells=128, device="cpu")
+    path = tmp_path / "cpu.npz"
+    save_run(r, path)
+    with pytest.raises(ValueError, match="written on a cpu device cannot "
+                                         "resume on cuda"):
+        load_run(path)
+    r_card = make_run(device, n_tips=20, num_cells=128)
+    save_run(r_card, tmp_path / "card.npz")
+    with pytest.raises(ValueError, match="written on a cuda device cannot "
+                                         "resume on cpu"):
+        load_run(tmp_path / "card.npz", device="cpu")
+
+
+def test_io_reads_a_card_run_through_the_host_view(run, tmp_path):
+    """Every writer of the I/O layer on a run whose tensors are on the card
+    (a missing host copy raises there, and only there)."""
+    import io
+
+    from delphy_tpu_torch import probers
+    from delphy_tpu_torch.io import beast_out, beast_xml, dphy
+    hv = run.host_view()
+    assert isinstance(hv.evo.pi, np.ndarray) and hv.ledger is not None
+    assert float(hv.ledger.log_G) == float(run.ledger.log_G)
+    fh = io.StringIO()
+    out = beast_out.BeastLogOutput(fh)
+    out.write_headers(run.tree())
+    out.write_line(run)
+    assert all(np.isfinite(float(v))
+               for v in fh.getvalue().splitlines()[1].split("\t"))
+    for fn in (beast_xml.export_beast2_xml, beast_xml.export_beast2_7_xml,
+               beast_xml.export_beast_x_xml):
+        fh = io.StringIO()
+        fn(fh, run.tree(), run)
+        assert fh.getvalue().rstrip().endswith("</beast>")
+    tree = run.tree()
+    p = probers.probe_site_states_on_tree(
+        tree, hv.pop, 0, float(tree.t[tree.root]) - 5.0, run.t_max_tip, 12)
+    assert p.shape == (4, 12) and np.all(np.isfinite(p))
+    assert "log_post" in run.stats_line()
+    try:
+        import flatbuffers  # noqa: F401
+    except ImportError:     # the .dphy writer's only missing leg
+        return
+    params = dphy.parse_params_fb(dphy.build_params_fb(run))
+    assert params["mu"] == float(hv.evo.mu)
+
+
+def test_two_server_runs_step_at_once_on_card(device, tmp_path):
+    """Two runs stepped by two worker threads at once: each thread's kernels
+    land on the run's device and stream (the runs stay ledger-green and the
+    resumed twin stays bit-equal), and both threads' launches are counted."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.server import Client, serve_in_thread
+    srv, engine, _th = serve_in_thread()      # the default device is CUDA
+    assert engine.device.type == "cuda"
+    c = Client(*srv.server_address)
+    try:
+        job = c.call("create_run", maple=MAPLE, seed=1, num_cells=400)
+        rid = c.wait_job(job["job_id"])["run_id"]
+        lm = engine._runs[rid].run.local_moves_per_global_move
+        c.wait_job(c.call("run_steps", run_id=rid, n=3 * lm)["job_id"])
+        snap = str(tmp_path / "s.npz")
+        c.call("save_snapshot", run_id=rid, path=snap)
+        rid2 = c.call("load_snapshot", path=snap)["run_id"]
+        _cuda.reset_launch_counts()
+        j1 = c.call("run_steps", run_id=rid, n=20 * lm)
+        j2 = c.call("run_steps", run_id=rid2, n=20 * lm)
+        r1, r2 = c.wait_job(j1["job_id"]), c.wait_job(j2["job_id"])
+        assert r1["log_posterior"] == r2["log_posterior"]
+        # 20 boundaries each, one launch of every kernel per boundary
+        assert all(v == 40 for v in _cuda.launch_counts.values()), \
+            _cuda.launch_counts
+        for r in (rid, rid2):
+            run = engine._runs[r].run
+            assert run.ts.t.device.type == "cuda"
+            run.check_derived_quantities(1e-6)
+            run.tree().check_integrity()
+    finally:
+        c.close()
+        srv.shutdown()
+        srv.server_close()

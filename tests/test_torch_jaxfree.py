@@ -1,7 +1,9 @@
 """The port imports no jax and nothing of the JAX package: a static scan of
-its sources, a CPU boundary plus a native topology burst in a process where
-jax cannot be imported, and a check that importing every module of the port
-loads no ``delphy_tpu`` module even where jax is importable."""
+its sources (function-level imports included), a CPU boundary plus a native
+topology burst in a process where jax cannot be imported, the entry points
+run as ``python -m`` with jax (and ``flatbuffers``) blocked, and a check that
+importing every module of the port loads no ``delphy_tpu`` module even where
+jax is importable."""
 
 import ast
 import os
@@ -27,22 +29,43 @@ def _foreign(name: str) -> bool:
                for p in ("jax", "delphy_tpu"))
 
 
+def _foreign_imports(source: str, path: str = "<src>") -> list:
+    """Absolute imports of jax or the JAX package anywhere in ``source``:
+    ``ast.walk`` visits function and class bodies too."""
+    found = []
+    for node in ast.walk(ast.parse(source, path)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif (isinstance(node, ast.ImportFrom) and node.module
+              and node.level == 0):
+            names = [node.module]
+        found += [n for n in names if _foreign(n)]
+    return found
+
+
 def test_no_jax_import_in_port_sources():
+    # the scan sees an import inside a function, as cli.py and server.py
+    # make theirs
+    assert _foreign_imports(textwrap.dedent("""
+        def main():
+            if True:
+                from delphy_tpu import pop as popm
+                import jax.numpy as jnp
+            from .pop import x
+    """)) == ["delphy_tpu", "jax.numpy"]
     offenders = []
     files = list(_py_files()) + [os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) > 10
+    rel = {os.path.relpath(f, PKG) for f in files}
+    assert {"cli.py", "server.py", "ui.py", "tools.py", "probers.py",
+            "sim.py", "mcc.py", "ess.py", "version.py",
+            os.path.join("io", "snapshot.py"), os.path.join("io", "dphy.py"),
+            os.path.join("io", "newick.py"),
+            os.path.join("io", "beast_out.py"),
+            os.path.join("io", "beast_xml.py")} <= rel
     for path in files:
-        tree = ast.parse(open(path).read(), path)
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif (isinstance(node, ast.ImportFrom) and node.module
-                  and node.level == 0):
-                names = [node.module]
-            for n in names:
-                if _foreign(n):
-                    offenders.append((os.path.relpath(path, REPO), n))
+        for n in _foreign_imports(open(path).read(), path):
+            offenders.append((os.path.relpath(path, REPO), n))
     assert not offenders, offenders
 
 
@@ -93,6 +116,49 @@ def test_boundary_runs_with_jax_blocked():
     """)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+def _run_module(module: str, argv: list, blocked=("jax",)):
+    """``python -m module argv`` in a process where ``blocked`` cannot be
+    imported; the process also fails if it loaded a foreign module."""
+    return _run(_LOADED + f"""
+        import runpy, sys
+        for name in {tuple(blocked)!r}:
+            sys.modules[name] = None
+        sys.argv = [{module!r}] + {list(argv)!r}
+        try:
+            runpy.run_module({module!r}, run_name="__main__")
+        except SystemExit as e:
+            assert not e.code, e.code
+        assert not foreign_modules(), foreign_modules()
+        print("OK")
+    """)
+
+
+def test_cli_runs_as_a_module_with_jax_blocked(tmp_path):
+    log = tmp_path / "o.log"
+    res = _run_module("delphy_tpu_torch.cli", [
+        "--v0-in-maple", "data/ebola2014_like_81x18959.maple", "--device",
+        "cpu", "--v0-seed", "1", "--v0-steps", "24150", "--v0-log-every",
+        "8050", "--v0-tree-every", "8050", "--v0-delphy-snapshot-every",
+        "8050", "--v0-out-log-file", str(log), "--v0-paranoid"])
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("OK")
+    assert "Read 81 tips, 18959 sites" in res.stderr
+    lines = log.read_text().splitlines()     # 3 boundaries of 8,050 moves
+    assert [ln.split("\t")[0] for ln in lines] \
+        == ["Sample", "8050", "16100", "24150"]
+
+
+def test_entry_points_start_without_jax_and_flatbuffers():
+    res = _run_module("delphy_tpu_torch.cli", ["--version"],
+                      blocked=("jax", "flatbuffers"))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split() == ["delphy-tpu-torch", "0.1.0", "OK"]
+    res = _run_module("delphy_tpu_torch.server", ["--help"],
+                      blocked=("jax", "flatbuffers"))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--device" in res.stdout and res.stdout.strip().endswith("OK")
 
 
 def test_port_loads_no_delphy_tpu_module():
