@@ -16,9 +16,11 @@ Phases, each of which raises (exit code != 0) on failure:
      pre-packed arguments), the Python wrapper (packing included) and the
      plain version; print one empty kernel's launch time as the floor, and
      each kernel's bound (bytes over HBM rate, operations over the FP64
-     rate, the larger, operations counted from this run's work); with
-     --baseline, time DIR's kernels on the same arguments in turns:
-     baseline, this tree, this tree, baseline;
+     rate, the larger, operations counted from this run's work); the same
+     for the skygrid build of the sweep kernel on a real skygrid boundary of
+     each type; with --baseline, time DIR's kernels on the same arguments in
+     turns: baseline, this tree, this tree, baseline (and give the largest
+     difference of their outputs from this tree's);
   4. drive the main path: read data/ebola2014_like_81x18959.maple, build the
      initial tree, Run(tree, seed=1, num_cells=400) on the card, several
      dispatches of do_mcmc_steps with topology bursts; then the ledger check
@@ -29,14 +31,25 @@ Phases, each of which raises (exit code != 0) on failure:
      and an npz snapshot; the .log's header and rows, the .trees read back,
      the snapshot loaded on the card and stepped beside the CLI's own run
      that never stopped (log_posterior compared with ==), the launch counts,
-     and the three BEAST XML exports;
+     and the three BEAST XML exports; then the CLI with --v0-pop-model
+     skygrid --v0-site-rate-heterogeneity and with --v0-mpox-hack (both
+     --v0-paranoid, each path's launch counts);
   7. the engine server: serve_in_thread on the card and, over the socket,
      create_run, run_steps twice with a get_state in between, set_params,
      get_tree_newick, both probers, get_mcc_nexus, save_snapshot +
      load_snapshot + both runs stepped at once and compared, list_runs,
      close_run and an unknown run_id (an RPC error); each request's wall
      time is printed; then the ledger check at 1e-6, the tree's integrity
-     and the worker threads' launch counts.
+     and the worker threads' launch counts; then create_run with pop_model
+     "skygrid", stepped, its ledger and launch counts;
+  8. the model options at the same width: four Runs (skygrid staircase
+     and log-linear with the defaults, 50 parameters and tau 1; the
+     exponential model with alpha/nu moves; the mpox hack), each two
+     dispatches with a burst after each, then the ledger check at 1e-6, the
+     tree's integrity, the kernels each path must launch (and no other),
+     ms per boundary beside phase 4's, the share of a boundary that the
+     path's own move takes (the skygrid's HMC, the alpha/nu moves, the mpox
+     mu/rho moves), and a snapshot that resumes bit-equal.
 Phases 6 and 7 also write a .dphy stream and read it back where the
 flatbuffers package imports, and say so in one line where it does not.
 The last three lines are the kernels' JSON record, the card line and
@@ -207,16 +220,18 @@ def compare_baseline(name, entry, pk, outs_ref, base, tols) -> dict:
     against this tree's outputs, then timed in turns with this tree
     (baseline, this tree, this tree, baseline)."""
     from delphy_tpu_torch.parallel import _cuda
-    if base is None:
+    if base is None or not hasattr(base, entry):
         return {}
     _cuda.check(getattr(base, entry)(*pk.args), f"baseline {entry}")
-    for o, r, (rtol, atol) in zip(pk.outs, outs_ref, tols):
-        assert_close(f"{name} baseline", o, r, rtol=rtol, atol=atol)
+    diff = max(assert_close(f"{name} baseline", o, r, rtol=rtol, atol=atol)
+               for o, r, (rtol, atol) in zip(pk.outs, outs_ref, tols))
     own = _cuda.lib()
     t = [kernel_ms(base, entry, pk.args), kernel_ms(own, entry, pk.args),
          kernel_ms(own, entry, pk.args), kernel_ms(base, entry, pk.args)]
-    res = {"ab_ms": {"baseline": [t[0], t[3]], "this": [t[1], t[2]]}}
-    log(f"{name} ab_ms: {res['ab_ms']}")
+    res = {"ab_ms": {"baseline": [t[0], t[3]], "this": [t[1], t[2]]},
+           "baseline_max_abs_err": diff}
+    log(f"{name} ab_ms: {res['ab_ms']}, outputs differ from the baseline's "
+        f"by at most {diff!r}")
     return res
 
 
@@ -340,11 +355,9 @@ def compare_kernels(run, device, base, floor_so):
     u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device)
     got = bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared, u)
     want = bc.sweep_chain_torch(stat, nb, ctx_arrs, shared, u)
-    tol = {"t": (0.0, 1e-9), "mut_t": (0.0, 1e-9), "k_p": (0.0, 1e-9),
-           "dG": (1e-10, 1e-12), "dC": (1e-10, 1e-12), "cnt": (0.0, 0.0)}
     err = 0.0
-    for n, g, w in zip(tol, got, want):
-        rtol, atol = tol[n]
+    for n, g, w in zip(SWEEP_TOL, got, want):
+        rtol, atol = SWEEP_TOL[n]
         e = assert_close(f"sweep_chain {n}", g, w, rtol=rtol, atol=atol)
         if n in ("t", "mut_t", "k_p"):
             err = max(err, e)
@@ -366,9 +379,85 @@ def compare_kernels(run, device, base, floor_so):
         lambda: bc.sweep_chain_torch(stat, nb, ctx_arrs, shared, u), ops,
         base, [(0.0, 1e-9)] * 3 + [(1e-10, 1e-12)], device))
     records.append(rec)
+    records.append(compare_skygrid_sweep(device, base))
     floor = launch_floor_ms(floor_so)
     log(f"launch floor: {floor:.5f} ms per empty kernel launch")
     return records, floor
+
+
+SWEEP_TOL = {"t": (0.0, 1e-9), "mut_t": (0.0, 1e-9), "k_p": (0.0, 1e-9),
+             "dG": (1e-10, 1e-12), "dC": (1e-10, 1e-12), "cnt": (0.0, 0.0)}
+
+
+def compare_skygrid_sweep(device, base) -> dict:
+    """K3's skygrid build against its plain version on a real skygrid
+    boundary of each type (a skygrid Run of the Ebola file after one
+    boundary), with phase 3's tolerances; the record times the staircase
+    (the default type) and gives the log-linear type's times beside it.
+    Operations: K3's count, plus two log N(t) per move made (a binary
+    search over the knots and the staircase pick or interpolation, ~20)."""
+    from delphy_tpu_torch import pop as popm
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.parallel.sweep import NB_MAX, prepare_sweep
+    from delphy_tpu_torch.run import Run
+
+    rec = dict(name="sweep_chain_skygrid", route="cuda",
+               source="delphy_tpu_torch/csrc/sweep_chain.cu",
+               replaces="delphy_tpu/parallel/block_pallas.py:465",
+               jax_skygrid_route="delphy_tpu/parallel/sweep.py:328 "
+                                 "(XLA part_sweep)")
+    err = 0.0
+    for type_, label in ((popm.LOG_LINEAR, "log_linear"),
+                         (popm.STAIRCASE, "staircase")):
+        run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
+                  pop_model="skygrid", skygrid_type=type_)
+        run.do_mcmc_steps(run.local_moves_per_global_move)
+        gen = run.gen
+        ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
+            run.ts, run.evo, run.pop, gen, run.tin, run.tout, run.t_max_tip,
+            run.hyp, run.num_cells)
+        stat, ctx_arrs, shared, t_p, _mut = prepare_sweep(
+            ts, evo, pop, grid, caches, run.pm, gen, run.t_max_tip,
+            run.num_cells)
+        if stat.pop != type_:
+            raise AssertionError("the skygrid boundary packed another model")
+        nb = max(1, min(NB_MAX, round(run.local_moves_per_global_move
+                                      / run._per_block_rate)))
+        P = t_p.shape[0]
+        u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device)
+        got = bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared, u)
+        want = bc.sweep_chain_torch(stat, nb, ctx_arrs, shared, u)
+        for n, g, w in zip(SWEEP_TOL, got, want):
+            rtol, atol = SWEEP_TOL[n]
+            e = assert_close(f"sweep_chain_skygrid ({label}) {n}", g, w,
+                             rtol=rtol, atol=atol)
+            if n in ("t", "mut_t", "k_p"):
+                err = max(err, e)
+        moves = float(got[5].sum())
+        if not moves > 0.0 or not float(
+                (got[0].reshape(t_p.shape) - t_p).abs().max()) > 0.0:
+            raise AssertionError("sweep_chain_skygrid moved nothing")
+        log(f"sweep_chain_skygrid ({label}) at P={P} NC={stat.NC} "
+            f"MC={stat.MC} C={stat.C} K={shared['x'].numel()} "
+            f"n_blocks={nb}: {int(moves)} moves")
+        ops = nb * P * (300 + 30 * stat.NC + 8 * stat.MC) + 190 * moves
+        m = measure(f"sweep_chain_skygrid ({label})",
+                    "delphy_sweep_chain_skygrid",
+                    bc.pack_launch(stat, nb, ctx_arrs, shared, u),
+                    lambda: bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared,
+                                                  u),
+                    lambda: bc.sweep_chain_torch(stat, nb, ctx_arrs, shared,
+                                                 u),
+                    ops, base, [(0.0, 1e-9)] * 3 + [(1e-10, 1e-12)], device)
+        if type_ == popm.STAIRCASE:
+            rec.update(m)
+        else:
+            rec["log_linear"] = {k: m[k] for k in (
+                "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+        del run
+    rec["max_abs_err"] = err
+    return rec
 
 
 def main_path(device, card: str):
@@ -404,9 +493,11 @@ def main_path(device, card: str):
             and math.isfinite(run.log_posterior)):
         raise AssertionError("non-finite state after the main path")
     log(run.stats_line())
+    n_b = run.topology_burst_chunks
     log(f"main path: {total} local moves in {dt:.3f} s = "
-        f"{total / dt:.1f} moves/s (f64, {card})")
-    return counts
+        f"{total / dt:.1f} moves/s, {dt * 1e3 / n_b:.3f} ms per boundary "
+        f"({n_b} boundaries and a burst; f64, {card})")
+    return counts, dt * 1e3 / n_b
 
 
 def have_flatbuffers() -> bool:
@@ -421,12 +512,21 @@ def have_flatbuffers() -> bool:
     return True
 
 
-def check_counts(what: str) -> dict:
+# the kernels each path launches every boundary (and no other)
+EXP_PATH = ("hky_chain", "exp_pop_chain", "sweep_chain")
+SKYGRID_PATH = ("hky_chain", "sweep_chain_skygrid")
+MPOX_PATH = ("exp_pop_chain", "sweep_chain")
+
+
+def check_counts(what: str, path=EXP_PATH) -> dict:
     from delphy_tpu_torch.parallel import _cuda
     counts = dict(_cuda.launch_counts)
     for k, v in counts.items():
-        if v <= 0:
+        if k in path and v <= 0:
             raise AssertionError(f"kernel {k} never launched {what}")
+        if k not in path and v != 0:
+            raise AssertionError(f"kernel {k} launched {v} times {what}, "
+                                 f"off its path")
     log(f"launch counts {what}: {counts}")
     return counts
 
@@ -682,6 +782,203 @@ def server_path(device, card: str, dphy_leg: bool) -> dict:
     return check_counts("from the server's worker threads")
 
 
+MODEL_BOUNDARIES = 24     # boundaries of a path's timed dispatch
+
+
+def model_paths(device, card: str, exp_ms: float) -> dict:
+    """Phase 8: the model options at full Ebola width.  Returns the skygrid
+    kernel's launches per skygrid path."""
+    from delphy_tpu_torch import pop as popm
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    from delphy_tpu_torch.mcmc.global_moves import PriorConfig
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+
+    paths = [
+        ("skygrid staircase", dict(pop_model="skygrid"), SKYGRID_PATH),
+        ("skygrid log-linear", dict(pop_model="skygrid",
+                                    skygrid_type=popm.LOG_LINEAR),
+         SKYGRID_PATH),
+        ("alpha/nu", dict(hyp=PriorConfig(alpha_move_enabled=True)),
+         EXP_PATH),
+        ("mpox", dict(mpox_hack=True), MPOX_PATH)]
+    sky_launches, times = {}, {"exp (phase 4)": exp_ms}
+    B = MODEL_BOUNDARIES
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw, path in paths:
+            run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS,
+                      device=device, **kw)
+            lm = run.local_moves_per_global_move
+            _cuda.reset_launch_counts()
+            run.do_mcmc_steps(2 * lm)          # dispatch + flush burst
+            sync(device)
+            t0 = time.perf_counter()
+            run.do_mcmc_steps(B * lm)          # dispatch + flush burst
+            sync(device)
+            dt = time.perf_counter() - t0
+            counts = check_counts(f"on the {name} path", path)
+            if run.dispatch_count < 2 or run.burst_count < 2:
+                raise AssertionError(f"{name}: needs 2 dispatches and bursts")
+            run.check_derived_quantities(1e-6)
+            run.tree().check_integrity()
+            if not (np.all(np.isfinite(run.ts.t.cpu().numpy()))
+                    and math.isfinite(run.log_posterior)):
+                raise AssertionError(f"{name}: non-finite state")
+            times[name] = dt * 1e3 / B
+            log(f"{name}: {run.stats_line()}")
+            log(f"{name}: {times[name]:.3f} ms per boundary ({B} boundaries "
+                f"and a burst) beside the exponential path's {exp_ms:.3f} "
+                f"in phase 4 ({card})")
+            if name.startswith("skygrid"):
+                sky_launches[name.split()[1]] = counts["sweep_chain_skygrid"]
+            move_share(run, name, times[name], device, card)
+            # a snapshot written on the card resumes bit-equal there
+            snap = os.path.join(tmp, "model.npz")
+            save_run(run, snap)
+            loaded = load_run(snap)
+            for r in (run, loaded):
+                r.do_mcmc_steps(3 * lm)
+            if run.log_posterior != loaded.log_posterior \
+                    or not torch.equal(run.ts.t, loaded.ts.t):
+                raise AssertionError(f"{name}: resume is not bit-equal")
+            log(f"{name}: resume bit-equal at step {run.step}: "
+                f"{run.log_posterior!r}")
+            del run, loaded
+        log("ms per boundary by path: " + json.dumps(
+            {k: round(v, 3) for k, v in times.items()}) + f" ({card})")
+    return sky_launches
+
+
+def move_share(run, name, boundary_ms, device, card: str, n: int = 10):
+    """Host time of a boundary's global moves, and of the move this path
+    adds, alone: the skygrid's HMC, the alpha/nu moves (with the per-site
+    statistics they read) or the mpox hack's mu/rho moves (with theirs).
+    These moves are eager PyTorch: their device work waits on the host."""
+    from delphy_tpu_torch.mcmc import global_moves as gm
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.ops import likelihood as lk
+
+    args = (run.ts, run.evo, run.pop, run.gen, run.tin, run.tout,
+            run.t_max_tip, run.hyp, run.num_cells)
+    ts, evo, pop, grid, *_ = run_global_moves(*args)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run_global_moves(*args)
+    sync(device)
+    glob = (time.perf_counter() - t0) * 1e3 / n
+    hyp, tin, tout = run.hyp, run.tin, run.tout
+    if name.startswith("skygrid"):
+        what = "the HMC move"
+
+        def move():
+            gm.skygrid_hmc_move(run.gen, pop, grid, ts.t, ts.is_tip, hyp)
+    elif name == "alpha/nu":
+        what = "Ttwiddle_l, M_l and the alpha/nu moves"
+
+        def move():
+            gm.alpha_and_nu_moves(run.gen, evo,
+                                  lk.calc_Ttwiddle_l(ts, evo, tin, tout),
+                                  lk.calc_num_muts_l(ts), hyp)
+    else:
+        what = "the per-partition statistics and the mu/rho moves"
+
+        def move():
+            pa = lk.calc_ref_state_prefix_beta(ts, evo)
+            gm.mpox_hack_moves(run.gen, evo, lk.calc_num_muts_beta_ab(ts, evo),
+                               lk.calc_num_muts(ts),
+                               lk.calc_Ttwiddle_beta_a(ts, evo, tin, tout, pa),
+                               hyp)
+    move()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        move()
+    sync(device)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    log(f"{name}: run_global_moves {glob:.3f} ms, of it {what} {ms:.3f} ms "
+        f"= {ms / boundary_ms:.1%} of a boundary's {boundary_ms:.3f} ms "
+        f"({card})")
+
+
+def model_cli(device, card: str) -> None:
+    """The CLI with the skygrid and site-rate heterogeneity, and with the
+    mpox hack, each --v0-paranoid, on the Ebola file (end of phase 6)."""
+    from delphy_tpu_torch import cli
+    from delphy_tpu_torch.parallel import _cuda
+
+    lm = 8050
+    for flags, path, col in (
+            (["--v0-pop-model", "skygrid", "--v0-site-rate-heterogeneity"],
+             SKYGRID_PATH, "gammaShape"),
+            (["--v0-mpox-hack"], MPOX_PATH, "clockRate")):
+        what = " ".join(flags)
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "model.log")
+            argv = ["--v0-in-maple", MAPLE, "--v0-seed", str(SEED),
+                    "--v0-target-coal-prior-cells", str(NUM_CELLS),
+                    "--v0-paranoid", "--v0-steps", str(8 * lm),
+                    "--v0-log-every", str(4 * lm),
+                    "--v0-tree-every", str(4 * lm),
+                    "--v0-delphy-snapshot-every", str(8 * lm),
+                    "--v0-out-log-file", out] + flags
+            _cuda.reset_launch_counts()
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                code = cli.main(argv)
+            sync(device)
+            wall = time.perf_counter() - t0
+            for line in err.getvalue().splitlines()[-2:]:
+                log(f"cli {what}: {line}")
+            if code != 0:
+                raise AssertionError(f"cli.main {what} returned {code}")
+            check_counts(f"on the CLI path {what}", path)
+            with open(out) as f:
+                rows = [ln.rstrip("\n").split("\t") for ln in f]
+        if col not in rows[0] or len(rows) != 3 or not all(
+                math.isfinite(float(v)) for r in rows[1:] for v in r):
+            raise AssertionError(f"cli {what}: .log {rows}")
+        log(f"cli {what}: 8 boundaries in {wall:.3f} s, paranoid checks "
+            f"green ({card})")
+
+
+def model_server(device, card: str) -> None:
+    """The server's create_run with pop_model "skygrid", stepped (end of
+    phase 7)."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.server import Client, serve_in_thread
+
+    srv, engine, _th = serve_in_thread()
+    client = Client(*srv.server_address)
+    lm = 8050
+    _cuda.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        rid = client.wait_job(client.call(
+            "create_run", maple=MAPLE, seed=SEED, num_cells=NUM_CELLS,
+            pop_model="skygrid")["job_id"], poll_s=0.005)["run_id"]
+        t1 = time.perf_counter()
+        res = client.wait_job(client.call("run_steps", run_id=rid,
+                                          n=6 * lm)["job_id"], poll_s=0.005)
+        t2 = time.perf_counter()
+        st = client.call("get_state", run_id=rid)
+        if res["step"] != 6 * lm or st["pop"]["model"] != "skygrid" \
+                or len(st["pop"]["gamma"]) != 50:
+            raise AssertionError(f"skygrid create_run: {res} {st['pop']}")
+        run = engine._runs[rid].run
+        run.check_derived_quantities(1e-6)
+        run.tree().check_integrity()
+        log(f"server skygrid: create_run {(t1 - t0) * 1e3:.3f} ms, "
+            f"run_steps of 6 boundaries and a burst {(t2 - t1) * 1e3:.3f} ms "
+            f"({card})")
+    finally:
+        client.close()
+        srv.shutdown()
+        srv.server_close()
+    check_counts("from the server's skygrid run", SKYGRID_PATH)
+
+
 def _union_us(spans) -> float:
     """Length of the union of (start, end) intervals."""
     total, cur_s, cur_e = 0.0, None, None
@@ -815,14 +1112,22 @@ def main(argv=None) -> int:
     records, floor = compare_kernels(run, device, base, floor_so)
     del run
 
-    counts = main_path(device, card)
+    counts, exp_ms = main_path(device, card)
     for r in records:
-        r["launches"] = counts[r["name"]]
+        if r["name"] in counts and counts[r["name"]] > 0:
+            r["launches"] = counts[r["name"]]
     if opts.profile:
         profile_path(device)
     dphy_leg = have_flatbuffers()
     cli_path(device, card, dphy_leg)
+    model_cli(device, card)
     server_path(device, card, dphy_leg)
+    model_server(device, card)
+    sky = model_paths(device, card, exp_ms)
+    for r in records:
+        if r["name"] == "sweep_chain_skygrid":
+            r["launches"] = sky["staircase"]
+            r["launches_log_linear"] = sky["log-linear"]
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

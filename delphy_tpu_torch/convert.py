@@ -2,10 +2,12 @@
 
 The JAX side is handed over as NamedTuples whose leaves are numpy (or any
 array ``np.asarray`` accepts); fields are matched by name, so a
-``delphy_tpu`` ``TreeState``, ``EvoParams``, ``ExpPopParams`` or ``PartMaps``
-converts into the port's class of the same name.  ``to_numpy`` goes back: it
-returns a ``{field: numpy array}`` dict from which the JAX class is rebuilt
-with ``Cls(**d)``.  ``load_jax_snapshot`` carries a whole run across: it
+``delphy_tpu`` ``TreeState``, ``EvoParams`` (one partition or the mpox
+hack's two), ``ExpPopParams`` or ``PartMaps`` converts into the port's class
+of the same name, and ``skygrid_pop_to_torch`` converts a
+``SkygridPopParams`` (a record with a static ``type``).  ``to_numpy`` goes
+back: it returns a ``{field: numpy array}`` dict from which the JAX class is
+rebuilt with ``Cls(**d)``.  ``load_jax_snapshot`` carries a whole run across: it
 reads a snapshot file written by the JAX package's ``io.snapshot.save_run``
 into a port ``Run``.  This module imports no jax.
 """
@@ -18,7 +20,7 @@ import torch
 from . import DEFAULT_DEVICE, DTYPE, resolve_device
 from .evo import EvoParams
 from .parallel.partmaps import PartMaps
-from .pop import ExpPopParams
+from .pop import ExpPopParams, SkygridPopParams
 from .state import TreeState
 
 
@@ -54,6 +56,14 @@ def exp_pop_to_torch(pop, device=DEFAULT_DEVICE) -> ExpPopParams:
     return from_numpy(ExpPopParams, pop, device)
 
 
+def skygrid_pop_to_torch(pop, device=DEFAULT_DEVICE) -> SkygridPopParams:
+    device = resolve_device(device)
+    return SkygridPopParams(
+        x=_leaf_to_torch(pop.x, device),
+        gamma=_leaf_to_torch(pop.gamma, device), type=int(pop.type),
+        tau=_leaf_to_torch(pop.tau, device))
+
+
 def part_maps_to_torch(pm, device=DEFAULT_DEVICE) -> PartMaps:
     return from_numpy(PartMaps, pm, device)
 
@@ -72,11 +82,12 @@ JAX_SNAPSHOT_VERSION = 3
 
 def load_jax_snapshot(path, gen_seed: int = 0, device=DEFAULT_DEVICE):
     """A port ``Run`` in the state of a snapshot written by the JAX package:
-    tree state, partition maps, ``evo``, the exponential ``pop``, the host
-    generator and the run's scalars.  The JAX PRNG key has no counterpart
-    in a ``torch.Generator``, so the run's generator is seeded with
-    ``gen_seed``: the run continues from the same state on a trajectory of
-    its own.  Raises for a skygrid, alpha-move or mpox snapshot."""
+    tree state, partition maps, ``evo``, ``pop`` (exponential or skygrid),
+    the host generator and the run's scalars, with the snapshot's prior
+    configuration (site-rate heterogeneity included) and mpox flag.  The JAX
+    PRNG key has no counterpart in a ``torch.Generator``, so the run's
+    generator is seeded with ``gen_seed``: the run continues from the same
+    state on a trajectory of its own."""
     from .io.snapshot import read_snapshot, restore_run   # it imports us
     meta, data = read_snapshot(path, JAX_SNAPSHOT_MAGIC, JAX_SNAPSHOT_VERSION)
     if "driver" not in meta:

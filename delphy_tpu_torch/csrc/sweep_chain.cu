@@ -69,6 +69,19 @@
 // Summation order differs from the plain version (warp-tree dq, per-thread
 // partial sums of dG and dC); accept decisions match.  f64 throughout, with
 // expm1/log1p and +-inf.
+//
+// Population models: the kernel is a template on the model of the -log N(t)
+// point terms of inner-node moves.  POP_EXP is the exponential model with
+// the min_pop floor (entry delphy_sweep_chain); POP_STAIRCASE and
+// POP_LOG_LINEAR are the skygrid's two types (entry
+// delphy_sweep_chain_skygrid), whose K = M + 1 knots x_k and log-population
+// values gamma_k are loaded into shared memory once per block: log N(t) is
+// then a binary search, k = the number of knots below t (numpy's
+// searchsorted, side "left"), followed by the staircase's gamma_k or the
+// log-linear interpolation between knots k - 1 and k, gamma_0 before x_0
+// and gamma_M after x_M (pop_model.cpp:181-200).  The JAX package sweeps a
+// skygrid run with its XLA part_sweep instead (the Pallas chain hard-codes
+// the exponential model); both routes make the same moves.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -97,8 +110,39 @@ __device__ __forceinline__ double clip(double x, double lo, double hi) {
   return fmin(fmax(x, lo), hi);
 }
 
-__device__ __forceinline__ double log_pop(double t, const Shared& s) {
-  return fmax(s.log_min_pop, s.log_n0 + s.g * (t - s.t0));
+constexpr int POP_EXP = 0, POP_STAIRCASE = 1, POP_LOG_LINEAR = 2;
+
+// skygrid knots in shared memory (M + 1 of each; unused by POP_EXP)
+struct Knots {
+  const double* x;
+  const double* g;
+  int M;
+};
+
+template <int POP>
+__device__ __forceinline__ double log_pop(double t, const Shared& s,
+                                          const Knots& kn) {
+  if constexpr (POP == POP_EXP) {
+    return fmax(s.log_min_pop, s.log_n0 + s.g * (t - s.t0));
+  } else {
+    // k = the number of knots below t
+    int lo = 0, hi = kn.M + 1;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (kn.x[mid] < t)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    if (lo == 0) return kn.g[0];
+    if (lo > kn.M) return kn.g[kn.M];
+    if constexpr (POP == POP_STAIRCASE) {
+      return kn.g[lo];
+    } else {
+      double c = (t - kn.x[lo - 1]) / (kn.x[lo] - kn.x[lo - 1]);
+      return (1 - c) * kn.g[lo - 1] + c * kn.g[lo];
+    }
+  }
 }
 
 // x ~ exp(lam x) on [a, b] from uniform u (distributions.h:38-68, inverse
@@ -216,20 +260,23 @@ __device__ void fetch_uniforms(double* buf, const Uniforms& u, long ub,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// K: skygrid knots (0 for the exponential model)
 __host__ __device__ size_t smem_bytes(int NC, int MC, int C_real, int cpb,
-                                      int stages) {
+                                      int stages, int K) {
   int n_seg = C_real / cpb + 1;
   size_t doubles = 11 * (size_t)NC + 2 * (size_t)MC + 4 * (size_t)C_real +
-                   (size_t)stages * stage_doubles(NC, MC) + 3 * 32;
+                   (size_t)stages * stage_doubles(NC, MC) + 3 * 32 +
+                   2 * (size_t)K;
   size_t u64s = n_seg;
   size_t ints = 9 * (size_t)NC + 1 + 3 * (size_t)MC + n_seg + 2;
   return doubles * sizeof(double) + u64s * 8 + ints * sizeof(int);
 }
 
-int stages_for(int NC, int MC, int C_real, int cpb) {
-  return smem_bytes(NC, MC, C_real, cpb, 2) <= (size_t)SMEM_LIMIT ? 2 : 1;
+int stages_for(int NC, int MC, int C_real, int cpb, int K) {
+  return smem_bytes(NC, MC, C_real, cpb, 2, K) <= (size_t)SMEM_LIMIT ? 2 : 1;
 }
 
+template <int POP>
 __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     int NC, int MC, int C, int C_real, int cpb, int n_blocks, int stages,
     const double* __restrict__ t_in,
@@ -243,7 +290,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     const double* __restrict__ A_g, const double* __restrict__ nbar_g,
     const int* __restrict__ isc, const double* __restrict__ fsc, int NB,
     Uniforms un, double* t_out, double* mut_out, double* kp_out,
-    double* acc_out) {
+    double* acc_out, int K, const double* __restrict__ kx_g,
+    const double* __restrict__ kg_g) {
   const int p = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -278,7 +326,9 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   double* inv = Ac + C_real;        // C_real: t_step / nbar
   double* ubuf = inv + C_real;      // stages x UB
   double* red = ubuf + stages * UB; // 3 x 32
-  unsigned long long* best = (unsigned long long*)(red + 3 * 32);  // n_seg
+  double* kx = red + 3 * 32;        // K: skygrid knot times
+  double* kg = kx + K;              // K: skygrid log N at the knots
+  unsigned long long* best = (unsigned long long*)(kg + K);  // n_seg
   int* par = (int*)(best + n_seg);  // NC
   int* c0 = par + NC;               // NC
   int* c1 = c0 + NC;                // NC
@@ -322,12 +372,17 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     Ac[c] = A_g[c];
     inv[c] = sh.t_step / nbar_g[c];
   }
+  for (int k = tid; k < K; k += T) {
+    kx[k] = kx_g[k];
+    kg[k] = kg_g[k];
+  }
   for (int s = tid; s < n_seg; s += T) {
     best[s] = 0ull;
     seg_acc[s] = 0;
   }
   if (tid == 0) iscal[0] = 0;
   __syncthreads();
+  const Knots kn{kx, kg, K - 1};
 
   // ---- per-node slot lists (the pool is static within a sweep) ----
   for (int n = tid; n < NC; n += T) {
@@ -429,7 +484,9 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       bool in_bounds = valid && nt > t_lo_b && nt < t_hi && t_lo_b < t_hi;
       double dlg = d * (nt - old_t);
       double log_alpha = is_root_move ? 0.0 : dlg;
-      double dlogn = inner ? -(log_pop(nt, sh) - log_pop(old_t, sh)) : 0.0;
+      double dlogn = inner ? -(log_pop<POP>(nt, sh, kn) -
+                               log_pop<POP>(old_t, sh, kn))
+                           : 0.0;
       double sign = inner ? -1.0 : 1.0;
       int lo = max(cell_of(fmin(old_t, nt), sh, C_real) - MARGIN, 0);
       int hi = min(cell_of(fmax(old_t, nt), sh, C_real) + MARGIN, C_real - 1);
@@ -519,7 +576,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
           }
           dq = group_sum(dq);  // the same total in the group's lanes
           double dcoal = -dq + (is_leaf ? 0.0
-                                        : -(log_pop(nt, sh) - log_pop(ot, sh)));
+                                        : -(log_pop<POP>(nt, sh, kn) -
+                                            log_pop<POP>(ot, sh, kn)));
           if (dcoal >= 0.0 || log(fmax(uacc[n], 1e-30)) < dcoal) {
             acc_n = 1;
             if (r == 0) {
@@ -663,8 +721,37 @@ int threads_for(int NC) {
   return t < 64 ? 64 : (t > MAX_THREADS ? MAX_THREADS : t);
 }
 
+
+template <int POP>
+int launch(int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
+           const double* t_in, const double* mut_in, const double* kp_in,
+           const int* par, const int* c0, const int* c1, const double* t_min,
+           const double* t_max, const double* lam, const double* dlam,
+           const int* mnode, const int* mvalid, const int* msingle,
+           const double* slope, const double* b, const double* A,
+           const double* nbar, const int* isc, const double* fsc, int NB,
+           const Uniforms& un, double* t_out, double* mut_out, double* kp_out,
+           double* acc_out, int K, const double* kx, const double* kg,
+           void* stream) {
+  int stages = stages_for(NC, MC, C_real, cpb, K);
+  size_t smem = smem_bytes(NC, MC, C_real, cpb, stages, K);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sweep_chain_kernel<POP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sweep_chain_kernel<POP><<<P, threads_for(NC), smem, (cudaStream_t)stream>>>(
+      NC, MC, C, C_real, cpb, n_blocks, stages, t_in, mut_in, kp_in, par, c0,
+      c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A, nbar,
+      isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, kx, kg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// the exponential population model; fsc = (t_lo, t_step, t_max_tip, log n0,
+// g, t0, log min_pop)
 extern "C" int delphy_sweep_chain(
     int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
     const double* t_in, const double* mut_in,
@@ -677,25 +764,49 @@ extern "C" int delphy_sweep_chain(
     const double* u_refu, const double* u_refacc, const double* u_sc,
     const double* u_norm, int S, int Z, double* t_out, double* mut_out,
     double* kp_out, double* acc_out, void* stream) {
-  int stages = stages_for(NC, MC, C_real, cpb);
-  size_t smem = smem_bytes(NC, MC, C_real, cpb, stages);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
-  sweep_chain_kernel<<<P, threads_for(NC), smem, (cudaStream_t)stream>>>(
-      NC, MC, C, C_real, cpb, n_blocks, stages, t_in, mut_in, kp_in, par, c0,
-      c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A, nbar,
-      isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out);
-  return (int)cudaGetLastError();
+  return launch<POP_EXP>(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in,
+                         kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode,
+                         mvalid, msingle, slope, b, A, nbar, isc, fsc, NB, un,
+                         t_out, mut_out, kp_out, acc_out, 0, nullptr, nullptr,
+                         stream);
+}
+
+// the skygrid of `type` (1 staircase, 2 log-linear) with K knots x and
+// log-population values gamma; fsc as above, its last four entries unused
+extern "C" int delphy_sweep_chain_skygrid(
+    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
+    const double* t_in, const double* mut_in,
+    const double* kp_in, const int* par, const int* c0, const int* c1,
+    const double* t_min, const double* t_max, const double* lam,
+    const double* dlam, const int* mnode, const int* mvalid,
+    const int* msingle, const double* slope, const double* b,
+    const double* A, const double* nbar, const int* isc, const double* fsc,
+    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
+    const double* u_refu, const double* u_refacc, const double* u_sc,
+    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
+    double* kp_out, double* acc_out, int type, int K, const double* x,
+    const double* gamma, void* stream) {
+  if (K < 2 || (type != POP_STAIRCASE && type != POP_LOG_LINEAR))
+    return (int)cudaErrorInvalidValue;
+  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
+  auto go = type == POP_STAIRCASE ? launch<POP_STAIRCASE>
+                                  : launch<POP_LOG_LINEAR>;
+  return go(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in, kp_in, par, c0,
+            c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
+            nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, x,
+            gamma, stream);
 }
 
 extern "C" unsigned long long delphy_sweep_chain_smem_bytes(int NC, int MC,
                                                             int C_real,
                                                             int cpb) {
   return (unsigned long long)smem_bytes(NC, MC, C_real, cpb,
-                                        stages_for(NC, MC, C_real, cpb));
+                                        stages_for(NC, MC, C_real, cpb, 0), 0);
+}
+
+extern "C" unsigned long long delphy_sweep_chain_skygrid_smem_bytes(
+    int NC, int MC, int C_real, int cpb, int K) {
+  return (unsigned long long)smem_bytes(NC, MC, C_real, cpb,
+                                        stages_for(NC, MC, C_real, cpb, K), K);
 }

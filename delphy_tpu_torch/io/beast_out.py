@@ -19,6 +19,19 @@ def delta_linear_years(t: float, t0: float) -> float:
     return to_linear_year(t0) - to_linear_year(t)
 
 
+def growth_rate(pop, t: float) -> float:
+    """The growthRate column [1/day]: g of the exponential model; for a
+    skygrid, the slope of log N at ``t`` (0 on a staircase; the reference
+    package's writer reads a ``g`` that a skygrid does not have)."""
+    if not hasattr(pop, "gamma"):
+        return float(pop.g)
+    x, g = np.asarray(pop.x), np.asarray(pop.gamma)
+    k = int(np.searchsorted(x, t, side="left"))
+    if int(pop.type) == 1 or k == 0 or k >= len(x):
+        return 0.0
+    return float((g[k] - g[k - 1]) / (x[k] - x[k - 1]))
+
+
 class BeastLogOutput:
     """BEAST2-style .log TSV (beasty_output.cpp:73-220)."""
 
@@ -74,7 +87,7 @@ class BeastLogOutput:
             vals.append(float(popm.host_eval(popm.pop_at_time, hv.pop,
                                              beast_t0)) / 365.0)
         if self.pop_growth_rate_move_enabled:
-            vals.append(float(hv.pop.g) * 365.0)
+            vals.append(growth_rate(hv.pop, beast_t0) * 365.0)
         pi = hv.evo.pi
         vals += [float(p) for p in pi]
         self.fh.write("\t".join(_fmt(v) for v in vals) + "\n")

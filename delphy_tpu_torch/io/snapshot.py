@@ -40,11 +40,18 @@ def save_run(run, path):
     # (_per_block_rate, attempted counts) is final before serialization
     run._drain_inflight(block=True)
     arrays = {}
+    if isinstance(run.pop, popm.SkygridPopParams):
+        pop_meta = {"model": "skygrid", "type": int(run.pop.type)}
+        pop = {k: getattr(run.pop, k).detach().cpu().numpy()
+               for k in ("x", "gamma", "tau")}
+    else:
+        pop_meta = {"model": "exp"}
+        pop = to_numpy(run.pop)
     # pm was built with host RNG draws that cannot be replayed, so it is
     # serialized outright
-    for prefix, obj in (("ts", run.ts), ("pm", run.pm), ("evo", run.evo),
-                        ("pop", run.pop)):
-        for k, v in to_numpy(obj).items():
+    for prefix, fields in (("ts", to_numpy(run.ts)), ("pm", to_numpy(run.pm)),
+                           ("evo", to_numpy(run.evo)), ("pop", pop)):
+        for k, v in fields.items():
             arrays[f"{prefix}_{k}"] = v
     arrays["gen_state"] = run.gen.get_state().cpu().numpy()
 
@@ -53,7 +60,7 @@ def save_run(run, path):
         "version": VERSION,
         "step": run.step,
         "names": run.names,
-        "pop": {"model": "exp"},
+        "pop": pop_meta,
         "hyp": dataclasses.asdict(run.hyp),
         "num_cells": run.num_cells,
         "local_moves_per_global_move": run.local_moves_per_global_move,
@@ -65,6 +72,7 @@ def save_run(run, path):
             "device_partitions": run.device_partitions,
             "topology_partitions": run.topology_partitions,
             "topology_burst_chunks": run.topology_burst_chunks,
+            "mpox_hack": run.mpox_hack,
             "mut_capacity": run.mut_capacity,
             "miss_capacity": run.miss_capacity,
             "fs_capacity": run.fs_capacity,
@@ -110,19 +118,19 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
     """A Run in the state of a parsed snapshot, generators apart: tree,
     partition maps, parameters, adaptive scalars and the host generator.  The
     run's ``torch.Generator`` is seeded with ``gen_seed``."""
-    if meta["pop"]["model"] != "exp":
-        raise NotImplementedError(
-            f"population model {meta['pop']['model']!r} is not ported")
     hyp = PriorConfig(**meta["hyp"])
     drv = meta["driver"]
-    if drv.get("mpox_hack"):
-        raise NotImplementedError("mpox runs are not ported")
+    model = meta["pop"]["model"]
+    sky = ({"skygrid_num_parameters": len(data["pop_gamma"]),
+            "skygrid_type": meta["pop"]["type"]} if model == "skygrid"
+           else {})
     tree = unpack_state(TreeState(**_group(data, "ts_")), names=meta["names"])
     run = Run(tree, seed=gen_seed, hyp=hyp, num_cells=meta["num_cells"],
               local_moves_per_global_move=meta["local_moves_per_global_move"],
               topology_moves_enabled=meta["topology_moves_enabled"],
               topology_partitions=drv["topology_partitions"],
-              device_partitions=drv["device_partitions"], device=device)
+              device_partitions=drv["device_partitions"], device=device,
+              pop_model=model, mpox_hack=drv.get("mpox_hack", False), **sky)
     # the exact adaptive state: the packed arrays, partition maps and
     # feedback scalars as of the save; bit-identical resume depends on every
     # one of these (they steer n_blocks, kernel shapes and the repartition
@@ -134,7 +142,14 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
     run.ts = from_dict(TreeState, _group(data, "ts_"), dev)
     run.pm = from_dict(PartMaps, _group(data, "pm_"), dev)
     run.evo = from_dict(EvoParams, _group(data, "evo_"), dev)
-    run.pop = from_dict(popm.ExpPopParams, _group(data, "pop_"), dev)
+    if model == "skygrid":
+        p = {k: torch.as_tensor(np.asarray(v, np.float64), device=dev)
+             for k, v in _group(data, "pop_").items()}
+        run.pop = popm.SkygridPopParams(x=p["x"], gamma=p["gamma"],
+                                        type=meta["pop"]["type"],
+                                        tau=p["tau"])
+    else:
+        run.pop = from_dict(popm.ExpPopParams, _group(data, "pop_"), dev)
     run._fused_bundle = None   # ts/evo/pop replaced above
     run.topology_burst_chunks = drv["topology_burst_chunks"]
     run._n_cap_sticky = drv["n_cap_sticky"]

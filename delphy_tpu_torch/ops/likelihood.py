@@ -1,5 +1,6 @@
 """EMAT likelihood over the flat pools (port of
-``delphy_tpu/ops/likelihood.py``, single partition of sites).
+``delphy_tpu/ops/likelihood.py``; sites may fall into several partitions,
+each with its rate matrix, ``evo.part`` and ``evo.q_tab``).
 
 Per-branch quantities are scatter-adds over the mutation and missation pools
 keyed by branch, root-to-node sums are pointer-jumping path sums and subtree
@@ -165,6 +166,22 @@ def calc_num_muts_ab(ts: TreeState):
     return _scatter_add(16, idx, real.to(torch.int64)).reshape(4, 4)
 
 
+def calc_num_muts_beta_ab(ts: TreeState, evo: EvoParams):
+    """Mutation counts per (partition, from, to), i64[P, 4, 4] (reference
+    calc_num_muts_beta_ab; the mpox hack's mu/rho moves read it)."""
+    P = evo.q_tab.shape[0]
+    real = (ts.mut_node >= 0) & (ts.mut_node != ts.root)
+    mpart = evo.part[_c0(ts.mut_site)].long()
+    idx = mpart * 16 + _c0(ts.mut_from) * 4 + _c0(ts.mut_to)
+    return _scatter_add(P * 16, idx, real.to(torch.int64)).reshape(P, 4, 4)
+
+
+def calc_num_muts_l(ts: TreeState):
+    """Mutation count per site, i64[L]."""
+    real = (ts.mut_node >= 0) & (ts.mut_node != ts.root)
+    return _scatter_add(ts.num_sites, ts.mut_site, real.to(torch.int64))
+
+
 def calc_T_below(ts: TreeState, tin, tout):
     """Total branch length strictly below each node (Euler-tour prefix
     sums)."""
@@ -220,3 +237,82 @@ def calc_Ttwiddle_a(ts: TreeState, evo: EvoParams, tin, tout, nu_prefix):
     tw = tw.index_add(0, ts.ref_seq[site].long(), wf)
     tw = tw.index_add(0, _c0(ts.fs_from), -wf)
     return tw
+
+
+def calc_Ttwiddle_l(ts: TreeState, evo: EvoParams, tin, tout):
+    """Ttwiddle^(l) = sum_a q_a T^(l)_a per site (phylo_tree_calc.cpp:
+    176-222).  Missation intervals go through a difference array: +-T_below
+    at the interval ends, a prefix sum over sites, times q_a(ref_l)."""
+    L = ts.num_sites
+    qa_tab = evo.qa_tab
+    qa_ref = qa_tab[evo.part.long(), ts.ref_seq.long()]            # [L]
+    T_below = calc_T_below(ts, tin, tout)
+    tl = qa_ref * T_below[ts.root.long()]
+    zero = torch.zeros((), dtype=DTYPE, device=tl.device)
+
+    Tb_mut = _mut_T_below(ts, T_below)
+    site = _c0(ts.mut_site)
+    mpart = evo.part[site].long()
+    corr = torch.where(ts.mut_node >= 0,
+                       (qa_tab[mpart, _c0(ts.mut_to)]
+                        - qa_tab[mpart, _c0(ts.mut_from)]) * Tb_mut, zero)
+    tl = tl.index_add(0, site, corr)
+
+    ivalid = ts.miss_node >= 0
+    Tb_iv = _miss_T_below(ts, T_below, ts.miss_node)
+    diff = _scatter_add(L + 1, ts.miss_start, torch.where(ivalid, Tb_iv, zero))
+    diff = diff.index_add(0, _c0(ts.miss_end),
+                          torch.where(ivalid, -Tb_iv, zero))
+    W = torch.cumsum(diff, 0)[:L]   # total T_below of the intervals over l
+    tl = tl - qa_ref * W
+
+    Tb_fs = _miss_T_below(ts, T_below, ts.fs_node)
+    fsite = _c0(ts.fs_site)
+    fpart = evo.part[fsite].long()
+    wf = torch.where(ts.fs_node >= 0, Tb_fs, zero)
+    tl = tl.index_add(0, fsite, wf * qa_tab[fpart, ts.ref_seq[fsite].long()])
+    return tl.index_add(0, fsite, -wf * qa_tab[fpart, _c0(ts.fs_from)])
+
+
+def calc_ref_state_prefix_beta(ts: TreeState, evo: EvoParams):
+    """nu-weighted prefix sums of reference states per partition:
+    nucum_pa[p, a, k] = sum of nu_l over l < k with part_l == p and
+    ref_l == a; f64[P, 4, L+1]."""
+    P = evo.q_tab.shape[0]
+    comb = evo.part.long() * 4 + ts.ref_seq.long()
+    onehot = F.one_hot(comb, P * 4).to(DTYPE).T                    # [P*4, L]
+    zeros = torch.zeros((P * 4, 1), dtype=DTYPE, device=onehot.device)
+    nucum = torch.cat([zeros, torch.cumsum(onehot * evo.nu[None, :], 1)], 1)
+    return nucum.reshape(P, 4, -1)
+
+
+def calc_Ttwiddle_beta_a(ts: TreeState, evo: EvoParams, tin, tout,
+                         nu_prefix_pa):
+    """Ttwiddle^beta_a[p, a] = sum over sites l of partition p of
+    nu_l T^(l)_a (phylo_tree_calc.cpp:224-369); with one partition this is
+    calc_Ttwiddle_a.  ``nu_prefix_pa`` is calc_ref_state_prefix_beta()."""
+    P = evo.q_tab.shape[0]
+    T_below = calc_T_below(ts, tin, tout)
+    tw = (nu_prefix_pa[:, :, -1] * T_below[ts.root.long()]).reshape(-1)
+    zero = torch.zeros((), dtype=DTYPE, device=tw.device)
+
+    Tb_mut = _mut_T_below(ts, T_below)
+    site = _c0(ts.mut_site)
+    mpart = evo.part[site].long()
+    w = torch.where(ts.mut_node >= 0, evo.nu[site] * Tb_mut, zero)
+    tw = tw.index_add(0, mpart * 4 + _c0(ts.mut_from), -w)
+    tw = tw.index_add(0, mpart * 4 + _c0(ts.mut_to), w)
+
+    Tb_iv = _miss_T_below(ts, T_below, ts.miss_node)
+    flat = nu_prefix_pa.reshape(P * 4, -1)
+    nu_in_iv = flat[:, _c0(ts.miss_end)] - flat[:, _c0(ts.miss_start)]
+    tw = tw - torch.sum(torch.where((ts.miss_node >= 0)[None, :],
+                                    nu_in_iv * Tb_iv[None, :], zero), 1)
+
+    Tb_fs = _miss_T_below(ts, T_below, ts.fs_node)
+    fsite = _c0(ts.fs_site)
+    fpart = evo.part[fsite].long()
+    wf = torch.where(ts.fs_node >= 0, evo.nu[fsite] * Tb_fs, zero)
+    tw = tw.index_add(0, fpart * 4 + ts.ref_seq[fsite].long(), wf)
+    tw = tw.index_add(0, fpart * 4 + _c0(ts.fs_from), -wf)
+    return tw.reshape(P, 4)

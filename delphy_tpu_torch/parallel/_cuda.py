@@ -35,23 +35,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-launch_counts = {"hky_chain": 0, "exp_pop_chain": 0, "sweep_chain": 0}
+launch_counts = {"hky_chain": 0, "exp_pop_chain": 0, "sweep_chain": 0,
+                 "sweep_chain_skygrid": 0}
 
 _LIB = None
 _LOCK = threading.Lock()          # building and loading the library
 _COUNT_LOCK = threading.Lock()    # launch_counts
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SWEEP = [_I, _I, _I, _I, _I, _I, _I,
+          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+          _P, _P, _P, _P, _P, _P, _P, _P, _P,
+          _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+          _P, _P, _P, _P]
 _ARGTYPES = {
     "delphy_hky_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _D, _D,
                          _P, _P, _P, _P],
     "delphy_exp_pop_chain": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P,
                              _D, _D, _D, _D, _D, _D, _I, _I, _P, _P],
-    "delphy_sweep_chain": [_I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                           _P, _P, _P, _P, _P],
+    "delphy_sweep_chain": _SWEEP + [_P],
+    "delphy_sweep_chain_skygrid": _SWEEP + [_I, _I, _P, _P, _P],
 }
+# entry points a library may lack: another tree's kernel sources, built for
+# a kernel-only A/B, predate them
+_OPTIONAL = ("delphy_sweep_chain_skygrid",
+             "delphy_sweep_chain_skygrid_smem_bytes")
 
 
 class Packed(NamedTuple):
@@ -136,6 +143,8 @@ def load(path: str):
     """ctypes handle of a built library with the entry points' signatures."""
     handle = ctypes.CDLL(path)
     for name, argtypes in _ARGTYPES.items():
+        if name in _OPTIONAL and not hasattr(handle, name):
+            continue
         fn = getattr(handle, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -143,6 +152,10 @@ def load(path: str):
     handle.delphy_cuda_error_string.restype = ctypes.c_char_p
     handle.delphy_sweep_chain_smem_bytes.argtypes = [_I] * 4
     handle.delphy_sweep_chain_smem_bytes.restype = ctypes.c_ulonglong
+    if hasattr(handle, "delphy_sweep_chain_skygrid_smem_bytes"):
+        handle.delphy_sweep_chain_skygrid_smem_bytes.argtypes = [_I] * 5
+        handle.delphy_sweep_chain_skygrid_smem_bytes.restype = \
+            ctypes.c_ulonglong
     return handle
 
 

@@ -8,9 +8,12 @@ summing dG, dC and the move count; semantics of the reference's move mix
 (core/subrun.cpp:98-320).  Randomness comes in as ``BlockUniforms`` with the
 JAX layout, and the per-part context as (P, 1, X) rows, so the kernel, the
 plain version and the JAX twin ``sweep_chain_jnp`` can be fed the same
-arrays.  The port packs rows unpadded (NC = n_cap, MC = m_cap, C = cells);
-both versions also accept the JAX package's 128-lane padded rows, whose
-padding is inert.
+arrays.  The population model of the inner-node point terms -log N(t) is
+static (``ChainStatics.pop``): the exponential model with its min_pop floor
+(entry ``delphy_sweep_chain``), or a skygrid of either type, whose knots
+ride in ``shared`` (entry ``delphy_sweep_chain_skygrid``).  The port packs
+rows unpadded (NC = n_cap, MC = m_cap, C = cells); both versions also
+accept the JAX package's 128-lane padded rows, whose padding is inert.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .. import DTYPE
+from .. import pop as popm
 from . import _cuda
 
 
@@ -40,12 +44,16 @@ _SC_SEL, _SC_NODE_I, _SC_NODE_T, _SC_PROP, _SC_ACC, _SC_OFF = 0, 1, 2, 3, 4, 5
 SC_LANES = 6
 
 
+POP_EXP = 0   # else popm.STAIRCASE or popm.LOG_LINEAR: a skygrid
+
+
 class ChainStatics(NamedTuple):
     NC: int
     MC: int
     C: int            # cell count of the k_p / b / A / nbar rows
     C_real: int       # live cells (grid formulas use this)
     cpb: int          # cells per colour block
+    pop: int = POP_EXP   # population model of the -log N(t) terms
 
 
 def gen_block_uniforms(gen: torch.Generator, P: int, NB: int, NC: int,
@@ -111,8 +119,19 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     nbar = shared["nbar"].reshape(1, C)
     t_lo_g, t_step, t_max_tip = (shared["t_lo"], shared["t_step"],
                                  shared["t_max_tip"])
-    log_n0, g_pop, t0_pop, log_min_pop = (shared["log_n0"], shared["g"],
-                                          shared["t0"], shared["log_min_pop"])
+    if stat.pop == POP_EXP:
+        log_n0, g_pop, t0_pop, log_min_pop = (
+            shared["log_n0"], shared["g"], shared["t0"],
+            shared["log_min_pop"])
+
+        def log_pop(tt):
+            return torch.maximum(log_min_pop, log_n0 + g_pop * (tt - t0_pop))
+    else:
+        sky = popm.SkygridPopParams(x=shared["x"], gamma=shared["gamma"],
+                                    type=stat.pop)
+
+        def log_pop(tt):
+            return popm.skygrid_log_N(sky, tt)
 
     zero = torch.zeros((), dtype=DTYPE, device=dev)
     inf = zero + math.inf
@@ -134,9 +153,6 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
 
     def gather(a, idx):
         return torch.gather(a, 1, idx)
-
-    def log_pop(tt):
-        return torch.maximum(log_min_pop, log_n0 + g_pop * (tt - t0_pop))
 
     def frac(tt):
         return torch.clamp((tt - lb) / t_step, 0.0, 1.0)
@@ -330,9 +346,15 @@ def sweep_chain_kernel(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     return _launch(stat, n_blocks, ctx_arrs, shared, u)
 
 
+def entry(stat: ChainStatics) -> str:
+    """The C entry point (and launch-count name) of ``stat``'s model."""
+    return ("delphy_sweep_chain" if stat.pop == POP_EXP
+            else "delphy_sweep_chain_skygrid")
+
+
 def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                 u: BlockUniforms) -> _cuda.Packed:
-    """Check and pack the chain's inputs for ``delphy_sweep_chain``; outs are
+    """Check and pack the chain's inputs for ``entry(stat)``; outs are
     (t (P,1,NC), mut_t (P,1,MC), k_p (P,1,C), acc (P,3))."""
     dev = ctx_arrs["t"].device
     P = ctx_arrs["t"].shape[0]
@@ -348,9 +370,13 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     isc = torch.stack([ctx_arrs[k].reshape(P).to(torch.int32) for k in
                        ("part_root", "is_run_root", "n_leaves", "n_nodes")],
                       1).contiguous()
-    fsc = torch.stack([shared[k].to(DTYPE).reshape(()) for k in
-                       ("t_lo", "t_step", "t_max_tip", "log_n0", "g", "t0",
-                        "log_min_pop")]).contiguous()
+    sky = stat.pop != POP_EXP
+    scalars = ("t_lo", "t_step", "t_max_tip") + (
+        () if sky else ("log_n0", "g", "t0", "log_min_pop"))
+    fsc = torch.stack([shared[k].to(DTYPE).reshape(()) for k in scalars])
+    if sky:   # the exponential model's four entries are unused
+        fsc = torch.cat([fsc, fsc.new_zeros(4)])
+    fsc = fsc.contiguous()
     A = shared["A"].reshape(C).contiguous()
     nbar = shared["nbar"].reshape(C).contiguous()
     _cuda.require(A, "A", DTYPE, (C,), dev)
@@ -366,8 +392,20 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         _cuda.require(a, name, DTYPE, (P, NB, None), dev)
         if a.shape[2] < X:
             raise ValueError(f"{name}: last axis {a.shape[2]} < {X}")
-    smem = _cuda.lib().delphy_sweep_chain_smem_bytes(NC, MC, stat.C_real,
-                                                      stat.cpb)
+    knots = ()
+    if sky:
+        knots = (shared["x"].reshape(-1).contiguous(),
+                 shared["gamma"].reshape(-1).contiguous())
+        K = knots[0].shape[0]
+        for name, a in zip(("x", "gamma"), knots):
+            _cuda.require(a, name, DTYPE, (K,), dev)
+        if K < 2:
+            raise ValueError(f"a skygrid needs at least 2 knots, got {K}")
+        smem = _cuda.lib().delphy_sweep_chain_skygrid_smem_bytes(
+            NC, MC, stat.C_real, stat.cpb, K)
+    else:
+        smem = _cuda.lib().delphy_sweep_chain_smem_bytes(NC, MC, stat.C_real,
+                                                          stat.cpb)
     if smem > 227 * 1024:
         raise ValueError(f"sweep chain needs {smem} bytes of shared memory "
                          f"per part, above the 227 KB a block can use")
@@ -384,24 +422,28 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         R["msingle"], R["slope"], R["b"], P_(A), P_(nbar), P_(isc), P_(fsc),
         NB, P_(u.pri), P_(u.prop), P_(u.acc), P_(u.ref_u), P_(u.ref_acc),
         P_(u.sc), P_(u.norm), u.sc.shape[2], u.norm.shape[2],
-        P_(t_o), P_(mut_o), P_(kp_o), P_(acc_o),
-        _cuda.stream_ptr(t_o.device))
+        P_(t_o), P_(mut_o), P_(kp_o), P_(acc_o))
+    if sky:
+        args += (stat.pop, knots[0].shape[0], P_(knots[0]), P_(knots[1]))
+    args += (_cuda.stream_ptr(t_o.device),)
     return _cuda.Packed(args, (t_o, mut_o, kp_o, acc_o),
-                        (*rows.values(), isc, fsc, A, nbar, *u))
+                        (*rows.values(), isc, fsc, A, nbar, *u, *knots))
 
 
 def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
             u: BlockUniforms):
     pk = pack_launch(stat, n_blocks, ctx_arrs, shared, u)
-    _cuda.check(_cuda.lib().delphy_sweep_chain(*pk.args), "sweep_chain")
-    _cuda.count_launch("sweep_chain")
+    name = entry(stat)
+    _cuda.check(getattr(_cuda.lib(), name)(*pk.args), name)
+    _cuda.count_launch(name[len("delphy_"):])
     t_o, mut_o, kp_o, acc_o = pk.outs
     return t_o, mut_o, kp_o, acc_o[:, 0], acc_o[:, 1], acc_o[:, 2]
 
 
 def pack_chain_inputs(ctx, sh, pop_params, k_p, t_p, mut_t_p, cpb: int):
     """(stat, ctx_arrs, shared) of the chain from sweep.py's per-part context
-    and shared inputs, as unpadded (P, 1, X) rows."""
+    and shared inputs, as unpadded (P, 1, X) rows; ``pop_params`` is an
+    ExpPopParams or a SkygridPopParams."""
     P, n_cap = ctx.parent.shape
     m_cap = ctx.mut_node_loc.shape[1]
     C = k_p.shape[1]
@@ -427,15 +469,22 @@ def pack_chain_inputs(ctx, sh, pop_params, k_p, t_p, mut_t_p, cpb: int):
         "n_leaves": ctx.n_leaves.to(i32),
         "n_nodes": ctx.n_nodes.to(i32),
     }
-    min_pop = pop_params.min_pop
     shared = {
         "A": sh.A.reshape(1, C), "nbar": sh.popsize_bar.reshape(1, C),
-        "t_lo": sh.t_lo, "t_step": sh.t_step, "t_max_tip": sh.t_max_tip,
-        "log_n0": torch.log(pop_params.n0), "g": pop_params.g,
-        "t0": pop_params.t0,
-        "log_min_pop": torch.where(
-            min_pop > 0.0, torch.log(torch.clamp(min_pop, min=1e-30)),
-            torch.full_like(min_pop, -math.inf)),
-    }
-    stat = ChainStatics(NC=n_cap, MC=m_cap, C=C, C_real=C, cpb=cpb)
+        "t_lo": sh.t_lo, "t_step": sh.t_step, "t_max_tip": sh.t_max_tip}
+    if isinstance(pop_params, popm.SkygridPopParams):
+        model = pop_params.type
+        shared.update(x=pop_params.x.contiguous(),
+                      gamma=pop_params.gamma.contiguous())
+    else:
+        model = POP_EXP
+        min_pop = pop_params.min_pop
+        shared.update(
+            log_n0=torch.log(pop_params.n0), g=pop_params.g,
+            t0=pop_params.t0,
+            log_min_pop=torch.where(
+                min_pop > 0.0, torch.log(torch.clamp(min_pop, min=1e-30)),
+                torch.full_like(min_pop, -math.inf)))
+    stat = ChainStatics(NC=n_cap, MC=m_cap, C=C, C_real=C, cpb=cpb,
+                        pop=model)
     return stat, ctx_arrs, shared

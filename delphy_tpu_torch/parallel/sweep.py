@@ -1,5 +1,7 @@
 """Partitioned local-move sweep on one device (port of
-``delphy_tpu/parallel/sweep.py``, single device, exponential population).
+``delphy_tpu/parallel/sweep.py``, single device).  Both population models
+run through the sweep kernel: its skygrid build takes the place of the JAX
+package's XLA ``part_sweep`` for a skygrid run (same moves).
 
 Each part runs the reference's local move mix (subrun.cpp:98-121) on its own
 index view of the global flat arrays, all parts in one launch of the sweep

@@ -165,13 +165,9 @@ class EngineServer:
                 [(t.t_min, t.t_max) for t in tips],
                 names=[t.name for t in tips],
                 rng=np.random.default_rng(seed))
-            if params.get("pop_model", "exp") != "exp" \
-                    or params.get("mpox_hack"):
-                raise NotImplementedError(
-                    "pop_model other than 'exp' and mpox_hack are not ported "
-                    "to delphy_tpu_torch yet")
             kw = {}
-            for k in ("num_cells", "local_moves_per_global_move",
+            for k in ("num_cells", "pop_model", "skygrid_num_parameters",
+                      "local_moves_per_global_move", "mpox_hack",
                       "device_partitions"):
                 if k in params:
                     kw[k] = params[k]

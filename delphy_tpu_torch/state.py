@@ -170,15 +170,23 @@ def unpack_state(ts: TreeState, names=None) -> FlatTree:
 # and every float leaf into one vector ON THE DEVICE, so the host fetch is two
 # copies instead of one per leaf; split_for_host slices the fetched buffers
 # back into the original structure with numpy leaves.  Leaf order is the
-# NamedTuple field order, depth first (jax.tree_util's order).
+# NamedTuple field order, depth first (jax.tree_util's order); a record with
+# ``tree_flatten``/``tree_unflatten`` (pop.SkygridPopParams) contributes the
+# children it flattens to and keeps its static part.
 
 def _leaves(tree) -> list:
+    if hasattr(tree, "tree_flatten"):
+        tree = tree.tree_flatten()[0]
     if isinstance(tree, (tuple, list)):
         return [leaf for sub in tree for leaf in _leaves(sub)]
     return [tree]
 
 
 def _rebuild(template, it):
+    if hasattr(template, "tree_flatten"):
+        children, aux = template.tree_flatten()
+        return type(template).tree_unflatten(
+            aux, [_rebuild(s, it) for s in children])
     if isinstance(template, tuple) and hasattr(template, "_fields"):
         return type(template)(*[_rebuild(s, it) for s in template])
     if isinstance(template, (tuple, list)):

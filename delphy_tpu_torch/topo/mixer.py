@@ -1,6 +1,6 @@
 """Host coalescent-prior helpers of the topology phase: the exp-pop model
-with min_pop floor and a host copy of the cell grid
-(core/scalable_coalescent.cpp).  The topology moves themselves run in the
+with min_pop floor, the skygrid model and a host copy of the cell grid
+(core/pop_model.cpp, core/scalable_coalescent.cpp).  The topology moves themselves run in the
 native kernel (``native/``); the reference package's pure-Python mixer is not
 part of the port."""
 
@@ -39,6 +39,60 @@ class HostExpPop:
         lo_c = min(max(t_c, a), b)
         unc = n0 / g * math.exp(g * (a - self.t0)) * math.expm1(g * (lo_c - a))
         return unc + (b - lo_c) * mp
+
+
+class HostSkygridPop:
+    """Host skygrid model (staircase / log-linear; core/pop_model.cpp:147-560)."""
+
+    def __init__(self, x, gamma, type_):
+        self.x = np.asarray(x, dtype=np.float64)
+        self.gamma = np.asarray(gamma, dtype=np.float64)
+        self.type = int(type_)
+
+    def log_N(self, t):
+        x, g = self.x, self.gamma
+        M = len(x) - 1
+        k = int(np.searchsorted(x, t, side="left"))
+        if k == 0:
+            return g[0]
+        if k > M:
+            return g[M]
+        if self.type == 1:  # staircase
+            return g[k]
+        c = (t - x[k - 1]) / (x[k] - x[k - 1])
+        return (1 - c) * g[k - 1] + c * g[k]
+
+    def pop_at(self, t):
+        return math.exp(self.log_N(t))
+
+    def pop_integral(self, a, b):
+        # piecewise integration over intervals intersecting [a, b]
+        x, g = self.x, self.gamma
+        M = len(x) - 1
+        edges = np.concatenate([[-np.inf], x, [np.inf]])
+        total = 0.0
+        for k in range(M + 2):
+            lo = max(a, edges[k])
+            hi = min(b, edges[k + 1])
+            if hi <= lo:
+                continue
+            if k == 0:
+                total += math.exp(g[0]) * (hi - lo)
+            elif k == M + 1:
+                total += math.exp(g[M]) * (hi - lo)
+            elif self.type == 1:
+                total += math.exp(g[k]) * (hi - lo)
+            else:
+                c_lo = (lo - x[k - 1]) / (x[k] - x[k - 1])
+                c_hi = (hi - x[k - 1]) / (x[k] - x[k - 1])
+                G_lo = (1 - c_lo) * g[k - 1] + c_lo * g[k]
+                G_hi = (1 - c_hi) * g[k - 1] + c_hi * g[k]
+                D = G_hi - G_lo
+                if D == 0.0:
+                    total += math.exp(G_lo) * (hi - lo)
+                else:
+                    total += math.exp(G_lo) * (hi - lo) * math.expm1(D) / D
+        return total
 
 
 class HostCoalGrid:

@@ -5,13 +5,14 @@ Both parsers must have the same flags and defaults (``--mesh-devices`` there,
 ``--device`` here, apart); the same flag sets must give the same
 ``PriorConfig`` and the same initial mu, n0, g and min_pop (compared with
 ``==``: the arithmetic is the same Python); every ``_CliError`` of the flag
-checks must carry the same message; the skygrid, alpha and mpox flags end in
-the port's "not ported" error; and the main loop writes a .log with the
-reference's header, a .trees file that reads back, an MCC tree and a snapshot
-that resumes exactly.
+checks must carry the same message; the skygrid, alpha and mpox flags run
+and write the .log header the JAX CLI writes for them; and the main loop
+writes a .log with the reference's header, a .trees file that reads back,
+an MCC tree and a snapshot that resumes exactly.
 """
 
 import dataclasses
+import io
 import math
 
 import numpy as np
@@ -19,6 +20,7 @@ import pytest
 
 from delphy_tpu import cli as jcli
 from delphy_tpu import run as jrun_mod
+from delphy_tpu.io import beast_out as jbeast_out
 
 from delphy_tpu_torch import cli, version
 from delphy_tpu_torch import run as run_mod
@@ -155,12 +157,40 @@ def test_flag_errors_carry_the_same_message(maple, flags):
      "--v0-skygrid-tau", "2.0"],
     ["--v0-site-rate-heterogeneity"],
     ["--v0-mpox-hack"]], ids=range(4))
-def test_unported_models_end_in_the_not_ported_error(maple, capsys, flags):
+def test_unported_models_end_in_the_not_ported_error(maple, tmp_path,
+                                                     monkeypatch, flags):
+    """These model flags once ended in a "not ported" error; now each set
+    runs on the CPU with --v0-paranoid and writes a .log whose header is the
+    one the JAX CLI writes for the same flags (its BeastLogOutput, built as
+    its _main builds it), with finite rows, and the run holds the model."""
+    seen = _spy(monkeypatch, run_mod)
+    log = tmp_path / "o.log"
     assert cli.main(["--v0-in-maple", maple, "--device", "cpu",
-                     "--v0-steps", "100"] + flags) == 1
-    err = capsys.readouterr().err
-    assert "ERROR:" in err and "is not ported to delphy_tpu_torch yet" in err
-    assert flags[0] in err
+                     "--v0-steps", "900", "--v0-log-every", "300",
+                     "--v0-tree-every", "300",
+                     "--v0-delphy-snapshot-every", "900", "--v0-paranoid",
+                     "--v0-out-log-file", str(log)] + flags) == 0
+    (run,) = seen
+    args = jcli.build_parser().parse_args(["--v0-in-maple", maple] + flags)
+    want = io.StringIO()
+    jbeast_out.BeastLogOutput(
+        want, mu_move_enabled=not args.v0_fix_mutation_rate,
+        alpha_move_enabled=args.v0_site_rate_heterogeneity).write_headers(
+        run.tree())
+    rows = log.read_text().splitlines()
+    assert rows[0] == want.getvalue().rstrip("\n")
+    assert len(rows) == 4
+    assert all(math.isfinite(float(v)) for r in rows[1:]
+               for v in r.split("\t"))
+    assert run.step == 900
+    run.check_derived_quantities(1e-6)
+    if "skygrid" in flags:
+        assert run.pop.gamma.shape[0] == int(
+            flags[flags.index("--v0-skygrid-num-parameters") + 1]
+            if "--v0-skygrid-num-parameters" in flags else 50)
+    assert run.hyp.alpha_move_enabled == ("--v0-site-rate-heterogeneity"
+                                          in flags)
+    assert run.mpox_hack == ("--v0-mpox-hack" in flags)
 
 
 def test_input_errors_and_version(maple, tmp_path, capsys):

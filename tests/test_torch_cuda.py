@@ -13,7 +13,10 @@ nodes in one batched move, tied priorities, colour blocks too narrow for
 the k_p scatter, the exp-pop chain with one move off, g = 0 and the
 min_pop clamp inside the grid, and the HKY chain at the simplex edge, with
 a zero column of M, at extreme kappa, on its per-entry path (pi0 with a
-zero entry), over 1 and 64 rounds and from 256 random states.
+zero entry), over 1 and 64 rounds and from 256 random states.  The sweep
+kernel's skygrid build is held to the plain chain on a real boundary of
+each skygrid type, and short skygrid, alpha/nu and mpox Runs keep their
+ledger and launch the kernels their paths must launch.
 """
 
 import os
@@ -27,6 +30,8 @@ MAPLE = os.path.join(REPO, "data", "ebola2014_like_81x18959.maple")
 F64 = torch.float64
 
 pytestmark = pytest.mark.cuda
+# the kernels an exponential-model run launches every boundary
+EXP_KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain")
 
 
 @pytest.fixture(scope="module")
@@ -318,7 +323,8 @@ def test_run_on_card_keeps_ledger(run):
     run.do_mcmc_steps(3 * run.local_moves_per_global_move)
     run.check_derived_quantities(1e-6)
     run.tree().check_integrity()
-    assert all(v > 0 for v in _cuda.launch_counts.values())
+    assert all(_cuda.launch_counts[k] > 0 for k in EXP_KERNELS)
+    assert _cuda.launch_counts["sweep_chain_skygrid"] == 0
 
 
 def test_snapshot_resumes_exactly_on_card(device, tmp_path):
@@ -418,7 +424,7 @@ def test_two_server_runs_step_at_once_on_card(device, tmp_path):
         r1, r2 = c.wait_job(j1["job_id"]), c.wait_job(j2["job_id"])
         assert r1["log_posterior"] == r2["log_posterior"]
         # 20 boundaries each, one launch of every kernel per boundary
-        assert all(v == 40 for v in _cuda.launch_counts.values()), \
+        assert all(_cuda.launch_counts[k] == 40 for k in EXP_KERNELS), \
             _cuda.launch_counts
         for r in (rid, rid2):
             run = engine._runs[r].run
@@ -429,3 +435,61 @@ def test_two_server_runs_step_at_once_on_card(device, tmp_path):
         c.close()
         srv.shutdown()
         srv.server_close()
+
+
+@pytest.fixture(scope="module", params=["staircase", "log-linear"])
+def skygrid_run(device, request):
+    from delphy_tpu_torch import pop as popm
+    typ = popm.STAIRCASE if request.param == "staircase" else popm.LOG_LINEAR
+    return make_run(device, n_tips=40, pop_model="skygrid", skygrid_type=typ)
+
+
+def test_sweep_kernel_skygrid_matches_plain(skygrid_run, device):
+    """The skygrid build of the sweep kernel against the plain chain's
+    skygrid log N(t), on a real boundary of each skygrid type."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    run = skygrid_run
+    stat, ctx, shared = sweep_boundary(run)
+    assert stat.pop == run.pop.type
+    u = bc.gen_block_uniforms(run.gen, ctx["t"].shape[0], 32, stat.NC,
+                              stat.MC, device)
+    _cuda.reset_launch_counts()
+    got = bc.sweep_chain_kernel(stat, 32, ctx, shared, u)
+    assert _cuda.launch_counts["sweep_chain_skygrid"] == 1
+    assert _cuda.launch_counts["sweep_chain"] == 0
+    want = bc.sweep_chain_torch(stat, 32, ctx, shared, u)
+    _close(got[:3], want[:3], rtol=0.0, atol=1e-9)
+    _close(got[3:5], want[3:5], rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(got[5], want[5], rtol=0.0, atol=0.0)
+    assert float(got[5].sum()) > 0
+
+
+def test_skygrid_run_on_card_keeps_ledger(skygrid_run):
+    from delphy_tpu_torch.parallel import _cuda
+    run = skygrid_run
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(3 * run.local_moves_per_global_move)
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    counts = _cuda.launch_counts
+    assert counts["sweep_chain_skygrid"] >= 3 and counts["hky_chain"] >= 3
+    assert counts["sweep_chain"] == counts["exp_pop_chain"] == 0
+
+
+@pytest.mark.parametrize("option", ["alpha", "mpox"])
+def test_model_option_runs_on_card(device, option):
+    from delphy_tpu_torch.mcmc.global_moves import PriorConfig
+    from delphy_tpu_torch.parallel import _cuda
+    kw = ({"hyp": PriorConfig(alpha_move_enabled=True)} if option == "alpha"
+          else {"mpox_hack": True})
+    run = make_run(device, n_tips=40, **kw)
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(3 * run.local_moves_per_global_move)
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    counts = _cuda.launch_counts
+    assert counts["sweep_chain"] >= 3 and counts["exp_pop_chain"] >= 3
+    assert counts["hky_chain"] == (0 if option == "mpox" else
+                                   counts["sweep_chain"])
+    assert counts["sweep_chain_skygrid"] == 0

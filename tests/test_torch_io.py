@@ -336,6 +336,9 @@ def test_snapshot_refuses_the_other_device_type(pair, tmp_path):
 
 @pytest.mark.parametrize("case", ["skygrid", "alpha", "mpox"])
 def test_jax_snapshot_of_an_unported_model_raises(tmp_path, case):
+    """These snapshots once raised "not ported"; now each loads into a port
+    Run in the same state, with the same options, and its ledger recompute
+    is the JAX run's (1e-8)."""
     from delphy_tpu.mcmc.global_moves import PriorConfig as JPriorConfig
     kw = {"skygrid": dict(pop_model="skygrid", skygrid_num_parameters=6),
           "alpha": dict(hyp=JPriorConfig(alpha_move_enabled=True)),
@@ -343,8 +346,21 @@ def test_jax_snapshot_of_an_unported_model_raises(tmp_path, case):
     jrun = _jax_run(seed=61, L=80, **kw)
     path = tmp_path / "x.npz"
     jsnapshot.save_run(jrun, path)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        convert.load_jax_snapshot(path, device="cpu")
+    run = convert.load_jax_snapshot(path, device="cpu")
+    assert run.hyp.alpha_move_enabled == (case == "alpha")
+    assert run.mpox_hack == (case == "mpox")
+    for f in run.evo._fields:
+        np.testing.assert_array_equal(getattr(run.evo, f).numpy(),
+                                      np.asarray(getattr(jrun.evo, f)), f)
+    if case == "skygrid":
+        assert run.pop.type == jrun.pop.type
+        for f in ("x", "gamma", "tau"):
+            np.testing.assert_array_equal(getattr(run.pop, f).numpy(),
+                                          np.asarray(getattr(jrun.pop, f)))
+    got, want = run.calc_cur_ledger(), jrun.calc_cur_ledger()
+    for f in got._fields:
+        assert float(getattr(got, f)) == pytest.approx(
+            float(getattr(want, f)), abs=1e-8), f
 
 
 def test_mcc_from_trees_tool(pair, tmp_path):

@@ -131,12 +131,30 @@ def test_server_full_surface(server, tmp_path):
                                     {"mpox_hack": True}])
 def test_create_run_unported_models_fail_through_the_job(server, tmp_path,
                                                          params):
+    """These models once failed "not ported" through the job; now
+    create_run builds them, run_steps steps them, get_state reports them,
+    and the served run's log_G is its state's recompute (1e-6, through a
+    snapshot of it)."""
+    from delphy_tpu_torch.io.snapshot import load_run
     maple_path = _write_maple(tmp_path / "in.maple", 8, 100, seed=3)
     c = Client(*server)
     try:
-        job = c.call("create_run", maple=maple_path, seed=1, **params)
-        with pytest.raises(RuntimeError, match="not ported"):
-            c.wait_job(job["job_id"])
+        job = c.call("create_run", maple=maple_path, seed=1, num_cells=64,
+                     local_moves_per_global_move=200, **params)
+        rid = c.wait_job(job["job_id"])["run_id"]
+        res = c.wait_job(c.call("run_steps", run_id=rid, n=1200)["job_id"])
+        assert res["step"] == 1200 and np.isfinite(res["log_posterior"])
+        st = c.call("get_state", run_id=rid)
+        assert st["pop"]["model"] == params.get("pop_model", "exp")
+        assert ("mu*" in st["stats_line"]) == bool(params.get("mpox_hack"))
+        # the dashboard draws the served model
+        assert (f"pop {st['pop']['model']}"
+                in render(st, [], t_start=time.time(), moves0=0))
+        snap = str(tmp_path / "served.npz")
+        c.call("save_snapshot", run_id=rid, path=snap)
+        run = load_run(snap, device="cpu")
+        assert float(run.calc_cur_ledger().log_G) == pytest.approx(
+            st["log_G"], abs=1e-6)
     finally:
         c.close()
 
