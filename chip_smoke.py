@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (delphy_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--baseline CSRC_DIR]
+    python3 chip_smoke.py [--profile] [--baseline CSRC_DIR] [--large-tips N]
 
 Phases, each of which raises (exit code != 0) on failure:
   1. print the card's name and power limit (nvidia-smi);
@@ -49,7 +49,25 @@ Phases, each of which raises (exit code != 0) on failure:
      tree's integrity, the kernels each path must launch (and no other),
      ms per boundary beside phase 4's, the share of a boundary that the
      path's own move takes (the skygrid's HMC, the alpha/nu moves, the mpox
-     mu/rho moves), and a snapshot that resumes bit-equal.
+     mu/rho moves), and a snapshot that resumes bit-equal;
+  9. large trees: (a) Run(device_partitions=1) on 1,000 simulated tips
+     (the reference scale bench's settings) with each population model,
+     whose one part needs the sweep kernel's global build: two boundaries
+     and a burst, the ledger at 1e-6, the tree's integrity, only the global
+     build launched, and that build against the plain version on the run's
+     own boundary; (b) the global build against the plain version at
+     NC=1152, MC=3200, C=400 (8 parts of a boundary of each model padded
+     to those widths), timed as in phase 3; (c) a 10,000-tip tree through
+     the blocking driver, then the overlapped driver (forced on with
+     DELPHY_TPU_OVERLAP=1; its gate is at ~60k tips): moves/s of each,
+     each cycle's stage times, the parts each L-dispatch swept, the host
+     syncs in an L-dispatch's enqueue, the device's busy share over one
+     traced cycle of each driver, the sweep kernel's build, shared bytes,
+     ms per launch and uniform bytes at that shape, an overlapped cycle
+     bit-equal to the same cycle forced sequential, and a snapshot after
+     an overlapped cycle that resumes bit-equal; (d) with --large-tips N,
+     the same at N tips (the scale bench's 100,000 x 29,903) with the
+     reference's default gate instead of the forced switch.
 Phases 6 and 7 also write a .dphy stream and read it back where the
 flatbuffers package imports, and say so in one line where it does not.
 The last three lines are the kernels' JSON record, the card line and
@@ -79,6 +97,11 @@ sys.path.insert(0, REPO)
 MAPLE = os.path.join(REPO, "data", "ebola2014_like_81x18959.maple")
 SEED = 1
 NUM_CELLS = 400
+# phase 9: the reference scale bench's dataset (scripts/make_tree100k.py)
+SCALE_SITES = 29903
+SCALE_SEED = 77
+ONE_PART_TIPS = 1000
+LARGE_TIPS = 10_000
 REPS = 5            # plain versions and wrappers
 KERNEL_REPS = 50    # bare kernel launches
 # NVIDIA H100 SXM data sheet: HBM3 rate, FP64 rate outside the tensor cores
@@ -88,8 +111,11 @@ FP64_OPS_PER_S = 34e12
 TRANSCENDENTAL_OPS = 20
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1084,12 +1110,510 @@ def profile_path(device, n: int = 40) -> dict:
     return rec
 
 
+
+def sim_tree(n_tips: int, cache: bool = False):
+    """The reference scale bench's simulated dataset at ``n_tips`` tips
+    (29,903 sites, mu 1e-3/365, 1200 sampling days, 2% missing, seed 77)
+    and its initial tree; with ``cache`` kept as a pickle in the temporary
+    directory, keyed by (tips, sites, seed)."""
+    import pickle
+
+    from delphy_tpu_torch.init_tree import build_initial_tree
+    from delphy_tpu_torch.sim import simulate_dataset
+    path = os.path.join(tempfile.gettempdir(), f"delphy_tpu_torch_tree_"
+                        f"{n_tips}_{SCALE_SITES}_{SCALE_SEED}.pkl")
+    if cache and os.path.exists(path):
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    t0 = time.perf_counter()
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        n_tips, SCALE_SITES, mu=1e-3 / 365, sample_window_days=1200.0,
+        missing_fraction=0.02, seed=SCALE_SEED)
+    t1 = time.perf_counter()
+    tree = build_initial_tree(ref, deltas, miss, dates, names=names,
+                              rng=np.random.default_rng(SCALE_SEED))
+    log(f"{n_tips} tips x {SCALE_SITES} sites: simulated in {t1 - t0:.1f} "
+        f"s, initial tree in {time.perf_counter() - t1:.1f} s, "
+        f"{tree.num_mutations()} mutations")
+    if cache:
+        with open(path, "wb") as f:
+            pickle.dump(tree, f)
+    return tree
+
+
+def sweep_shapes(run) -> dict:
+    """The sweep kernel's build and memory at a run's shapes."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    NC, MC = run.pm.node_map.shape[1], run.pm.mut_map.shape[1]
+    K = run.pop.x.numel() if hasattr(run.pop, "x") else 0
+    pop = run.pop.type if K else bc.POP_EXP
+    stat = bc.ChainStatics(NC=NC, MC=MC, C=run.num_cells,
+                           C_real=run.num_cells, cpb=16, pop=pop)
+    lib = _cuda.lib()
+    return {"P": run.pm.node_map.shape[0], "NC": NC, "MC": MC,
+            "build": bc.build(stat, K), "entry": bc.entry(stat, K),
+            "smem_bytes_per_part": lib.delphy_sweep_chain_skygrid_smem_bytes(
+                NC, MC, run.num_cells, 16, K),
+            "workspace_bytes_per_part":
+                lib.delphy_sweep_chain_workspace_bytes(NC, MC, run.num_cells,
+                                                       16, K)}
+
+
+def one_part_paths(device, card: str, tree) -> dict:
+    """Phase 9a: a Run with one device part on ``tree`` (1,000 tips) with
+    each population model: its part needs the global build.  Returns the
+    global builds' launches and the largest kernel-vs-plain error."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.run import Run
+    out = {"max_abs_err": 0.0}
+    for name, kw, path in (
+            ("exponential", {}, ("hky_chain", "exp_pop_chain",
+                                 "sweep_chain_global")),
+            ("skygrid", dict(pop_model="skygrid"),
+             ("hky_chain", "sweep_chain_skygrid_global"))):
+        run = Run(tree, seed=SEED, num_cells=NUM_CELLS, device_partitions=1,
+                  device=device, **kw)
+        shapes = sweep_shapes(run)
+        if shapes["build"] != 0:
+            raise AssertionError(f"one-part {name} run fits shared memory: "
+                                 f"{shapes}")
+        lm = run.local_moves_per_global_move
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        run.do_mcmc_steps(2 * lm)          # one dispatch and its burst
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = check_counts(f"on the one-part {name} path", path)
+        out[path[-1]] = counts[path[-1]]
+        if run.burst_count < 1 or run.topology_proposed <= 0:
+            raise AssertionError(f"one-part {name}: no topology burst")
+        run.check_derived_quantities(1e-6)
+        run.tree().check_integrity()
+        log(f"one-part {name} run: {shapes}, 2 boundaries and a burst in "
+            f"{dt:.3f} s, {run.local_moves_attempted} moves; "
+            f"{run.stats_line()} ({card})")
+        # the global build against the plain version on this boundary
+        stat, ctx, shared, nb = boundary_chain(run)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)
+        u = bc.gen_block_uniforms(gen, 1, nb, stat.NC, stat.MC, device)
+        got = bc.sweep_chain_kernel(stat, nb, ctx, shared, u)
+        want = bc.sweep_chain_torch(stat, nb, ctx, shared, u)
+        for n, g, w in zip(GLOBAL_TOL, got, want):
+            e = assert_close(f"one-part {name} {n}", g, w, *GLOBAL_TOL[n])
+            if n in ("t", "mut_t", "k_p"):
+                out["max_abs_err"] = max(out["max_abs_err"], e)
+        log(f"one-part {name}: global build = plain at NC={stat.NC} "
+            f"MC={stat.MC}, {nb} blocks, {int(got[5].sum())} moves")
+        del run
+    return out
+
+
+def boundary_chain(run):
+    """(stat, ctx_arrs, shared, n_blocks) of one boundary of ``run``'s sweep,
+    at the blocks Run.do_mcmc_steps would give it."""
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel.sweep import prepare_sweep
+    ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
+        run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.t_max_tip,
+        run.hyp, run.num_cells)
+    stat, ctx, shared, _t_p, _mut = prepare_sweep(
+        ts, evo, pop, grid, caches, run.pm, run.gen, run.t_max_tip,
+        run.num_cells)
+    nb = max(1, min(run._nb_cap(), round(run.local_moves_per_global_move
+                                         / run._per_block_rate)))
+    return stat, ctx, shared, nb
+
+
+# t, mut_t and k_p of the global build against the plain version: the
+# build's arithmetic is the shared build's, so the ISSUE's 1e-12
+GLOBAL_TOL = {"t": (0.0, 1e-12), "mut_t": (0.0, 1e-12), "k_p": (0.0, 1e-12),
+              "dG": (1e-10, 1e-12), "dC": (1e-10, 1e-12), "cnt": (0.0, 0.0)}
+
+
+def global_build_records(device, base, tree, launches, err0) -> list:
+    """Phase 9b: the global build of each model against the plain version
+    at NC=1152, MC=3200, C=400 (a boundary of 8 parts of ``tree`` padded to
+    those widths), timed as phase 3 times the shared builds.  Operations:
+    phase 3's count at these widths."""
+    from delphy_tpu_torch import pop as popm
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.run import Run
+    records = []
+    for name, kw, per_move in (
+            ("sweep_chain_global", {}, 150),
+            ("sweep_chain_skygrid_global", dict(pop_model="skygrid"), 190),
+            ("sweep_chain_skygrid_global (log_linear)",
+             dict(pop_model="skygrid", skygrid_type=popm.LOG_LINEAR), 190)):
+        run = Run(tree, seed=SEED, num_cells=NUM_CELLS, device_partitions=8,
+                  device=device, **kw)
+        run.do_mcmc_steps(run.local_moves_per_global_move)
+        stat, ctx, shared, nb = boundary_chain(run)
+        stat, ctx, shared = bc.pad_chain(stat, ctx, shared, NC=1152, MC=3200)
+        K = shared["x"].numel() if "x" in shared else 0
+        entry = bc.entry(stat, K)
+        if bc.build(stat, K) != 0 or not entry.endswith("_global"):
+            raise AssertionError(f"{name}: NC=1152 MC=3200 is not the global "
+                                 f"build")
+        P = ctx["t"].shape[0]
+        u = bc.gen_block_uniforms(run.gen, P, nb, stat.NC, stat.MC, device)
+        got = bc.sweep_chain_kernel(stat, nb, ctx, shared, u)
+        want = bc.sweep_chain_torch(stat, nb, ctx, shared, u)
+        err = err0
+        for n, g, w in zip(GLOBAL_TOL, got, want):
+            e = assert_close(f"{name} {n}", g, w, *GLOBAL_TOL[n])
+            if n in ("t", "mut_t", "k_p"):
+                err = max(err, e)
+        moves = float(got[5].sum())
+        if not moves > 0.0:
+            raise AssertionError(f"{name} moved nothing")
+        log(f"{name} at P={P} NC={stat.NC} MC={stat.MC} C={stat.C} "
+            f"n_blocks={nb}: {int(moves)} moves")
+        ops = nb * P * (300 + 30 * stat.NC + 8 * stat.MC) + per_move * moves
+        m = measure(name, entry, bc.pack_launch(stat, nb, ctx, shared, u),
+                    lambda: bc.sweep_chain_kernel(stat, nb, ctx, shared, u),
+                    lambda: bc.sweep_chain_torch(stat, nb, ctx, shared, u),
+                    ops, base, [(0.0, 1e-12)] * 3 + [(1e-10, 1e-12)], device)
+        if "log_linear" in name:
+            records[-1]["log_linear"] = {k: m[k] for k in (
+                "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+            records[-1]["max_abs_err"] = max(records[-1]["max_abs_err"], err)
+            continue
+        rec = dict(name=name, route="cuda",
+                   source="delphy_tpu_torch/csrc/sweep_chain.cu",
+                   replaces="delphy_tpu/parallel/block_pallas.py:465",
+                   max_abs_err=err, launches=launches[name],
+                   shape={"P": P, "NC": stat.NC, "MC": stat.MC, "C": stat.C,
+                          "n_blocks": nb})
+        rec.update(m)
+        records.append(rec)
+        del run
+    return records
+
+
+def busy_share(fn, what: str) -> dict:
+    """fn() under torch.profiler: wall time, the device's busy share (the
+    union of kernel and copy intervals over the wall) and the sweep
+    kernel's device time, from the exported trace (as phase 5 reads it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from delphy_tpu_torch.parallel._cuda import BUILD_DIR
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, "large_tree_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        raise AssertionError(f"the profiler traced no device activity "
+                             f"({what})")
+    busy = _union_us((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in dev) * 1e-6
+    sweep = sum(float(e["dur"]) for e in dev
+                if "sweep_chain_kernel" in e["name"]) * 1e-6
+    res = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
+           "sweep_kernel_s": sweep, "device_events": len(dev)}
+    log(f"traced {what}: {json.dumps(res)}")
+    return res
+
+
+def syncs_in(fn) -> dict:
+    """Host synchronisations of the stream that fn() makes (PyTorch's sync
+    debug mode warns at each), counted by the source line that made them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            k = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            where[k] = where.get(k, 0) + 1
+    return where
+
+
+def kernel_at_shape(run, device, half: bool) -> dict:
+    """The sweep kernel at a run's shape: a boundary over the run's parts
+    (half: the first half of the rows, as an L-dispatch sweeps), at the
+    blocks the driver would give it; kernel-only ms per launch, build,
+    shared bytes per part and uniform bytes."""
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel.sweep import prepare_sweep
+    ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
+        run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.t_max_tip,
+        run.hyp, run.num_cells, param_moves=False)
+    P = run.pm.node_map.shape[0]
+    sel = torch.arange(P // 2 if half else P, device=device)
+    stat, ctx, shared, t_p, _mut = prepare_sweep(
+        ts, evo, pop, grid, caches, run.pm, run.gen, run.t_max_tip,
+        run.num_cells, part_sel=sel)
+    n_real = len(run._last_cuts) + 1
+    rate = run._per_block_rate * (min(P // 2, n_real - 1) / n_real
+                                  if half else 1.0)
+    nb = max(1, min(run._nb_cap(overlapped=half),
+                    round(run.local_moves_per_global_move / max(1.0, rate))))
+    u = bc.gen_block_uniforms(run.gen, len(sel), nb, stat.NC, stat.MC,
+                              device)
+    K = shared["x"].numel() if "x" in shared else 0
+    pk = bc.pack_launch(stat, nb, ctx, shared, u)
+    entry = bc.entry(stat, K)
+    ms = kernel_ms(_cuda.lib(), entry, pk.args, reps=5)
+    moves = float(pk.outs[3][:, 2].sum())
+    res = {"parts": len(sel), "NC": stat.NC, "MC": stat.MC,
+           "n_blocks": nb, "entry": entry, "build": bc.build(stat, K),
+           "smem_bytes_per_part":
+               _cuda.lib().delphy_sweep_chain_skygrid_smem_bytes(
+                   stat.NC, stat.MC, stat.C_real, stat.cpb, K),
+           "uniform_bytes": nbytes(u), "kernel_ms": ms,
+           "moves_per_launch": moves}
+    return res
+
+
+def exp_pop_at_shape(run, device) -> dict:
+    """The exp-pop kernel on a boundary of a large run, whose node rows are
+    read in place (beyond ~18k nodes they no longer fit in shared memory),
+    against the plain version (phase 3's tolerances), and its times."""
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel import _cuda, pop_cuda
+    ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
+        run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.t_max_tip,
+        run.hyp, run.num_cells, param_moves=False)
+    u = torch.rand((50, pop_cuda.N_LANES), generator=run.gen,
+                   dtype=torch.float64, device=device)
+    lbs, k2, t_row, inner = pop_cuda.pack_rows(grid, ts.t, ts.is_tip)
+    args = (u, lbs, k2, t_row, inner, grid.t_step, pop.t0, pop.min_pop,
+            pop.n0, pop.g, pop_cuda.hyp_floats(run.hyp), 50)
+    got = pop_cuda.exp_pop_chain_kernel(*args)
+    want = pop_cuda.exp_pop_chain_torch(*args)
+    err = max(assert_close(f"exp_pop_chain at N={t_row.numel()} {n}", g, w,
+                           rtol=1e-12, atol=1e-15)
+              for n, g, w in zip(("n0", "g"), got, want))
+    return {"N": t_row.numel(), "C": lbs.numel(),
+            "nodes_in_shared_memory":
+                _cuda.lib().delphy_exp_pop_chain_nodes_shared(
+                    lbs.numel(), 50, t_row.numel()),
+            "max_abs_err": err,
+            "ms": kernel_ms(_cuda.lib(), "delphy_exp_pop_chain",
+                            pop_cuda.pack_launch(*args).args, reps=10),
+            "plain_ms": time_ms(lambda: pop_cuda.exp_pop_chain_torch(*args),
+                                device, reps=2)}
+
+
+def large_tree_path(device, card: str, n_tips: int, gate: str,
+                    cycles: int = 3) -> dict:
+    """Phases 9c and 9d: a tree of ``n_tips`` simulated tips through the
+    blocking driver, then the overlapped one (``gate``: the
+    DELPHY_TPU_OVERLAP value its Run gets), with the checks and readings of
+    the module docstring."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
+
+    tree = sim_tree(n_tips, cache=True)
+    out = {"tips": n_tips, "torch_threads": torch.get_num_threads(),
+           "cpu_count": os.cpu_count(), "card": card}
+    prev = os.environ.get("DELPHY_TPU_OVERLAP")
+
+    def drive(run, n):
+        """(moves attempted, wall s) of do_mcmc_steps(n), synced."""
+        sync(device)
+        base = run.local_moves_attempted
+        t0 = time.perf_counter()
+        run.do_mcmc_steps(n)
+        sync(device)
+        dt = time.perf_counter() - t0
+        return run.local_moves_attempted - base, dt
+
+    try:
+        # -- blocking --
+        os.environ["DELPHY_TPU_OVERLAP"] = "0"
+        t0 = time.perf_counter()
+        run = run_mod.Run(tree, seed=SEED, num_cells=NUM_CELLS, device=device)
+        lm = run.local_moves_per_global_move
+        # an overlapped cycle's boundaries: a blocking call of as many
+        # boundaries runs the same local moves and flushes its burst
+        B = max(1, min(run.topology_burst_chunks, run_mod.RESTENCIL_INTERVAL,
+                       run_mod.OVERLAP_DISPATCH_MOVES // lm))
+        out.update(lm=lm, boundaries_per_cycle=B,
+                   run_init_s=time.perf_counter() - t0,
+                   shapes=sweep_shapes(run))
+        log(f"{n_tips} tips: Run built in {out['run_init_s']:.1f} s, "
+            f"{lm} local moves per boundary, {B} boundaries per cycle, "
+            f"{out['shapes']}")
+        drive(run, B * lm)                               # warm-up
+        _cuda.reset_launch_counts()
+        moves, dt = drive(run, cycles * B * lm)
+        counts = dict(_cuda.launch_counts)
+        if run.burst_count < 2 or counts["hky_chain"] != cycles * B:
+            raise AssertionError(f"blocking {n_tips}: bursts "
+                                 f"{run.burst_count}, counts {counts}")
+        run.check_derived_quantities(1e-6)
+        run.tree().check_integrity()
+        out["blocking"] = {"moves": moves, "s": dt, "moves_per_s": moves / dt,
+                           "bursts": run.burst_count,
+                           "dispatches": run.dispatch_count,
+                           "launch_counts": counts,
+                           "parts_swept": dict(_cuda.launch_blocks)}
+        log(f"{n_tips} tips, blocking: {moves} moves in {dt:.3f} s = "
+            f"{moves / dt:.1f} moves/s ({cycles} x {B} boundaries and "
+            f"bursts; {card})")
+        out["blocking"]["traced"] = busy_share(
+            lambda: run.do_mcmc_steps(B * lm), f"{n_tips} tips, blocking, "
+            f"{B} boundaries and a burst")
+        out["kernel_full_width"] = kernel_at_shape(run, device, half=False)
+        log(f"{n_tips} tips, sweep kernel over all parts: "
+            f"{json.dumps(out['kernel_full_width'])}")
+        out["exp_pop_chain"] = exp_pop_at_shape(run, device)
+        log(f"{n_tips} tips, exp_pop_chain: {json.dumps(out['exp_pop_chain'])}"
+            f" ({card})")
+        del run
+
+        # -- overlapped --
+        os.environ["DELPHY_TPU_OVERLAP"] = gate
+        run = run_mod.Run(tree, seed=SEED, num_cells=NUM_CELLS, device=device)
+        if not run._overlap_active():
+            raise AssertionError(f"overlap off at {n_tips} tips with "
+                                 f"DELPHY_TPU_OVERLAP={gate}")
+        drive(run, B * lm)                               # warm-up cycle
+        cyc_recs, tot_moves, tot_s = [], 0, 0.0
+        for _ in range(cycles):
+            _cuda.reset_launch_counts()
+            moves, dt = drive(run, B * lm)
+            cyc = dict(run.last_cycle, wall_s=dt, moves=moves)
+            counts, blocks = dict(_cuda.launch_counts), dict(
+                _cuda.launch_blocks)
+            sweep = [k for k in counts if k.startswith("sweep_chain")
+                     and counts[k]]
+            if (len(sweep) != 1 or counts[sweep[0]] != cyc["boundaries"]
+                    or blocks[sweep[0]] != cyc["boundaries"]
+                    * cyc["selection_width"]
+                    or counts["hky_chain"] != 1):
+                raise AssertionError(f"overlapped cycle launched {counts}, "
+                                     f"blocks {blocks}, cycle {cyc}")
+            cyc.update(sweep_entry=sweep[0], sweep_parts=blocks[sweep[0]])
+            cyc_recs.append(cyc)
+            tot_moves += moves
+            tot_s += dt
+            log(f"{n_tips} tips, overlapped cycle: {json.dumps(cyc)}")
+        run.check_derived_quantities(1e-6)
+        run.tree().check_integrity()
+        if run.topology_proposed <= 0:
+            raise AssertionError("the overlapped cycles proposed no "
+                                 "topology move")
+        out["overlapped"] = {"moves": tot_moves, "s": tot_s,
+                             "moves_per_s": tot_moves / tot_s,
+                             "cycles": cyc_recs}
+        log(f"{n_tips} tips, overlapped: {tot_moves} moves in {tot_s:.3f} s "
+            f"= {tot_moves / tot_s:.1f} moves/s against blocking "
+            f"{out['blocking']['moves_per_s']:.1f} ({card}; torch threads "
+            f"{out['torch_threads']}, cpu_count {out['cpu_count']})")
+
+        # an L-dispatch's enqueue makes no host synchronisation
+        n_real = len(run._last_cuts) + 1
+        W = run.pm.node_map.shape[0] // 2
+        sel = torch.full((W,), n_real, dtype=torch.long, device=device)
+        sel[:min(W, n_real - 1)] = torch.arange(min(W, n_real - 1),
+                                                device=device)
+        sync(device)
+        out["syncs_in_L_enqueue"] = syncs_in(lambda: parts_multi_super_step(
+            run.ts, run.evo, run.pop, torch.Generator(device=device),
+            run.tin, run.tout, run.pm, 4, run.t_max_tip, run.hyp,
+            run.num_cells, 2, param_moves=False, part_sel=sel,
+            nb_max=run._nb_cap(overlapped=True)))
+        sync(device)
+        log(f"{n_tips} tips: host synchronisations while enqueuing a "
+            f"2-boundary L-dispatch, by source line: "
+            f"{out['syncs_in_L_enqueue']}")
+        out["kernel_half_width"] = kernel_at_shape(run, device, half=True)
+        log(f"{n_tips} tips, sweep kernel over the selected half: "
+            f"{json.dumps(out['kernel_half_width'])}")
+
+        # exact: a snapshot resumes bit-equal, and a cycle forced
+        # sequential equals the overlapped one
+        with tempfile.TemporaryDirectory() as tmp:
+            snap = os.path.join(tmp, "large.npz")
+            save_run(run, snap)
+            twins = [load_run(snap, device=device) for _ in range(2)]
+        run.do_mcmc_steps(B * lm)
+        twins[0].do_mcmc_steps(B * lm)
+        orig = run_mod.parts_multi_super_step
+
+        def sequential(*a, **kw):
+            res = orig(*a, **kw)
+            torch.cuda.synchronize()
+            return res
+        run_mod.parts_multi_super_step = sequential
+        try:
+            twins[1].do_mcmc_steps(B * lm)
+        finally:
+            run_mod.parts_multi_super_step = orig
+        for what, twin in (("snapshot resume", twins[0]),
+                           ("forced sequential", twins[1])):
+            if twin.log_posterior != run.log_posterior or not (
+                    torch.equal(twin.ts.t, run.ts.t)
+                    and torch.equal(twin.ts.mut_t, run.ts.mut_t)):
+                raise AssertionError(f"{n_tips} tips: {what} is not "
+                                     f"bit-equal: {twin.log_posterior!r} != "
+                                     f"{run.log_posterior!r}")
+        log(f"{n_tips} tips: after a snapshot, resumed and forced-sequential "
+            f"cycles bit-equal to the overlapped one: {run.log_posterior!r}")
+        del twins
+        out["overlapped"]["traced"] = busy_share(
+            lambda: run.do_mcmc_steps(B * lm),
+            f"{n_tips} tips, one overlapped cycle")
+        run.check_derived_quantities(1e-6)
+        log(f"{n_tips} tips: {run.stats_line()}")
+    finally:
+        if prev is None:
+            os.environ.pop("DELPHY_TPU_OVERLAP", None)
+        else:
+            os.environ["DELPHY_TPU_OVERLAP"] = prev
+    return out
+
+
+def large_trees(device, card: str, base, large_tips):
+    """Phase 9: large trees.  Returns the global builds' kernel records and
+    the exp-pop kernel's readings at the large trees' node counts."""
+    tree = sim_tree(ONE_PART_TIPS)
+    p1 = one_part_paths(device, card, tree)
+    records = global_build_records(device, base, tree, p1, p1["max_abs_err"])
+    del tree
+    res = [large_tree_path(device, card, LARGE_TIPS, gate="1")]
+    if large_tips:
+        res.append(large_tree_path(device, card, large_tips, gate="auto"))
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "large_trees.json"),
+              "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return records, {r["tips"]: r["exp_pop_chain"] for r in res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the main path, profile a boundary (phase 5)")
     ap.add_argument("--baseline", metavar="CSRC_DIR",
                     help="also time another tree's kernel sources (phase 3)")
+    ap.add_argument("--large-tips", type=int, default=0, metavar="N",
+                    help="phase 9d: also run a simulated tree of N tips "
+                         "(the scale bench's is 100000)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1128,6 +1652,13 @@ def main(argv=None) -> int:
         if r["name"] == "sweep_chain_skygrid":
             r["launches"] = sky["staircase"]
             r["launches_log_linear"] = sky["log-linear"]
+    large, exp_pop_large = large_trees(device, card, base, opts.large_tips)
+    for r in records:
+        if r["name"] == "exp_pop_chain":
+            r["at_large_trees"] = exp_pop_large
+            r["max_abs_err"] = max([r["max_abs_err"]] + [
+                v["max_abs_err"] for v in exp_pop_large.values()])
+    records += large
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

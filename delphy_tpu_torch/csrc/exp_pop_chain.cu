@@ -40,6 +40,11 @@
 //   the full formula, and one reduction sums them.  Proposals whose g lies
 //   outside [g_min, g_max] are rejected without an evaluation, as the plain
 //   chain rejects them whatever it computes.
+// - The node rows (t, inner: 12 bytes a node) are copied into shared memory
+//   where they fit beside the cell rows; beyond ~18k nodes (a tree of ~9k
+//   tips) the kernel, built with NODES_GLOBAL, reads them in place from
+//   device memory instead (they are read-only, coalesced, one pass per full
+//   evaluation), with the same arithmetic.
 // Tolerance: the outputs n0 and g are products and sums of accepted
 // proposals, so they equal the plain chain's bit for bit whenever every
 // accept decision agrees.  The regrouped sums (warp-tree order; the folds
@@ -236,6 +241,7 @@ __device__ double eval_n0(double n0, double g, const Grid& r,
   return floor_binds ? -v[0] : -(v[0] + (n_inner * ln0 + gc.X));
 }
 
+template <bool NODES_GLOBAL>
 __global__ void __launch_bounds__(THREADS)
 exp_pop_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
                      const double* __restrict__ lbs,
@@ -253,17 +259,23 @@ exp_pop_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
   double* mbuf[2] = {s_k2 + 3 * C, s_k2 + 4 * C};  // C each
   double* s_u = s_k2 + 5 * C;              // n_rounds x N_LANES
   double* red = s_u + n_rounds * N_LANES;  // 2 x MAX_VALUES x WARPS
-  double* s_t = red + 2 * MAX_VALUES * WARPS;  // N
-  int* s_inner = (int*)(s_t + N);              // N
+  const double* s_t = t_row;                   // N, shared or in place
+  const int* s_inner = inner;                  // N
   for (int c = threadIdx.x; c < C; c += THREADS) {
     s_lbs[c] = lbs[c];
     s_k2[c] = k2[c];
   }
   for (int k = threadIdx.x; k < n_rounds * N_LANES; k += THREADS)
     s_u[k] = u[(long)(k / N_LANES) * u_stride + k % N_LANES];
-  for (int i = threadIdx.x; i < N; i += THREADS) {
-    s_t[i] = t_row[i];
-    s_inner[i] = inner[i];
+  if constexpr (!NODES_GLOBAL) {
+    double* st = red + 2 * MAX_VALUES * WARPS;
+    int* si = (int*)(st + N);
+    for (int i = threadIdx.x; i < N; i += THREADS) {
+      st[i] = t_row[i];
+      si[i] = inner[i];
+    }
+    s_t = st;
+    s_inner = si;
   }
   __syncthreads();
   const double min_pop = fsc[2];
@@ -328,10 +340,32 @@ exp_pop_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
   }
 }
 
+// N: the nodes whose rows are in shared memory (0 for NODES_GLOBAL)
 size_t smem_bytes(int C, int n_rounds, int N) {
   return (size_t)(6 * C + N_LANES * n_rounds + 2 * MAX_VALUES * WARPS + N) *
              sizeof(double) +
          (size_t)N * sizeof(int);
+}
+
+template <bool NODES_GLOBAL>
+int launch(const double* u, int u_stride, int n_rounds, const double* lbs,
+           const double* k2, int C, const double* t_row, const int* inner,
+           int N, const double* fsc, double alpha, double beta, double g_min,
+           double g_max, double g_mu, double g_scale, int size_enabled,
+           int growth_enabled, double* out, void* stream) {
+  size_t smem = smem_bytes(C, n_rounds, NODES_GLOBAL ? 0 : N);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        exp_pop_chain_kernel<NODES_GLOBAL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  exp_pop_chain_kernel<NODES_GLOBAL>
+      <<<1, THREADS, smem, (cudaStream_t)stream>>>(
+          u, u_stride, n_rounds, lbs, k2, C, t_row, inner, N, fsc, alpha,
+          beta, g_min, g_max, g_mu, g_scale, size_enabled, growth_enabled,
+          out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -342,15 +376,15 @@ extern "C" int delphy_exp_pop_chain(
     const double* fsc, double alpha, double beta, double g_min, double g_max,
     double g_mu, double g_scale, int size_enabled, int growth_enabled,
     double* out, void* stream) {
-  size_t smem = smem_bytes(C, n_rounds, N);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        exp_pop_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  exp_pop_chain_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      u, u_stride, n_rounds, lbs, k2, C, t_row, inner, N, fsc, alpha, beta,
-      g_min, g_max, g_mu, g_scale, size_enabled, growth_enabled, out);
-  return (int)cudaGetLastError();
+  auto go = smem_bytes(C, n_rounds, N) <= 227 * 1024 ? launch<false>
+                                                     : launch<true>;
+  return go(u, u_stride, n_rounds, lbs, k2, C, t_row, inner, N, fsc, alpha,
+            beta, g_min, g_max, g_mu, g_scale, size_enabled, growth_enabled,
+            out, stream);
+}
+
+// whether the node rows of N nodes live in shared memory (1) or are read
+// in place (0) at C cells and n_rounds rounds
+extern "C" int delphy_exp_pop_chain_nodes_shared(int C, int n_rounds, int N) {
+  return smem_bytes(C, n_rounds, N) <= 227 * 1024 ? 1 : 0;
 }

@@ -70,6 +70,24 @@
 // partial sums of dG and dC); accept decisions match.  f64 throughout, with
 // expm1/log1p and +-inf.
 //
+// Rows beyond shared memory (the global build): where even one uniform stage
+// does not fit in the 227 KB a block can use (a part of ~1,000 nodes or
+// several thousand mutation slots: a P = 1 run, or a large diverse tree),
+// the same kernel, built with GLOBAL = true, carves the same layout from its
+// part's slice of a workspace in device memory that the wrapper allocates
+// (P x delphy_sweep_chain_workspace_bytes).  Only the warp-reduction scratch,
+// the segment maxima and the tie and batch counters stay in shared memory
+// (their atomics stay shared atomics).  The uniforms are read in place from
+// their global arrays (cp.async needs a shared destination), and the kernel
+// asks for the smallest shared-memory carve-out, so L1 caches the rows.
+// __syncthreads() orders global-memory accesses within a block as it does
+// shared ones, so the barriers are the shared build's.  Which build runs is
+// a rule on the shapes (stages_for: two stages in shared memory where they
+// fit, one where only that fits, the global build beyond), exported as
+// delphy_sweep_chain_stages.  The global build is the shared build's
+// arithmetic line for line and is not tuned: its time at NC = 1152 is in
+// PERF.md.
+//
 // Population models: the kernel is a template on the model of the -log N(t)
 // point terms of inner-node moves.  POP_EXP is the exponential model with
 // the min_pop floor (entry delphy_sweep_chain); POP_STAIRCASE and
@@ -272,11 +290,28 @@ __host__ __device__ size_t smem_bytes(int NC, int MC, int C_real, int cpb,
   return doubles * sizeof(double) + u64s * 8 + ints * sizeof(int);
 }
 
+// uniform stages in shared memory: 2 or 1, or 0 for the global build
 int stages_for(int NC, int MC, int C_real, int cpb, int K) {
-  return smem_bytes(NC, MC, C_real, cpb, 2, K) <= (size_t)SMEM_LIMIT ? 2 : 1;
+  if (smem_bytes(NC, MC, C_real, cpb, 2, K) <= (size_t)SMEM_LIMIT) return 2;
+  if (smem_bytes(NC, MC, C_real, cpb, 1, K) <= (size_t)SMEM_LIMIT) return 1;
+  return 0;
 }
 
-template <int POP>
+// the global build: shared bytes (reduction scratch, segment maxima, the
+// per-segment and scalar counters) and the bytes of one part's workspace
+// slice (the whole layout with no stage, rounded to 128)
+__host__ __device__ size_t global_smem_bytes(int C_real, int cpb) {
+  int n_seg = C_real / cpb + 1;
+  return 3 * 32 * sizeof(double) + (size_t)n_seg * 8 +
+         ((size_t)n_seg + 2) * sizeof(int);
+}
+
+__host__ __device__ size_t workspace_stride(int NC, int MC, int C_real,
+                                            int cpb, int K) {
+  return (smem_bytes(NC, MC, C_real, cpb, 0, K) + 127) / 128 * 128;
+}
+
+template <int POP, bool GLOBAL>
 __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     int NC, int MC, int C, int C_real, int cpb, int n_blocks, int stages,
     const double* __restrict__ t_in,
@@ -291,7 +326,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     const int* __restrict__ isc, const double* __restrict__ fsc, int NB,
     Uniforms un, double* t_out, double* mut_out, double* kp_out,
     double* acc_out, int K, const double* __restrict__ kx_g,
-    const double* __restrict__ kg_g) {
+    const double* __restrict__ kg_g, double* ws) {
   const int p = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -305,9 +340,13 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   const int n_seg = C_real / cpb + 1;
   const int UB = stage_doubles(NC, MC);
 
-  // ---- shared memory carve-up (doubles, then u64, then ints) ----
+  // ---- shared memory carve-up (doubles, then u64, then ints); the global
+  // build carves its part's workspace slice instead ----
   extern __shared__ double smem[];
-  double* t = smem;                 // NC
+  double* rows = smem;
+  if constexpr (GLOBAL)
+    rows = ws + (long)p * (workspace_stride(NC, MC, C_real, cpb, K) / 8);
+  double* t = rows;                 // NC
   double* t_min = t + NC;           // NC
   double* t_max = t_min + NC;       // NC
   double* lam = t_max + NC;         // NC
@@ -343,9 +382,16 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   int* sflag = mnode + MC;          // MC: bit0 valid, bit1 single
   int* seg_acc = sflag + MC;        // n_seg: accepted nodes per segment
   int* iscal = seg_acc + n_seg;     // [0] tie flag, [1] reform batch size
+  if constexpr (GLOBAL) {           // these four stay in shared memory
+    red = smem;
+    best = (unsigned long long*)(red + 3 * 32);
+    seg_acc = (int*)(best + n_seg);
+    iscal = seg_acc + n_seg;
+  }
 
   // ---- load the part's rows and the first step's uniforms ----
-  if (n_blocks > 0) fetch_uniforms(ubuf, un, (long)p * NB, NC, MC, 0);
+  if constexpr (!GLOBAL)
+    if (n_blocks > 0) fetch_uniforms(ubuf, un, (long)p * NB, NC, MC, 0);
   for (int n = tid; n < NC; n += T) {
     long g = (long)p * NC + n;
     t[n] = t_in[g];
@@ -413,7 +459,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     own_max[n] = mx;
     child_min[n] = mn;
   }
-  cp_async_wait_all();
+  if constexpr (!GLOBAL) cp_async_wait_all();
   __syncthreads();
 
   const double grid_lo = sh.t_lo + sh.t_step;
@@ -424,23 +470,35 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
 
   for (int blk_i = 0; blk_i < n_blocks; ++blk_i) {
     const long ub = (long)p * NB + blk_i;
-    double* U = ubuf + (stages == 2 ? (blk_i & 1) * UB : 0);
-    if (stages == 1 && blk_i > 0) {
-      fetch_uniforms(ubuf, un, ub, NC, MC, 0);
-      cp_async_wait_all();
-      __syncthreads();
-    } else if (stages == 2 && blk_i + 1 < n_blocks) {
-      // warps other than warp 0, which runs the single move meanwhile
-      fetch_uniforms(ubuf + ((blk_i + 1) & 1) * UB, un, ub + 1, NC, MC,
-                     T > 32 ? 32 : 0);
+    const double *upri, *uprop, *uacc, *urefacc, *uref, *usc;
+    double unorm0;
+    if constexpr (GLOBAL) {  // in place in the uniforms' global arrays
+      upri = un.pri + ub * NC;
+      uprop = un.prop + ub * NC;
+      uacc = un.acc + ub * NC;
+      urefacc = un.ref_acc + ub * NC;
+      uref = un.ref_u + ub * MC;
+      usc = un.sc + ub * un.S;
+      unorm0 = un.norm[ub * un.Z];
+    } else {
+      double* U = ubuf + (stages == 2 ? (blk_i & 1) * UB : 0);
+      if (stages == 1 && blk_i > 0) {
+        fetch_uniforms(ubuf, un, ub, NC, MC, 0);
+        cp_async_wait_all();
+        __syncthreads();
+      } else if (stages == 2 && blk_i + 1 < n_blocks) {
+        // warps other than warp 0, which runs the single move meanwhile
+        fetch_uniforms(ubuf + ((blk_i + 1) & 1) * UB, un, ub + 1, NC, MC,
+                       T > 32 ? 32 : 0);
+      }
+      upri = U;
+      uprop = U + NC;
+      uacc = U + 2 * NC;
+      urefacc = U + 3 * NC;
+      uref = U + 4 * NC;
+      usc = U + 4 * NC + MC;
+      unorm0 = usc[SC_LANES];
     }
-    const double* upri = U;
-    const double* uprop = U + NC;
-    const double* uacc = U + 2 * NC;
-    const double* urefacc = U + 3 * NC;
-    const double* uref = U + 4 * NC;
-    const double* usc = U + 4 * NC + MC;
-    const double unorm0 = usc[SC_LANES];
     const int offset = (int)floor(usc[SC_OFF] * (double)cpb);
 
     // =========== single node / tip displacement (warp 0) ===========
@@ -683,7 +741,8 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       iscal[0] = 0;
       cntm += (double)nb_reform;
     }
-    if (stages == 2) cp_async_wait_all();
+    if constexpr (!GLOBAL)
+      if (stages == 2) cp_async_wait_all();
     __syncthreads();  // B5
   }
 
@@ -732,26 +791,43 @@ int launch(int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
            const double* nbar, const int* isc, const double* fsc, int NB,
            const Uniforms& un, double* t_out, double* mut_out, double* kp_out,
            double* acc_out, int K, const double* kx, const double* kg,
-           void* stream) {
+           double* ws, void* stream) {
   int stages = stages_for(NC, MC, C_real, cpb, K);
+  if ((stages == 0) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
+  if (stages == 0) {
+    auto kern = sweep_chain_kernel<POP, true>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<P, threads_for(NC), global_smem_bytes(C_real, cpb),
+           (cudaStream_t)stream>>>(
+        NC, MC, C, C_real, cpb, n_blocks, 0, t_in, mut_in, kp_in, par, c0,
+        c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
+        nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, kx, kg,
+        ws);
+    return (int)cudaGetLastError();
+  }
   size_t smem = smem_bytes(NC, MC, C_real, cpb, stages, K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sweep_chain_kernel<POP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        sweep_chain_kernel<POP, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sweep_chain_kernel<POP><<<P, threads_for(NC), smem, (cudaStream_t)stream>>>(
-      NC, MC, C, C_real, cpb, n_blocks, stages, t_in, mut_in, kp_in, par, c0,
-      c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A, nbar,
-      isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, kx, kg);
+  sweep_chain_kernel<POP, false>
+      <<<P, threads_for(NC), smem, (cudaStream_t)stream>>>(
+          NC, MC, C, C_real, cpb, n_blocks, stages, t_in, mut_in, kp_in, par,
+          c0, c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b,
+          A, nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, kx,
+          kg, nullptr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // the exponential population model; fsc = (t_lo, t_step, t_max_tip, log n0,
-// g, t0, log min_pop)
+// g, t0, log min_pop).  The shared-memory builds: a shape that needs the
+// global build is refused (cudaErrorInvalidValue).
 extern "C" int delphy_sweep_chain(
     int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
     const double* t_in, const double* mut_in,
@@ -769,7 +845,7 @@ extern "C" int delphy_sweep_chain(
                          kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode,
                          mvalid, msingle, slope, b, A, nbar, isc, fsc, NB, un,
                          t_out, mut_out, kp_out, acc_out, 0, nullptr, nullptr,
-                         stream);
+                         nullptr, stream);
 }
 
 // the skygrid of `type` (1 staircase, 2 log-linear) with K knots x and
@@ -795,18 +871,86 @@ extern "C" int delphy_sweep_chain_skygrid(
   return go(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in, kp_in, par, c0,
             c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
             nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, x,
-            gamma, stream);
+            gamma, nullptr, stream);
 }
 
+// the global builds of the two entries above: the same arguments and a
+// workspace of P x delphy_sweep_chain_workspace_bytes bytes (ws); a shape
+// that fits a shared-memory build is refused (cudaErrorInvalidValue)
+extern "C" int delphy_sweep_chain_global(
+    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
+    const double* t_in, const double* mut_in,
+    const double* kp_in, const int* par, const int* c0, const int* c1,
+    const double* t_min, const double* t_max, const double* lam,
+    const double* dlam, const int* mnode, const int* mvalid,
+    const int* msingle, const double* slope, const double* b,
+    const double* A, const double* nbar, const int* isc, const double* fsc,
+    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
+    const double* u_refu, const double* u_refacc, const double* u_sc,
+    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
+    double* kp_out, double* acc_out, double* ws, void* stream) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
+  return launch<POP_EXP>(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in,
+                         kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode,
+                         mvalid, msingle, slope, b, A, nbar, isc, fsc, NB, un,
+                         t_out, mut_out, kp_out, acc_out, 0, nullptr, nullptr,
+                         ws, stream);
+}
+
+extern "C" int delphy_sweep_chain_skygrid_global(
+    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
+    const double* t_in, const double* mut_in,
+    const double* kp_in, const int* par, const int* c0, const int* c1,
+    const double* t_min, const double* t_max, const double* lam,
+    const double* dlam, const int* mnode, const int* mvalid,
+    const int* msingle, const double* slope, const double* b,
+    const double* A, const double* nbar, const int* isc, const double* fsc,
+    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
+    const double* u_refu, const double* u_refacc, const double* u_sc,
+    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
+    double* kp_out, double* acc_out, int type, int K, const double* x,
+    const double* gamma, double* ws, void* stream) {
+  if (K < 2 || (type != POP_STAIRCASE && type != POP_LOG_LINEAR) ||
+      ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
+  auto go = type == POP_STAIRCASE ? launch<POP_STAIRCASE>
+                                  : launch<POP_LOG_LINEAR>;
+  return go(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in, kp_in, par, c0,
+            c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
+            nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, x,
+            gamma, ws, stream);
+}
+
+// the build for these shapes (K: skygrid knots, 0 for the exponential
+// model): 2 or 1 uniform stages in shared memory, 0 for the global build
+extern "C" int delphy_sweep_chain_stages(int NC, int MC, int C_real, int cpb,
+                                         int K) {
+  return stages_for(NC, MC, C_real, cpb, K);
+}
+
+// bytes of one part's workspace slice of the global build
+extern "C" unsigned long long delphy_sweep_chain_workspace_bytes(
+    int NC, int MC, int C_real, int cpb, int K) {
+  return (unsigned long long)workspace_stride(NC, MC, C_real, cpb, K);
+}
+
+static unsigned long long smem_of(int NC, int MC, int C_real, int cpb, int K) {
+  int stages = stages_for(NC, MC, C_real, cpb, K);
+  return (unsigned long long)(stages == 0
+                                  ? global_smem_bytes(C_real, cpb)
+                                  : smem_bytes(NC, MC, C_real, cpb, stages, K));
+}
+
+// shared-memory bytes per part of the build that runs these shapes
 extern "C" unsigned long long delphy_sweep_chain_smem_bytes(int NC, int MC,
                                                             int C_real,
                                                             int cpb) {
-  return (unsigned long long)smem_bytes(NC, MC, C_real, cpb,
-                                        stages_for(NC, MC, C_real, cpb, 0), 0);
+  return smem_of(NC, MC, C_real, cpb, 0);
 }
 
 extern "C" unsigned long long delphy_sweep_chain_skygrid_smem_bytes(
     int NC, int MC, int C_real, int cpb, int K) {
-  return (unsigned long long)smem_bytes(NC, MC, C_real, cpb,
-                                        stages_for(NC, MC, C_real, cpb, K), K);
+  return smem_of(NC, MC, C_real, cpb, K);
 }

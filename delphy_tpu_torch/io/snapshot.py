@@ -82,6 +82,9 @@ def save_run(run, path):
             "per_block_rate": run._per_block_rate,
             "topo_debt": run._topo_debt,
             "boundaries_since_repart": run._boundaries_since_repart,
+            # the stencil of pm: the overlapped driver cuts the host tree
+            # with it
+            "last_cuts": [int(c) for c in run._last_cuts],
             "local_moves_attempted": run.local_moves_attempted,
             "topology_accepted": run.topology_accepted,
             "topology_proposed": run.topology_proposed,
@@ -159,6 +162,8 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
     run._per_block_rate = drv["per_block_rate"]
     run._topo_debt = drv["topo_debt"]
     run._boundaries_since_repart = drv["boundaries_since_repart"]
+    if "last_cuts" in drv:
+        run._last_cuts = list(drv["last_cuts"])
     run.local_moves_attempted = drv["local_moves_attempted"]
     run.topology_accepted = drv["topology_accepted"]
     run.topology_proposed = drv["topology_proposed"]

@@ -8,12 +8,14 @@ reverse cumulative sum."""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from .. import DTYPE
 from .. import pop as popm
+from .likelihood import add_at
 
 
 class CoalGrid(NamedTuple):
@@ -56,10 +58,15 @@ def k_bar_from_signs(t, sign, t_lo, t_step, num_cells: int):
     zero = torch.zeros((), dtype=DTYPE, device=t.device)
     cl = cell.clamp(0, num_cells - 1).long()
     shape = t.shape[:-1] + (num_cells,)
-    k_frac = torch.zeros(shape, dtype=DTYPE, device=t.device).scatter_add_(
-        -1, cl, torch.where(in_grid, sign * frac, zero))
-    counts = torch.zeros(shape, dtype=DTYPE, device=t.device).scatter_add_(
-        -1, cl, torch.where(in_grid, sign, zero))
+    # cells of the flattened (..., num_cells) rows; add_at sums in a fixed
+    # order on the card (scatter_add_'s atomics do not)
+    row = torch.arange(cl.numel() // cl.shape[-1], device=t.device)
+    flat = (row.reshape(cl.shape[:-1] + (1,)) * num_cells + cl).reshape(-1)
+    zeros = torch.zeros(math.prod(shape), dtype=DTYPE, device=t.device)
+    k_frac = add_at(zeros, flat, torch.where(in_grid, sign * frac, zero)
+                    .reshape(-1)).reshape(shape)
+    counts = add_at(zeros, flat, torch.where(in_grid, sign, zero)
+                    .reshape(-1)).reshape(shape)
     above = torch.sum(torch.where(cell >= num_cells, sign, zero), -1,
                       keepdim=True)
     rev_cum = torch.flip(torch.cumsum(torch.flip(counts, [-1]), -1), [-1])

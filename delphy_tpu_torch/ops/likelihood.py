@@ -30,9 +30,32 @@ def _c0(idx):
     return idx.clamp(min=0).long()
 
 
+def add_at(x, idx, vals):
+    """x with vals added at the entries idx of its first axis.  On the card
+    the accumulating index_put, which sorts the indices and sums each
+    entry's values in a fixed order; index_add's float atomics sum them in
+    whatever order the threads arrive, so a run would not repeat itself
+    bit for bit (nor resume from a snapshot exactly).  index_add on the
+    CPU."""
+    if x.is_cuda:
+        return x.index_put((idx,), vals, accumulate=True)
+    return x.index_add(0, idx, vals)
+
+
+def cumsum0(x):
+    """torch.cumsum(x, 0) of a 1-D x, in a fixed order on the card: CUDA
+    scans a 1-D tensor in tiles combined in whatever order they finish, so
+    a long float scan does not repeat itself bit for bit.  Taken along the
+    first axis of an (n, 2) tensor it is a sequential scan per column, the
+    CPU's order."""
+    if not x.is_cuda:
+        return torch.cumsum(x, 0)
+    return torch.cumsum(torch.stack([x, x], 1), 0)[:, 0]
+
+
 def _scatter_add(n: int, idx, vals):
-    return torch.zeros(n, dtype=vals.dtype, device=vals.device).index_add_(
-        0, _c0(idx), vals)
+    return add_at(torch.zeros(n, dtype=vals.dtype, device=vals.device),
+                  _c0(idx), vals)
 
 
 def path_sums(parent, delta):
@@ -51,7 +74,7 @@ def calc_ref_cum_Q(ts: TreeState, evo: EvoParams):
     """cum_Q[k] = sum_{l<k} mu nu_l q_a(ref_l); length L+1."""
     site_Q = evo.mu * evo.nu * evo.qa_tab[evo.part.long(), ts.ref_seq.long()]
     return torch.cat([torch.zeros(1, dtype=DTYPE, device=site_Q.device),
-                      torch.cumsum(site_Q, 0)])
+                      cumsum0(site_Q)])
 
 
 def calc_ref_state_prefix(ts: TreeState, evo: EvoParams):
@@ -86,8 +109,8 @@ def calc_branch_delta_lambda(ts: TreeState, evo: EvoParams, ref_cum_Q):
     fpart = evo.part[fsite].long()
     fs_contrib = -evo.mu * evo.nu[fsite] * (
         qa_tab[fpart, _c0(ts.fs_from)] - qa_tab[fpart, ref_at])
-    dlam_miss = dlam_miss.index_add(
-        0, _c0(ts.fs_node), torch.where(ts.fs_node >= 0, fs_contrib, zero))
+    dlam_miss = add_at(dlam_miss, _c0(ts.fs_node),
+                       torch.where(ts.fs_node >= 0, fs_contrib, zero))
     return dlam_mut + dlam_miss, dlam_miss
 
 
@@ -105,7 +128,7 @@ def calc_root_state_frequencies(ts: TreeState, evo: EvoParams, cnt_prefix):
     one = torch.ones((), dtype=DTYPE, device=freq.device)
     is_root_mut = ts.mut_node == ts.root
     d = _scatter_add(4, ts.mut_from, torch.where(is_root_mut, -one, zero))
-    d = d.index_add(0, _c0(ts.mut_to), torch.where(is_root_mut, one, zero))
+    d = add_at(d, _c0(ts.mut_to), torch.where(is_root_mut, one, zero))
 
     is_root_iv = ts.miss_node == ts.root
     iv_counts = (cnt_prefix[:, _c0(ts.miss_end)]
@@ -114,8 +137,8 @@ def calc_root_state_frequencies(ts: TreeState, evo: EvoParams, cnt_prefix):
 
     is_root_fs = ts.fs_node == ts.root
     ref_at = ts.ref_seq[_c0(ts.fs_site)].long()
-    d = d.index_add(0, ref_at, torch.where(is_root_fs, one, zero))
-    d = d.index_add(0, _c0(ts.fs_from), torch.where(is_root_fs, -one, zero))
+    d = add_at(d, ref_at, torch.where(is_root_fs, one, zero))
+    d = add_at(d, _c0(ts.fs_from), torch.where(is_root_fs, -one, zero))
     return freq + d
 
 
@@ -192,7 +215,7 @@ def calc_T_below(ts: TreeState, tin, tout):
     tin = tin.long()
     vals = torch.zeros(N, dtype=DTYPE, device=ts.t.device)
     vals[tin] = blen
-    pref = torch.cumsum(vals, 0)
+    pref = cumsum0(vals)
     return pref[(tout.long() - 1).clamp(min=0)] - pref[tin]
 
 
@@ -222,8 +245,8 @@ def calc_Ttwiddle_a(ts: TreeState, evo: EvoParams, tin, tout, nu_prefix):
 
     Tb_mut = _mut_T_below(ts, T_below)
     w = torch.where(ts.mut_node >= 0, evo.nu[_c0(ts.mut_site)] * Tb_mut, zero)
-    tw = tw.index_add(0, _c0(ts.mut_from), -w)
-    tw = tw.index_add(0, _c0(ts.mut_to), w)
+    tw = add_at(tw, _c0(ts.mut_from), -w)
+    tw = add_at(tw, _c0(ts.mut_to), w)
 
     Tb_iv = _miss_T_below(ts, T_below, ts.miss_node)
     nu_in_iv = (nu_prefix[:, _c0(ts.miss_end)]
@@ -234,8 +257,8 @@ def calc_Ttwiddle_a(ts: TreeState, evo: EvoParams, tin, tout, nu_prefix):
     Tb_fs = _miss_T_below(ts, T_below, ts.fs_node)
     site = _c0(ts.fs_site)
     wf = torch.where(ts.fs_node >= 0, evo.nu[site] * Tb_fs, zero)
-    tw = tw.index_add(0, ts.ref_seq[site].long(), wf)
-    tw = tw.index_add(0, _c0(ts.fs_from), -wf)
+    tw = add_at(tw, ts.ref_seq[site].long(), wf)
+    tw = add_at(tw, _c0(ts.fs_from), -wf)
     return tw
 
 
@@ -256,22 +279,22 @@ def calc_Ttwiddle_l(ts: TreeState, evo: EvoParams, tin, tout):
     corr = torch.where(ts.mut_node >= 0,
                        (qa_tab[mpart, _c0(ts.mut_to)]
                         - qa_tab[mpart, _c0(ts.mut_from)]) * Tb_mut, zero)
-    tl = tl.index_add(0, site, corr)
+    tl = add_at(tl, site, corr)
 
     ivalid = ts.miss_node >= 0
     Tb_iv = _miss_T_below(ts, T_below, ts.miss_node)
     diff = _scatter_add(L + 1, ts.miss_start, torch.where(ivalid, Tb_iv, zero))
-    diff = diff.index_add(0, _c0(ts.miss_end),
+    diff = add_at(diff, _c0(ts.miss_end),
                           torch.where(ivalid, -Tb_iv, zero))
-    W = torch.cumsum(diff, 0)[:L]   # total T_below of the intervals over l
+    W = cumsum0(diff)[:L]   # total T_below of the intervals over l
     tl = tl - qa_ref * W
 
     Tb_fs = _miss_T_below(ts, T_below, ts.fs_node)
     fsite = _c0(ts.fs_site)
     fpart = evo.part[fsite].long()
     wf = torch.where(ts.fs_node >= 0, Tb_fs, zero)
-    tl = tl.index_add(0, fsite, wf * qa_tab[fpart, ts.ref_seq[fsite].long()])
-    return tl.index_add(0, fsite, -wf * qa_tab[fpart, _c0(ts.fs_from)])
+    tl = add_at(tl, fsite, wf * qa_tab[fpart, ts.ref_seq[fsite].long()])
+    return add_at(tl, fsite, -wf * qa_tab[fpart, _c0(ts.fs_from)])
 
 
 def calc_ref_state_prefix_beta(ts: TreeState, evo: EvoParams):
@@ -300,8 +323,8 @@ def calc_Ttwiddle_beta_a(ts: TreeState, evo: EvoParams, tin, tout,
     site = _c0(ts.mut_site)
     mpart = evo.part[site].long()
     w = torch.where(ts.mut_node >= 0, evo.nu[site] * Tb_mut, zero)
-    tw = tw.index_add(0, mpart * 4 + _c0(ts.mut_from), -w)
-    tw = tw.index_add(0, mpart * 4 + _c0(ts.mut_to), w)
+    tw = add_at(tw, mpart * 4 + _c0(ts.mut_from), -w)
+    tw = add_at(tw, mpart * 4 + _c0(ts.mut_to), w)
 
     Tb_iv = _miss_T_below(ts, T_below, ts.miss_node)
     flat = nu_prefix_pa.reshape(P * 4, -1)
@@ -313,6 +336,6 @@ def calc_Ttwiddle_beta_a(ts: TreeState, evo: EvoParams, tin, tout,
     fsite = _c0(ts.fs_site)
     fpart = evo.part[fsite].long()
     wf = torch.where(ts.fs_node >= 0, evo.nu[fsite] * Tb_fs, zero)
-    tw = tw.index_add(0, fpart * 4 + ts.ref_seq[fsite].long(), wf)
-    tw = tw.index_add(0, fpart * 4 + _c0(ts.fs_from), -wf)
+    tw = add_at(tw, fpart * 4 + ts.ref_seq[fsite].long(), wf)
+    tw = add_at(tw, fpart * 4 + _c0(ts.fs_from), -wf)
     return tw.reshape(P, 4)

@@ -12,7 +12,9 @@ need ``nvcc``.
 ``launch_counts`` holds one plain integer per kernel; each wrapper adds one
 (``count_launch``) where it launches its kernel and nowhere else.  The counts
 are per process, over every run and thread: the engine server steps runs on
-worker threads, so the increment takes a lock.
+worker threads, so the increment takes a lock.  ``launch_blocks`` sums the
+thread blocks (parts, for the sweep) of those launches, so a run can show
+which share of its parts a dispatch swept.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 launch_counts = {"hky_chain": 0, "exp_pop_chain": 0, "sweep_chain": 0,
-                 "sweep_chain_skygrid": 0}
+                 "sweep_chain_skygrid": 0, "sweep_chain_global": 0,
+                 "sweep_chain_skygrid_global": 0}
+launch_blocks = dict.fromkeys(launch_counts, 0)
 
 _LIB = None
 _LOCK = threading.Lock()          # building and loading the library
@@ -54,31 +58,38 @@ _ARGTYPES = {
                              _D, _D, _D, _D, _D, _D, _I, _I, _P, _P],
     "delphy_sweep_chain": _SWEEP + [_P],
     "delphy_sweep_chain_skygrid": _SWEEP + [_I, _I, _P, _P, _P],
+    "delphy_sweep_chain_global": _SWEEP + [_P, _P],
+    "delphy_sweep_chain_skygrid_global": _SWEEP + [_I, _I, _P, _P, _P, _P],
 }
 # entry points a library may lack: another tree's kernel sources, built for
 # a kernel-only A/B, predate them
 _OPTIONAL = ("delphy_sweep_chain_skygrid",
-             "delphy_sweep_chain_skygrid_smem_bytes")
+             "delphy_sweep_chain_skygrid_smem_bytes",
+             "delphy_sweep_chain_global", "delphy_sweep_chain_skygrid_global")
 
 
 class Packed(NamedTuple):
     """A C entry point's arguments, checked and packed by a wrapper: ``args``
-    (ints, floats and device pointers), the output tensors ``outs``, and
-    ``keep``, the packed input tensors the pointers refer to."""
+    (ints, floats and device pointers), the output tensors ``outs``,
+    ``keep``, the packed input tensors the pointers refer to, and
+    ``scratch``, the kernel's workspace (neither input nor output)."""
     args: tuple
     outs: tuple
     keep: tuple
+    scratch: tuple = ()
 
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
         for k in launch_counts:
             launch_counts[k] = 0
+            launch_blocks[k] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, blocks: int = 1) -> None:
     with _COUNT_LOCK:
         launch_counts[name] += 1
+        launch_blocks[name] += blocks
 
 
 def _nvcc() -> str:
@@ -156,6 +167,14 @@ def load(path: str):
         handle.delphy_sweep_chain_skygrid_smem_bytes.argtypes = [_I] * 5
         handle.delphy_sweep_chain_skygrid_smem_bytes.restype = \
             ctypes.c_ulonglong
+    if hasattr(handle, "delphy_exp_pop_chain_nodes_shared"):
+        handle.delphy_exp_pop_chain_nodes_shared.argtypes = [_I] * 3
+        handle.delphy_exp_pop_chain_nodes_shared.restype = ctypes.c_int
+    if hasattr(handle, "delphy_sweep_chain_stages"):
+        handle.delphy_sweep_chain_stages.argtypes = [_I] * 5
+        handle.delphy_sweep_chain_stages.restype = ctypes.c_int
+        handle.delphy_sweep_chain_workspace_bytes.argtypes = [_I] * 5
+        handle.delphy_sweep_chain_workspace_bytes.restype = ctypes.c_ulonglong
     return handle
 
 

@@ -11,7 +11,11 @@ plain version and the JAX twin ``sweep_chain_jnp`` can be fed the same
 arrays.  The population model of the inner-node point terms -log N(t) is
 static (``ChainStatics.pop``): the exponential model with its min_pop floor
 (entry ``delphy_sweep_chain``), or a skygrid of either type, whose knots
-ride in ``shared`` (entry ``delphy_sweep_chain_skygrid``).  The port packs
+ride in ``shared`` (entry ``delphy_sweep_chain_skygrid``).  Each model has
+two builds, chosen by a rule on the shapes (``build``): the rows in shared
+memory where they fit in the 227 KB a block can use, else the rows in a
+device-memory workspace (entries ``*_global``, launch counts
+``sweep_chain_global`` and ``sweep_chain_skygrid_global``).  The port packs
 rows unpadded (NC = n_cap, MC = m_cap, C = cells); both versions also
 accept the JAX package's 128-lane padded rows, whose padding is inert.
 """
@@ -335,6 +339,28 @@ _WIDTH = {"t": "NC", "par": "NC", "c0": "NC", "c1": "NC", "t_min": "NC",
           "k_p": "C", "b": "C"}
 
 
+def pad_chain(stat: ChainStatics, ctx_arrs, shared, NC=None, MC=None,
+              C=None):
+    """The same chain on rows padded to (NC, MC, C) with the JAX package's
+    inert padding (block_pallas.pack_chain_inputs): padded nodes have no
+    parent or children, padded slots are invalid, cells beyond C_real have
+    k_p = b = 0 and A = nbar = 1.  Holds the kernel at shapes a run has not
+    reached."""
+    width = {"NC": NC or stat.NC, "MC": MC or stat.MC, "C": C or stat.C}
+    fill = {"par": -1, "c0": -1, "c1": -1, "mnode": -1}
+    out = dict(ctx_arrs)
+    for k, w in _WIDTH.items():
+        out[k] = torch.nn.functional.pad(
+            ctx_arrs[k], (0, width[w] - ctx_arrs[k].shape[-1]),
+            value=fill.get(k, 0))
+    sh = dict(shared)
+    for k in ("A", "nbar"):
+        sh[k] = torch.nn.functional.pad(shared[k], (0, width["C"] - stat.C),
+                                        value=1.0)
+    return stat._replace(NC=width["NC"], MC=width["MC"], C=width["C"]), \
+        out, sh
+
+
 def sweep_chain_kernel(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                        u: BlockUniforms):
     """The chain on the rows' device: the CUDA kernel for CUDA tensors, the
@@ -346,16 +372,27 @@ def sweep_chain_kernel(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     return _launch(stat, n_blocks, ctx_arrs, shared, u)
 
 
-def entry(stat: ChainStatics) -> str:
-    """The C entry point (and launch-count name) of ``stat``'s model."""
-    return ("delphy_sweep_chain" if stat.pop == POP_EXP
+def build(stat: ChainStatics, n_knots: int = 0) -> int:
+    """The kernel's build for ``stat``'s shapes (``n_knots``: the skygrid's
+    knots, 0 for the exponential model): 2 or 1 uniform stages in shared
+    memory, or 0 for the rows in a device-memory workspace."""
+    return int(_cuda.lib().delphy_sweep_chain_stages(
+        stat.NC, stat.MC, stat.C_real, stat.cpb, n_knots))
+
+
+def entry(stat: ChainStatics, n_knots: int = 0) -> str:
+    """The C entry point (and, without ``delphy_``, the launch-count name)
+    of ``stat``'s model and build."""
+    name = ("delphy_sweep_chain" if stat.pop == POP_EXP
             else "delphy_sweep_chain_skygrid")
+    return name + ("_global" if build(stat, n_knots) == 0 else "")
 
 
 def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                 u: BlockUniforms) -> _cuda.Packed:
-    """Check and pack the chain's inputs for ``entry(stat)``; outs are
-    (t (P,1,NC), mut_t (P,1,MC), k_p (P,1,C), acc (P,3))."""
+    """Check and pack the chain's inputs for ``entry(stat, K)`` (K: the
+    skygrid's knots, else 0); outs are (t (P,1,NC), mut_t (P,1,MC), k_p
+    (P,1,C), acc (P,3)), and the global build's workspace is the scratch."""
     dev = ctx_arrs["t"].device
     P = ctx_arrs["t"].shape[0]
     NC, MC, C = stat.NC, stat.MC, stat.C
@@ -401,14 +438,11 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
             _cuda.require(a, name, DTYPE, (K,), dev)
         if K < 2:
             raise ValueError(f"a skygrid needs at least 2 knots, got {K}")
-        smem = _cuda.lib().delphy_sweep_chain_skygrid_smem_bytes(
-            NC, MC, stat.C_real, stat.cpb, K)
-    else:
-        smem = _cuda.lib().delphy_sweep_chain_smem_bytes(NC, MC, stat.C_real,
-                                                          stat.cpb)
-    if smem > 227 * 1024:
-        raise ValueError(f"sweep chain needs {smem} bytes of shared memory "
-                         f"per part, above the 227 KB a block can use")
+    scratch = ()
+    if build(stat, knots[0].shape[0] if sky else 0) == 0:
+        stride = _cuda.lib().delphy_sweep_chain_workspace_bytes(
+            NC, MC, stat.C_real, stat.cpb, knots[0].shape[0] if sky else 0)
+        scratch = (torch.empty(P * stride // 8, dtype=DTYPE, device=dev),)
     t_o = torch.empty((P, 1, NC), dtype=DTYPE, device=dev)
     mut_o = torch.empty((P, 1, MC), dtype=DTYPE, device=dev)
     kp_o = torch.empty((P, 1, C), dtype=DTYPE, device=dev)
@@ -425,17 +459,18 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         P_(t_o), P_(mut_o), P_(kp_o), P_(acc_o))
     if sky:
         args += (stat.pop, knots[0].shape[0], P_(knots[0]), P_(knots[1]))
-    args += (_cuda.stream_ptr(t_o.device),)
+    args += tuple(P_(w) for w in scratch) + (_cuda.stream_ptr(t_o.device),)
     return _cuda.Packed(args, (t_o, mut_o, kp_o, acc_o),
-                        (*rows.values(), isc, fsc, A, nbar, *u, *knots))
+                        (*rows.values(), isc, fsc, A, nbar, *u, *knots),
+                        scratch)
 
 
 def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
             u: BlockUniforms):
     pk = pack_launch(stat, n_blocks, ctx_arrs, shared, u)
-    name = entry(stat)
+    name = entry(stat, shared["x"].numel() if stat.pop != POP_EXP else 0)
     _cuda.check(getattr(_cuda.lib(), name)(*pk.args), name)
-    _cuda.count_launch(name[len("delphy_"):])
+    _cuda.count_launch(name[len("delphy_"):], pk.outs[0].shape[0])
     t_o, mut_o, kp_o, acc_o = pk.outs
     return t_o, mut_o, kp_o, acc_o[:, 0], acc_o[:, 1], acc_o[:, 2]
 

@@ -26,8 +26,12 @@ from ..state import TreeState, fuse_for_host
 from . import block_cuda as bc
 from . import vsc_device as vsc
 
-# cap on blocks per boundary (the kernel's pre-generated uniform width)
+# caps on blocks per boundary, the reference package's: NB_MAX where its
+# sweep is the Pallas kernel (an exponential-model run), NB_MAX_SKYGRID
+# where it is its XLA sweep (every skygrid run); the overlapped driver's
+# half-width sweeps take 2 NB_MAX on the exponential model
 NB_MAX = 64
+NB_MAX_SKYGRID = 512
 # cells per colour block of the batched displacement
 CELLS_PER_BLOCK = 16
 
@@ -140,13 +144,31 @@ def scatter_deltas(pm, num_nodes: int, num_mut_slots: int, dt_p, dmut_p):
     return dt[:num_nodes], dmut[:num_mut_slots]
 
 
+def select_parts(x, part_sel):
+    """``x`` (a tensor or a NamedTuple of tensors with a leading part axis)
+    gathered down to the part rows ``part_sel`` (None: all of them)."""
+    if part_sel is None:
+        return x
+    if isinstance(x, torch.Tensor):
+        return x[part_sel]
+    return type(x)(*(a[part_sel] for a in x))
+
+
 def prepare_sweep(ts: TreeState, evo, pop_params, grid, caches, pm,
-                  gen: torch.Generator, t_max_tip, num_cells: int):
+                  gen: torch.Generator, t_max_tip, num_cells: int,
+                  part_sel=None):
     """Sweep-kernel inputs of a boundary after its global moves: per-part
     lineage staircases, a fresh draw of the decoupling fields (a Gibbs update,
     very_scalable_coalescent.cpp:198-219) and of the hash salt, and the part
     contexts packed as chain rows.  Returns (stat, ctx_arrs, shared, t_p,
-    mut_t_p)."""
+    mut_t_p).
+
+    part_sel (i32[P_sel], optional): sweep only these part rows, the device
+    half of the overlapped driver (run.py).  The fields are still sampled
+    over ALL parts (the augmentation conditions on the full boundary state;
+    the other parts' k_bar stays frozen, as the reference's frozen cut
+    points, run.cpp:682-693), then the context, k_p, t_p and mut_t_p are
+    gathered down to the selected rows before packing."""
     nm = pm.node_map.clamp(min=0).long()
     t_p = ts.t[nm]
     k_p = vsc.calc_k_bar_signed(t_p, pm.sign, grid.t_lo, grid.t_step,
@@ -159,10 +181,15 @@ def prepare_sweep(ts: TreeState, evo, pop_params, grid, caches, pm,
                          device=ts.t.device)
     ctx = build_part_ctx(pm, ts, caches, evo, fields.b, salt=salt)
     mut_t_p = ts.mut_t[pm.mut_map.clamp(min=0).long()]
+    ctx, k_p, t_p, mut_t_p = (select_parts(x, part_sel)
+                              for x in (ctx, k_p, t_p, mut_t_p))
     sh = SweepShared(A=fields.A, popsize_bar=grid.popsize_bar,
                      t_lo=grid.t_lo, t_step=grid.t_step,
-                     t_max_tip=torch.as_tensor(t_max_tip, dtype=DTYPE,
-                                               device=ts.t.device))
+                     # a fill, not a copy of a host float: a blocking
+                     # host-to-device copy would synchronise the stream
+                     # every boundary
+                     t_max_tip=torch.full((), float(t_max_tip), dtype=DTYPE,
+                                          device=ts.t.device))
     stat, ctx_arrs, shared = bc.pack_chain_inputs(
         ctx, sh, pop_params, k_p, t_p, mut_t_p, cpb=CELLS_PER_BLOCK)
     return stat, ctx_arrs, shared, t_p, mut_t_p
@@ -170,22 +197,31 @@ def prepare_sweep(ts: TreeState, evo, pop_params, grid, caches, pm,
 
 def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
                    tout, pm, n_blocks: int, t_max_tip, hyp, num_cells: int,
-                   param_moves: bool = True):
-    """One boundary: global moves, then the partitioned local sweep."""
+                   param_moves: bool = True, part_sel=None,
+                   nb_max: int = NB_MAX):
+    """One boundary: global moves, then the partitioned local sweep of at
+    most nb_max blocks over the part rows part_sel (None: all).  With no
+    block to run (the overlapped driver's globals-only boundary) the sweep,
+    a no-op, is skipped."""
     ts, evo, pop_params, grid, caches, ledger, stats = run_global_moves(
         ts, evo, pop_params, gen, tin, tout, t_max_tip, hyp, num_cells,
         param_moves=param_moves)
+    nb = min(n_blocks, nb_max)
+    if nb == 0:
+        return ts, evo, pop_params, ledger, dict(
+            stats, local_moves_attempted=torch.zeros(
+                (), dtype=torch.int64, device=ts.t.device))
     stat, ctx_arrs, shared, t_p, mut_t_p = prepare_sweep(
-        ts, evo, pop_params, grid, caches, pm, gen, t_max_tip, num_cells)
-    nb = min(n_blocks, NB_MAX)
+        ts, evo, pop_params, grid, caches, pm, gen, t_max_tip, num_cells,
+        part_sel)
     P = t_p.shape[0]
     u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, ts.t.device)
     t_new, mut_new, _kp, dG_p, dC_p, cnt_p = bc.sweep_chain_kernel(
         stat, nb, ctx_arrs, shared, u)
     dt_p = t_new.reshape(P, stat.NC) - t_p
     dmut_p = mut_new.reshape(P, stat.MC) - mut_t_p
-    dt, dmut = scatter_deltas(pm, ts.num_nodes, ts.mut_t.shape[0], dt_p,
-                              dmut_p)
+    dt, dmut = scatter_deltas(select_parts(pm, part_sel), ts.num_nodes,
+                              ts.mut_t.shape[0], dt_p, dmut_p)
     ts = ts._replace(t=ts.t + dt, mut_t=ts.mut_t + dmut)
     # within-sweep coal deltas are under the AUGMENTED prior; the ledger's
     # log_coal is refreshed from the plain prior at the next boundary
@@ -199,17 +235,19 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
 def parts_multi_super_step(ts: TreeState, evo, pop_params,
                            gen: torch.Generator, tin, tout, pm,
                            n_blocks: int, t_max_tip, hyp, num_cells: int,
-                           n_boundaries: int, param_moves: bool = True):
+                           n_boundaries: int, param_moves: bool = True,
+                           part_sel=None, nb_max: int = NB_MAX):
     """n_boundaries partitioned boundaries in one host call, with no host
     synchronisation.  Returns (ts, evo, pop_params, ledger, stats, fused);
     stats["local_moves_attempted"] is a device tensor summed over the
     boundaries, and ``fused`` is fuse_for_host((ts, evo, pop_params)) for
-    a following topology burst."""
+    a following topology burst.  part_sel and nb_max as in _boundary_body."""
     total = None
     for _ in range(n_boundaries):
         ts, evo, pop_params, ledger, stats = _boundary_body(
             ts, evo, pop_params, gen, tin, tout, pm, n_blocks, t_max_tip,
-            hyp, num_cells, param_moves=param_moves)
+            hyp, num_cells, param_moves=param_moves, part_sel=part_sel,
+            nb_max=nb_max)
         att = stats["local_moves_attempted"]
         total = att if total is None else total + att
     stats = dict(stats, local_moves_attempted=total)

@@ -1,6 +1,6 @@
-"""The MCMC ``Run`` (port of the blocking ``Run`` of ``delphy_tpu/run.py``,
-one device): the exponential or skygrid population model, optional
-site-rate heterogeneity (``hyp.alpha_move_enabled``) and the mpox hack's
+"""The MCMC ``Run`` (port of the ``Run`` of ``delphy_tpu/run.py``, one
+device): the exponential or skygrid population model, optional site-rate
+heterogeneity (``hyp.alpha_move_enabled``) and the mpox hack's
 two-partition APOBEC model.
 
 Owns the device state and the step/cadence bookkeeping.  Each
@@ -8,7 +8,11 @@ Owns the device state and the step/cadence bookkeeping.  Each
 moves + local sweep) on the run's device, and host topology bursts through
 the port's native C++ topology kernel (``native/``).  The host syncs where the
 reference ``Run`` does: draining the attempted-move counts and fetching the
-fused state bundle at a burst.
+fused state bundle at a burst.  Two drivers, as in the reference: the
+blocking one (a dispatch, then a burst), and above 6M local moves per
+boundary (about 60k tips) the overlapped one, whose host burst on one half
+of the parts runs while the device sweeps the other half
+(``DELPHY_TPU_OVERLAP`` = ``auto`` | ``0`` | ``1`` chooses).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -34,16 +39,23 @@ from .ops import coalescent as coal
 from .ops import likelihood as lk
 from .parallel.partmaps import (auto_num_partitions, build_part_maps,
                                 host_mut_nodes, pad_part_maps, part_size_cap)
-from .parallel.sweep import NB_MAX, parts_multi_super_step
+from .parallel.sweep import NB_MAX, NB_MAX_SKYGRID, parts_multi_super_step
 from .phylo import FlatTree, rereference_to_root_sequence
-from .state import TreeState, fetch_fused, fetch_one, pack_state, \
-    split_for_host, unpack_state
+from .state import TreeState, fetch_fused, fetch_later, fetch_one, \
+    pack_state, split_for_host, unpack_state
 from .topo.mixer import HostCoalGrid, HostExpPop, HostSkygridPop
-from .topo.parallel import run_partitioned_bursts
+from .topo.parallel import run_bursts_on_parts, run_partitioned_bursts
+from .topo.partition import partition_tree, reassemble
 from .topo.reform import resample_multi_site_chains
 
 # Dispatch cap: at most this many local moves of boundaries per dispatch.
 MAX_DISPATCH_MOVES = 32_000_000
+# The overlapped driver's cap per cycle, larger: its merge is a fixed cost
+# per cycle, which more boundaries amortize (the reference's, run.py:440-448)
+OVERLAP_DISPATCH_MOVES = 96_000_000
+# Above this many local moves per boundary (about 60k tips) the overlapped
+# driver is the default (the reference's gate, run.py:405-416)
+OVERLAP_MIN_MOVES = 6_000_000
 # Boundaries between periodic restencils (the reference's stencil refresh,
 # run.cpp:87-108).
 RESTENCIL_INTERVAL = 200
@@ -131,6 +143,7 @@ class Run:
         self.topology_proposed = 0
         self.dispatch_count = 0
         self.burst_count = 0
+        self.last_cycle = None     # the last overlapped cycle's stages
         N = self.ts.num_nodes
         self.local_moves_per_global_move = (
             50 * N if local_moves_per_global_move == -1
@@ -332,10 +345,22 @@ class Run:
 
     # -- MCMC ---------------------------------------------------------------
 
+    def _nb_cap(self, overlapped: bool = False) -> int:
+        """Blocks per boundary at most, the reference's caps
+        (delphy_tpu/run.py:508-527,661-667): NB_MAX on the exponential
+        model, twice that for the overlapped driver's half-width sweep,
+        NB_MAX_SKYGRID on a skygrid."""
+        if isinstance(self.pop, popm.SkygridPopParams):
+            return NB_MAX_SKYGRID
+        return 2 * NB_MAX if overlapped else NB_MAX
+
     def do_mcmc_steps(self, n_steps: int):
         """Advance n_steps local moves, interleaving global boundaries at the
         configured cadence (Run::do_mcmc_steps, run.cpp:622-657); topology
-        moves run as host bursts at dispatch ends."""
+        moves run as host bursts at dispatch ends, or overlapped with the
+        device's sweep (``_overlap_active``)."""
+        if self._overlap_active():
+            return self._do_mcmc_steps_overlapped(n_steps)
         done = 0
         cadence = self.local_moves_per_global_move
         K = self.topology_burst_chunks
@@ -348,13 +373,14 @@ class Run:
             boundaries = max(1, min(k_cap, remaining // cadence))
             chunk = min(remaining, boundaries * cadence)
             per_boundary = (chunk + boundaries - 1) // boundaries
-            n_blocks = max(1, min(NB_MAX,
+            nb_cap = self._nb_cap()
+            n_blocks = max(1, min(nb_cap,
                                   round(per_boundary / self._per_block_rate)))
             (self.ts, self.evo, self.pop, self.ledger, self.last_stats,
              self._fused_bundle) = parts_multi_super_step(
                 self.ts, self.evo, self.pop, self.gen, self.tin, self.tout,
                 self.pm, n_blocks, self.t_max_tip, self.hyp, self.num_cells,
-                boundaries)
+                boundaries, nb_max=nb_cap)
             self.dispatch_count += 1
             done_event = None
             if self.device.type == "cuda":
@@ -388,6 +414,176 @@ class Run:
                     or self._boundaries_since_repart
                     >= RESTENCIL_INTERVAL):
                 self._boundaries_since_repart = 0
+            done += chunk
+        self.step += n_steps
+
+    # -- the overlapped driver (delphy_tpu/run.py:393-621) -------------------
+
+    def _overlap_active(self) -> bool:
+        """Overlapped cycles: the device sweeps one random half of the parts
+        while the host runs the topology burst on the other half, both
+        conditioning on the same frozen boundary values (the reference's
+        fork-join argument, run.cpp:682-693, with the device and the host as
+        the two workers).  ``DELPHY_TPU_OVERLAP``: ``0`` off, ``1`` on,
+        ``auto`` (the default) on above OVERLAP_MIN_MOVES local moves per
+        boundary, where the reference measured overlap winning (100k tips)
+        and not below (a tie at 30k, a loss at 10k)."""
+        env = os.environ.get("DELPHY_TPU_OVERLAP", "auto")
+        if env == "0":
+            return False
+        if env == "auto" and \
+                self.local_moves_per_global_move <= OVERLAP_MIN_MOVES:
+            return False
+        return self.topology_moves_enabled and len(self._last_cuts) + 1 >= 4
+
+    def _do_mcmc_steps_overlapped(self, n_steps: int):
+        """Overlap cycles: [G: one globals-only boundary] -> enqueue [L:
+        locals-only boundaries on the device half A] -> host burst on the
+        other half B (while L runs) -> join L, merge -> repartition.  The
+        host's draws are the reference's, in its order.  Each cycle's stage
+        times (host clock, s) are left in ``last_cycle``."""
+        cadence = self.local_moves_per_global_move
+        done = 0
+        while done < n_steps:
+            t0 = time.perf_counter()
+            remaining = n_steps - done
+            boundaries = max(1, min(self.topology_burst_chunks,
+                                    RESTENCIL_INTERVAL,
+                                    max(1, OVERLAP_DISPATCH_MOVES
+                                        // max(1, cadence)),
+                                    remaining // cadence))
+            chunk = min(remaining, boundaries * cadence)
+            per_boundary = (chunk + boundaries - 1) // boundaries
+
+            # the host tree must mirror the device state: it does after a
+            # cycle's merge; after a blocking dispatch, sync it once
+            if self._fused_bundle is not None:
+                ints, flts = self._fused_bundle
+                ts_h, _evo_h, _pop_h = split_for_host(
+                    (self.ts, self.evo, self.pop), ints.cpu(), flts.cpu())
+                self._host_tree = unpack_state(ts_h, names=self.names)
+                self._fused_bundle = None
+                self._repartition()
+            tree = self._host_tree
+
+            # A/B split over the real parts of the current stencil; pad
+            # rows (n_nodes 0) fill a selection wider than A
+            P_sticky = self.pm.node_map.shape[0]
+            n_real = len(self._last_cuts) + 1
+            W = max(1, P_sticky // 2)
+            perm = self.host_rng.permutation(n_real)
+            n_dev = min(W, max(1, n_real - 1))
+            A = np.sort(perm[:n_dev])
+            B = np.sort(perm[n_dev:])
+            sel = np.full(W, n_real, np.int32)
+            sel[:n_dev] = A
+            assert P_sticky > n_real or n_dev == W, \
+                "selection width exceeds real parts with no padding rows"
+            # copied before G: a host-to-device copy from pageable memory
+            # waits for the stream
+            sel_t = torch.as_tensor(sel, device=self.device).long()
+
+            # G: one globals-only boundary (parameter moves and the ledger)
+            ts_g, evo_g, pop_g, _ledger_g, _stats_g, _fused_g = \
+                parts_multi_super_step(
+                    self.ts, self.evo, self.pop, self.gen, self.tin,
+                    self.tout, self.pm, 0, self.t_max_tip, self.hyp,
+                    self.num_cells, 1, param_moves=True)
+            g_params = fetch_later((evo_g, pop_g))
+            # L: locals-only boundaries on the device half, enqueued before
+            # the burst starts; the half-width sweep gets twice the blocks
+            nb_cap = self._nb_cap(overlapped=True)
+            n_blocks = max(1, min(nb_cap, round(
+                per_boundary / max(1.0, self._per_block_rate * n_dev
+                                   / max(1, n_real)))))
+            ts_l, evo_l, pop_l, ledger_l, stats_l, fused_l = \
+                parts_multi_super_step(
+                    ts_g, evo_g, pop_g, self.gen, self.tin, self.tout,
+                    self.pm, n_blocks, self.t_max_tip, self.hyp,
+                    self.num_cells, boundaries, param_moves=False,
+                    part_sel=sel_t,
+                    nb_max=nb_cap)
+            self.dispatch_count += 2
+            t1 = time.perf_counter()
+
+            # G's parameters (waits for G alone), then the burst on B
+            evo_h, pop_h = g_params()
+            mu, nu, q, pi = (float(evo_h.mu), np.asarray(evo_h.nu),
+                             np.asarray(evo_h.q), np.asarray(evo_h.pi))
+            part, q_tab = np.asarray(evo_h.part), np.asarray(evo_h.q_tab)
+            if isinstance(pop_h, popm.SkygridPopParams):
+                host_pop = HostSkygridPop(np.asarray(pop_h.x),
+                                          np.asarray(pop_h.gamma), pop_h.type)
+            else:
+                host_pop = HostExpPop(pop_h.t0, pop_h.n0, pop_h.g,
+                                      pop_h.min_pop)
+            t2 = time.perf_counter()
+            parts = partition_tree(tree, self._last_cuts)
+            B_parts = [parts[i] for i in B]
+            self._topo_debt += int(self.host_rng.binomial(chunk, 2.0 / 30.0))
+            budget = self._topo_debt
+            self._topo_debt = 0
+            dlg, acc, prop = run_bursts_on_parts(
+                tree, parts, budget, host_pop, mu, nu, q, pi,
+                self.host_rng, num_cells=min(self.num_cells, 400),
+                part=part, q_tab=q_tab, do_reassemble=False,
+                burst_idx=[int(i) for i in B])
+            self.topology_accepted += acc
+            self.topology_proposed += prop
+            self.burst_count += 1
+            t3 = time.perf_counter()
+
+            # join L, merge: the device half from L's state, the host half
+            # from the burst's part trees (disjoint supports)
+            ints, flts = fused_l
+            ts_h, _evo_h2, _pop_h2 = split_for_host(
+                (ts_l, evo_l, pop_l), ints.cpu(), flts.cpu())
+            t4 = time.perf_counter()
+            tree_m = unpack_state(ts_h, names=self.names)
+            reassemble(tree_m, B_parts)
+            # same-site chain redraw on the host half's branches only (the
+            # device may have moved the other half's branch ends)
+            qa_tab = -np.diagonal(q_tab, axis1=1, axis2=2)
+            window = budget * 30.0 / 2.0
+            rounds = max(1, round(window / max(1, cadence)))
+            b_nodes = [int(g) for p in B_parts
+                       for sn, g in enumerate(p.orig_index)
+                       if sn != p.tree.root]
+            dlg_chains = resample_multi_site_chains(
+                tree_m, self.host_rng, mu, nu, part, qa_tab, rounds=rounds,
+                nodes=b_nodes)
+            rereference_to_root_sequence(tree_m)
+
+            # ledger: L's (recompute + window deltas) + the burst's and the
+            # chains' deltas; the plain log_coal of the merged tree (the
+            # per-part augmented priors do not sum to it)
+            hg = HostCoalGrid(tree_m, host_pop, min(self.num_cells, 400),
+                              self.t_max_tip)
+            self.ledger = ledger_l._replace(
+                log_G=ledger_l.log_G + dlg + dlg_chains,
+                log_coal=torch.as_tensor(hg.log_prior(tree_m.t),
+                                         dtype=DTYPE, device=self.device))
+            self.ts, self.evo, self.pop = ts_l, evo_l, pop_l
+            self.last_stats = stats_l
+            att = int(stats_l["local_moves_attempted"])
+            self._attempted_done += att + budget
+            if att > 0:
+                measured = (att / (boundaries * n_blocks) * n_real
+                            / max(1, n_dev))
+                self._per_block_rate = max(
+                    1.0, 0.7 * self._per_block_rate + 0.3 * measured)
+
+            # repack the merged tree and restencil for the next cycle
+            self._adopt_tree(tree_m)
+            self._boundaries_since_repart = 0
+            t5 = time.perf_counter()
+            self.last_cycle = {
+                "boundaries": boundaries, "n_blocks": n_blocks,
+                "parts_swept": n_dev, "selection_width": W,
+                "parts_real": n_real, "burst_moves": budget,
+                "local_moves": att, "enqueue_GL_s": t1 - t0,
+                "wait_G_s": t2 - t1, "burst_s": t3 - t2,
+                "join_L_s": t4 - t3, "merge_s": t5 - t4}
             done += chunk
         self.step += n_steps
 
@@ -458,7 +654,12 @@ class Run:
                 log_G=self.ledger.log_G + dlg_chains)
         # keep the reference sequence anchored at the root (log_G invariant)
         rereference_to_root_sequence(tree)
+        self._adopt_tree(tree)
 
+    def _adopt_tree(self, tree: FlatTree):
+        """Make the host tree after a burst the run's state: grow the pool
+        capacities, repack, reset the Euler positions, and rebuild the
+        partition maps (the burst changed the topology)."""
         n_muts = tree.num_mutations() + len(tree.mutations[tree.root])
         while n_muts > self.mut_capacity - 8:
             self.mut_capacity = _round_cap(2 * self.mut_capacity)
@@ -472,7 +673,6 @@ class Run:
                              self.fs_capacity, device=self.device)
         self._fused_bundle = None
         self._set_euler(tree)
-        # the burst changed topology and repacked the pool: rebuild the maps
         self._host_tree = tree
         self._repartition()
 

@@ -256,6 +256,34 @@ def fetch_one(pytree):
     host."""
     leaves = [torch.as_tensor(leaf) for leaf in _leaves(pytree)]
     flat = _np(torch.cat([leaf.reshape(-1).to(DTYPE) for leaf in leaves]))
+    return _unflatten(pytree, leaves, flat)
+
+
+def fetch_later(pytree):
+    """``fetch_one``'s copy, started now on the current stream into pinned
+    host memory; returns a function that waits for that copy alone and
+    gives the host structure, so work enqueued after this call does not
+    delay it (the overlapped driver reads a boundary's parameters while the
+    next dispatch runs)."""
+    leaves = [torch.as_tensor(leaf) for leaf in _leaves(pytree)]
+    flat = torch.cat([leaf.reshape(-1).to(DTYPE) for leaf in leaves])
+    done = None
+    if flat.is_cuda:
+        host = torch.empty(flat.shape, dtype=DTYPE, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(flat.device))
+    else:
+        host = flat
+
+    def result():
+        if done is not None:
+            done.synchronize()
+        return _unflatten(pytree, leaves, host.numpy())
+    return result
+
+
+def _unflatten(pytree, leaves, flat: np.ndarray):
     out, o = [], 0
     for leaf in leaves:
         n = leaf.numel()

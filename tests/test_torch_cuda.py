@@ -16,7 +16,12 @@ a zero column of M, at extreme kappa, on its per-entry path (pi0 with a
 zero entry), over 1 and 64 rounds and from 256 random states.  The sweep
 kernel's skygrid build is held to the plain chain on a real boundary of
 each skygrid type, and short skygrid, alpha/nu and mpox Runs keep their
-ledger and launch the kernels their paths must launch.
+ledger and launch the kernels their paths must launch.  At large-tree
+shapes: the build the sweep kernel picks on either side of the 227 KB
+shared-memory line, its global build against the plain chain at NC = 1152,
+MC = 3200 for the three population models, a one-part Run on 1,000
+simulated tips (global build only, ledger green), and an overlapped cycle
+bit-equal to the same cycle forced sequential.
 """
 
 import os
@@ -75,23 +80,8 @@ def sweep_boundary(run):
 
 
 def pad_chain(stat, ctx, shared, NC=None, MC=None, C=None):
-    """The same chain on rows padded to (NC, MC, C) with the JAX package's
-    inert padding (block_pallas.pack_chain_inputs): padded nodes have no
-    parent or children, padded slots are invalid, cells beyond C_real have
-    k_p = b = 0 and A = nbar = 1."""
-    from delphy_tpu_torch.parallel.block_cuda import _WIDTH, ChainStatics
-    width = {"NC": NC or stat.NC, "MC": MC or stat.MC, "C": C or stat.C}
-    fill = {"par": -1, "c0": -1, "c1": -1, "mnode": -1}
-    out = dict(ctx)
-    for k, w in _WIDTH.items():
-        out[k] = torch.nn.functional.pad(
-            ctx[k], (0, width[w] - ctx[k].shape[-1]), value=fill.get(k, 0))
-    sh = dict(shared)
-    for k in ("A", "nbar"):
-        sh[k] = torch.nn.functional.pad(shared[k], (0, width["C"] - stat.C),
-                                        value=1.0)
-    return ChainStatics(NC=width["NC"], MC=width["MC"], C=width["C"],
-                        C_real=stat.C_real, cpb=stat.cpb), out, sh
+    from delphy_tpu_torch.parallel.block_cuda import pad_chain as pad
+    return pad(stat, ctx, shared, NC=NC, MC=MC, C=C)
 
 
 def sweep_cases(device):
@@ -493,3 +483,196 @@ def test_model_option_runs_on_card(device, option):
     assert counts["hky_chain"] == (0 if option == "mpox" else
                                    counts["sweep_chain"])
     assert counts["sweep_chain_skygrid"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Large trees: the sweep kernel's global build, a P = 1 Run beyond the
+# shared-memory bound, and the overlapped driver on the card
+# ---------------------------------------------------------------------------
+
+def sim_tree(n_tips, seed=77, num_sites=29903):
+    """A simulated tree with the reference's scale-bench settings
+    (scripts/make_tree100k.py) at ``n_tips`` tips."""
+    from delphy_tpu_torch.init_tree import build_initial_tree
+    from delphy_tpu_torch.sim import simulate_dataset
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        n_tips, num_sites, mu=1e-3 / 365, sample_window_days=1200.0,
+        missing_fraction=0.02, seed=seed)
+    return build_initial_tree(ref, deltas, miss, dates, names=names,
+                              rng=np.random.default_rng(seed))
+
+
+@pytest.fixture(scope="module")
+def global_cases(device):
+    """(name, stat, ctx, shared) at NC = 1152, MC = 3200, C = 400: a real
+    boundary of each population model (8 parts of a 1,000-tip tree) padded
+    to those widths."""
+    from delphy_tpu_torch import pop as popm
+    from delphy_tpu_torch.run import Run
+    tree = sim_tree(1000)
+    cases = []
+    for name, kw in (("exp", {}),
+                     ("staircase", dict(pop_model="skygrid")),
+                     ("log-linear", dict(pop_model="skygrid",
+                                         skygrid_type=popm.LOG_LINEAR))):
+        run = Run(tree, seed=5, num_cells=400, device_partitions=8,
+                  device=device, **kw)
+        run.do_mcmc_steps(run.local_moves_per_global_move)
+        stat, ctx, shared = sweep_boundary(run)
+        cases.append((name, *pad_chain(stat, ctx, shared, NC=1152, MC=3200)))
+    return cases
+
+
+def test_sweep_build_selection_by_shape(device):
+    """Two uniform stages in shared memory where they fit, one where only
+    that fits, the global build beyond 227 KB, for both models."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    lib = _cuda.lib()
+    for pop, K in ((bc.POP_EXP, 0), (1, 50)):
+        builds = []
+        for NC, MC in ((768, 1600), (768, 2400), (1152, 3200), (2816, 2000)):
+            stat = bc.ChainStatics(NC=NC, MC=MC, C=400, C_real=400, cpb=16,
+                                   pop=pop)
+            builds.append(bc.build(stat, K))
+            smem = lib.delphy_sweep_chain_skygrid_smem_bytes(NC, MC, 400,
+                                                             16, K)
+            assert smem <= 227 * 1024
+            assert bc.entry(stat, K).endswith("_global") == (builds[-1] == 0)
+        assert builds == [2, 1, 0, 0], builds
+    # either side of the line: MC where one stage stops fitting at NC=768
+    stat = bc.ChainStatics(NC=768, MC=2400, C=400, C_real=400, cpb=16)
+    mc = 2400
+    while bc.build(stat._replace(MC=mc)) == 1:
+        mc += 16
+    assert bc.build(stat._replace(MC=mc - 16)) == 1
+    assert bc.build(stat._replace(MC=mc)) == 0
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_sweep_global_build_matches_plain(global_cases, device, case):
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    name, stat, ctx, shared = global_cases[case]
+    K = shared["x"].numel() if "x" in shared else 0
+    assert bc.build(stat, K) == 0, name
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    P = ctx["t"].shape[0]
+    u = bc.gen_block_uniforms(gen, P, 24, stat.NC, stat.MC, device)
+    _cuda.reset_launch_counts()
+    got = bc.sweep_chain_kernel(stat, 24, ctx, shared, u)
+    entry = bc.entry(stat, K)[len("delphy_"):]
+    assert _cuda.launch_counts[entry] == 1, (name, _cuda.launch_counts)
+    assert sum(_cuda.launch_counts.values()) == 1
+    want = bc.sweep_chain_torch(stat, 24, ctx, shared, u)
+    _close(got[:3], want[:3], rtol=0.0, atol=1e-12, msg=name)
+    _close(got[3:5], want[3:5], rtol=1e-10, atol=1e-12, msg=name)
+    torch.testing.assert_close(got[5], want[5], rtol=0.0, atol=0.0, msg=name)
+    assert float(got[5].sum()) > 0
+
+
+def test_one_part_run_beyond_shared_memory_keeps_ledger(device):
+    """A Run with one device part on 1,000 simulated tips: its part needs
+    the global build, which every boundary launches (and no shared build);
+    the ledger stays green at 1e-6."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.run import Run
+    run = Run(sim_tree(1000), seed=2, num_cells=400, device_partitions=1,
+              device=device)
+    stat, ctx, shared = sweep_boundary(run)
+    assert bc.build(stat) == 0
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(2 * run.local_moves_per_global_move)
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    counts = _cuda.launch_counts
+    assert counts["sweep_chain_global"] >= 2 and counts["sweep_chain"] == 0
+    assert run.burst_count >= 1 and run.topology_proposed > 0
+
+
+def test_overlapped_cycle_on_card_equals_sequential(device, monkeypatch,
+                                                    tmp_path):
+    """An overlapped cycle on the card equals the same cycle with a
+    torch.cuda.synchronize() after each dispatch, before the burst, bit for
+    bit; the L-dispatch sweeps the selected half of the parts; a snapshot
+    after an overlapped cycle resumes bit-equal."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.phylo import build_random_tree
+    from delphy_tpu_torch.sim import simulate_dataset
+    monkeypatch.setenv("DELPHY_TPU_OVERLAP", "1")
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        48, 400, mu=2e-3, missing_fraction=0.02, seed=13)
+    tree = build_random_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(13))
+    run = run_mod.Run(tree, seed=15, num_cells=64, device_partitions=8,
+                      local_moves_per_global_move=200, device=device)
+    run.topology_burst_chunks = 2
+    assert run._overlap_active()
+    run.do_mcmc_steps(800)
+    save_run(run, tmp_path / "ov.npz")
+    twins = [load_run(tmp_path / "ov.npz") for _ in range(2)]
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(400)                       # one cycle of 2 boundaries
+    cyc = run.last_cycle
+    assert _cuda.launch_counts["sweep_chain"] == cyc["boundaries"] == 2
+    assert _cuda.launch_blocks["sweep_chain"] == 2 * cyc["selection_width"]
+    assert _cuda.launch_counts["hky_chain"] == 1     # G alone
+    twins[0].do_mcmc_steps(400)
+    orig = run_mod.parts_multi_super_step
+
+    def sequential(*a, **kw):
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        return out
+    monkeypatch.setattr(run_mod, "parts_multi_super_step", sequential)
+    twins[1].do_mcmc_steps(400)
+    for r in twins:
+        assert r.log_posterior == run.log_posterior
+        assert torch.equal(r.ts.t, run.ts.t)
+        assert torch.equal(r.ts.mut_t, run.ts.mut_t)
+        assert torch.equal(r.gen.get_state(), run.gen.get_state())
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+
+
+def test_exp_pop_kernel_node_rows_in_place(run, boundary, device):
+    """Beyond ~18k nodes the exp-pop kernel reads the node rows in place
+    (their shared copy no longer fits): the real boundary's node rows
+    tiled 400 times, against the plain version."""
+    from delphy_tpu_torch.parallel import _cuda, pop_cuda
+    ts, evo, pop, grid, caches, ledger, stats = boundary
+    lbs, k2, t_row, inner = pop_cuda.pack_rows(grid, ts.t, ts.is_tip)
+    t_big, inner_big = t_row.repeat(1, 400), inner.repeat(1, 400)
+    assert _cuda.lib().delphy_exp_pop_chain_nodes_shared(
+        lbs.numel(), 50, t_big.numel()) == 0
+    u = torch.rand((50, 4), generator=run.gen, dtype=F64, device=device)
+    args = (u, lbs, k2, t_big, inner_big, grid.t_step, pop.t0, pop.min_pop,
+            pop.n0, pop.g, pop_cuda.hyp_floats(run.hyp), 50)
+    _close(pop_cuda.exp_pop_chain_kernel(*args),
+           pop_cuda.exp_pop_chain_torch(*args), rtol=1e-12, atol=1e-15)
+
+
+def test_dispatch_repeats_itself_bit_for_bit(device):
+    """A 2-boundary dispatch on 1,000 tips x 29,903 sites from the same
+    state and generator state gives the same bits every time: the device
+    sums (scatter-adds, 1-D scans over sites and nodes) run in a fixed
+    order."""
+    from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
+    from delphy_tpu_torch.run import Run
+    run = Run(sim_tree(1000), seed=4, num_cells=400, device=device)
+    run.do_mcmc_steps(run.local_moves_per_global_move)
+    state = run.gen.get_state()
+    outs = []
+    for _ in range(6):
+        run.gen.set_state(state)
+        ts, evo, pop, led, _stats, _fused = parts_multi_super_step(
+            run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.pm, 24,
+            run.t_max_tip, run.hyp, run.num_cells, 2)
+        outs.append((ts.t.clone(), ts.mut_t.clone(), evo.kappa.clone(),
+                     pop.n0.clone(), led.log_G.clone()))
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))

@@ -280,3 +280,21 @@ def test_fixture_log_G_below_root(ref_fixture):
              - mnq(1, A) * 1.0 + np.log(mnq_ab(1, A, G)) - mnq(1, G) * 1.0)
     want += -mnq(2, A) * 4.0
     assert got == pytest.approx(want, abs=1e-8)
+
+
+def test_fixed_order_sums_match_the_plain_ops():
+    """add_at and cumsum0 (the card's fixed-order scatter-add and scan) give
+    the plain ops' values; their CUDA formulations are exercised here on
+    the CPU through the same tensor calls."""
+    from delphy_tpu_torch.ops.likelihood import add_at, cumsum0
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, dtype=torch.float64, generator=g)
+    idx = torch.randint(0, 4, (3000,), generator=g)
+    vals = torch.randn(3000, dtype=torch.float64, generator=g) * 1e3
+    assert torch.equal(add_at(x, idx, vals), x.index_add(0, idx, vals))
+    assert torch.equal(x.index_put((idx,), vals, accumulate=True),
+                       x.index_add(0, idx, vals))
+    v = torch.randn(50_000, dtype=torch.float64, generator=g)
+    assert torch.equal(cumsum0(v), torch.cumsum(v, 0))
+    assert torch.equal(torch.cumsum(torch.stack([v, v], 1), 0)[:, 0],
+                       torch.cumsum(v, 0))
