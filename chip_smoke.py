@@ -67,7 +67,25 @@ Phases, each of which raises (exit code != 0) on failure:
      bit-equal to the same cycle forced sequential, and a snapshot after
      an overlapped cycle that resumes bit-equal; (d) with --large-tips N,
      the same at N tips (the scale bench's 100,000 x 29,903) with the
-     reference's default gate instead of the forced switch.
+     reference's default gate instead of the forced switch;
+ 10. more than one GPU (one process per device, parallel/distributed.py):
+     (a) two ranks sharing the card over gloo on the main path's Run
+     (seed=1, num_cells=400; two dispatches, each ending in a burst), each
+     rank bit-equal (t, mut_t, generator state, ledger, counters) to the
+     same run in this process, its ledger at 1e-6 (with the ranks' replica
+     check), the tree's integrity, every kernel of the path launched and
+     each sweep launch covering P/D parts, and the reassembly all-reduce
+     timed at that shape; (b) the counterpart of the JAX package's
+     dryrun_multichip on the same two ranks: 512 tips x 1024 sites with
+     DELPHY_TPU_PART_CAP forcing the oversized-part splitter, at least 2
+     bursts, a repartition and an overlapped mesh cycle, the ledger at 1e-5
+     and integrity; (c) where at least two cards are visible, one rank per
+     card over NCCL (D = min(4, cards)): (a)'s bit-equality, then the
+     10,000-tip tree of phase 9c through the blocking driver on one card in
+     this process and on D cards, moves/s of each, and the all-reduce's ms
+     per boundary and bytes (8 (N + M + 3P)); on one card, (c) says in a
+     line that it did not run.  The ranks' records go to
+     chiprun_out/mesh.json.
 Phases 6 and 7 also write a .dphy stream and read it back where the
 flatbuffers package imports, and say so in one line where it does not.
 The last three lines are the kernels' JSON record, the card line and
@@ -1605,6 +1623,249 @@ def large_trees(device, card: str, base, large_tips):
     return records, {r["tips"]: r["exp_pop_chain"] for r in res}
 
 
+# phase 10: the JAX package's dryrun_multichip size (__graft_entry__.py)
+DRYRUN_TIPS = 512
+DRYRUN_SITES = 1024
+
+
+def allreduce_ms(mesh, n: int, reps: int = 20) -> float:
+    """ms of one reassembly all-reduce of n f64 on the rank's device: host
+    clock around ``reps`` calls ending in a synchronise, every rank in
+    step."""
+    buf = torch.zeros(n, dtype=torch.float64, device=mesh.device)
+    for _ in range(3):
+        buf = mesh.all_reduce_sum(buf)
+    sync(mesh.device)
+    mesh.disagreeing({"barrier": 0.0})
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        buf = mesh.all_reduce_sum(buf)
+    sync(mesh.device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def ebola_mesh_case(mesh, device, out_dir: str, tag: str) -> dict:
+    """Phase 10(a)'s run (and (c)'s), under ``mesh`` or, with None, in
+    this process: Run(seed=1, num_cells=400) on the Ebola file, two calls
+    of two boundaries each ending in a burst, the ledger at 1e-6 and the
+    tree's integrity; t, mut_t and the generator state saved under
+    ``out_dir``."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+
+    run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
+              mesh=mesh)
+    lm = run.local_moves_per_global_move
+    _cuda.reset_launch_counts()
+    for _ in range(2):
+        run.do_mcmc_steps(2 * lm)
+    sync(run.device)
+    counts, blocks = dict(_cuda.launch_counts), dict(_cuda.launch_blocks)
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    for k in EXP_PATH:
+        if counts[k] <= 0:
+            raise AssertionError(f"{tag}: kernel {k} never launched")
+    P = int(run.pm.node_map.shape[0])
+    per_launch = blocks["sweep_chain"] / counts["sweep_chain"]
+    if per_launch != P / (mesh.size if mesh else 1):
+        raise AssertionError(f"{tag}: sweep launches cover {per_launch} "
+                             f"parts of {P}")
+    torch.save({"t": run.ts.t.cpu(), "mut_t": run.ts.mut_t.cpu(),
+                "gen": run.gen.get_state().cpu()},
+               os.path.join(out_dir, f"{tag}.pt"))
+    return {"log_G": float(run.ledger.log_G),
+            "log_posterior": run.log_posterior,
+            "topology_proposed": run.topology_proposed,
+            "moves": run.local_moves_attempted,
+            "dispatches": run.dispatch_count, "bursts": run.burst_count,
+            "parts": P, "sweep_parts_per_launch": per_launch,
+            "launch_counts": counts,
+            "N": run.ts.num_nodes, "M": int(run.ts.mut_t.shape[0])}
+
+
+def dryrun_mesh_case(mesh, part_cap: int) -> dict:
+    """Phase 10(b), the counterpart of ``__graft_entry__.dryrun_multichip``:
+    512 tips x 1024 sites, a part cap that makes the splitter raise the part
+    count above the mesh's size, bursts, repartitions and an overlapped
+    mesh cycle; the ledger at 1e-5 and the tree's integrity."""
+    from delphy_tpu_torch.phylo import build_random_tree
+    from delphy_tpu_torch.run import Run
+    from delphy_tpu_torch.sim import simulate_dataset
+
+    os.environ["DELPHY_TPU_PART_CAP"] = str(part_cap)
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        DRYRUN_TIPS, DRYRUN_SITES, mu=2e-3, missing_fraction=0.03, seed=0)
+    tree = build_random_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(0))
+    run = Run(tree, seed=0, num_cells=64, local_moves_per_global_move=512,
+              device_partitions=mesh.size, topology_moves_enabled=True,
+              mesh=mesh, device=mesh.device)
+    P = int(run.pm.node_map.shape[0])
+    if P % mesh.size or P <= mesh.size:
+        raise AssertionError(f"dryrun: part axis {P} on {mesh.size} ranks "
+                             f"(the splitter did not engage)")
+    run.topology_burst_chunks = 2
+    reparts = []
+    repartition = run._repartition
+
+    def counting(sync_times=False):
+        reparts.append(sync_times)
+        repartition(sync_times=sync_times)
+    run._repartition = counting
+    lm = run.local_moves_per_global_move
+    for _ in range(3):
+        run.do_mcmc_steps(2 * lm)
+    if run.burst_count < 2 or not reparts or run.topology_proposed <= 0:
+        raise AssertionError(f"dryrun: {run.burst_count} bursts, "
+                             f"{len(reparts)} repartitions")
+    run.check_derived_quantities(1e-5)
+    run.tree().check_integrity()
+    os.environ["DELPHY_TPU_OVERLAP"] = "1"
+    if not run._overlap_active():
+        raise AssertionError("dryrun: the overlapped driver is off")
+    run.do_mcmc_steps(2 * lm)
+    if run.last_cycle is None:
+        raise AssertionError("dryrun: no overlapped mesh cycle ran")
+    run.check_derived_quantities(1e-5)
+    run.tree().check_integrity()
+    return {"P": run.device_partitions, "P_padded": P,
+            "n_cap": run._n_cap_sticky, "part_cap": part_cap,
+            "bursts": run.burst_count, "repartitions": len(reparts),
+            "topology_proposed": run.topology_proposed,
+            "moves": run.local_moves_attempted,
+            "cycle": run.last_cycle, "log_posterior": run.log_posterior}
+
+
+def large_mesh_case(mesh, device, cycles: int = 3) -> dict:
+    """Phase 10(c): the 10,000-tip tree of phase 9c through the blocking
+    driver (its gate is off at this size; a warm-up cycle, then ``cycles``
+    timed), under ``mesh`` or, with None, on one card; moves/s, the ledger
+    at 1e-6 and integrity."""
+    from delphy_tpu_torch.run import Run
+
+    run = Run(sim_tree(LARGE_TIPS, cache=True), seed=SEED,
+              num_cells=NUM_CELLS, device=device, mesh=mesh)
+    step = run.topology_burst_chunks * run.local_moves_per_global_move
+    run.do_mcmc_steps(step)
+    sync(run.device)
+    base = run.local_moves_attempted
+    t0 = time.perf_counter()
+    run.do_mcmc_steps(cycles * step)
+    moves = run.local_moves_attempted - base
+    sync(run.device)
+    dt = time.perf_counter() - t0
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    return {"moves": moves, "s": dt, "moves_per_s": moves / dt,
+            "bursts": run.burst_count, "parts": int(run.pm.node_map.shape[0]),
+            "N": run.ts.num_nodes, "M": int(run.ts.mut_t.shape[0]),
+            "log_posterior": run.log_posterior}
+
+
+def mesh_rank(out_dir: str, device: str, part_cap: int, large: bool) -> int:
+    """One rank of phase 10, started by ``distributed.spawn``: (a) or (c)'s
+    Ebola run and the all-reduce at its shape, then (b) (``part_cap`` > 0)
+    or (c)'s 10k tree (``large``); its record goes to ``out_dir``."""
+    from delphy_tpu_torch.parallel import distributed
+    distributed.initialize_from_env()
+    mesh = distributed.global_part_mesh(device=device)
+    res = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+           "staged": mesh.staged,
+           "backend": str(torch.distributed.get_backend())}
+    res["ebola"] = e = ebola_mesh_case(mesh, mesh.device, out_dir,
+                                       f"ebola_{mesh.size}_r{mesh.rank}")
+    n = e["N"] + e["M"] + 3 * e["parts"]
+    res["allreduce_ebola"] = {"ms": allreduce_ms(mesh, n), "bytes": 8 * n}
+    if part_cap:
+        res["dryrun"] = dryrun_mesh_case(mesh, part_cap)
+    if large:
+        res["large"] = g = large_mesh_case(mesh, mesh.device)
+        n = g["N"] + g["M"] + 3 * g["parts"]
+        res["allreduce_large"] = {"ms": allreduce_ms(mesh, n),
+                                  "bytes": 8 * n}
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+    distributed.shutdown()
+    return 0
+
+
+def same_run(tag: str, ref: dict, got: dict, out_dir: str, ref_tag: str):
+    """Raise unless a rank's Ebola run is the single-process run's."""
+    a = torch.load(os.path.join(out_dir, f"{tag}.pt"))
+    b = torch.load(os.path.join(out_dir, f"{ref_tag}.pt"))
+    keys = ("log_G", "log_posterior", "topology_proposed", "moves",
+            "dispatches", "bursts", "parts")
+    if not (all(torch.equal(a[k], b[k]) for k in a)
+            and all(got[k] == ref[k] for k in keys)):
+        raise AssertionError(f"{tag} is not the single-process run: "
+                             f"{[(k, got[k], ref[k]) for k in keys]}")
+
+
+def run_ranks(D: int, device: str, part_cap: int, large: bool,
+              out_dir: str) -> list:
+    from delphy_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    distributed.spawn(mesh_rank, D, args=(out_dir, device, part_cap, large))
+    log(f"{D} ranks on {device} ended after {time.perf_counter() - t0:.1f} s")
+    recs = []
+    for r in range(D):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def mesh_paths(device, card: str) -> dict:
+    """Phase 10: more than one GPU (see the module docstring)."""
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as out_dir:
+        ref = ebola_mesh_case(None, device, out_dir, "ebola_1")
+        log(f"phase 10: one process: {json.dumps(ref)}")
+        D = 2
+        # the cap dryrun_multichip sets on 8 devices: at D=2 it is far
+        # below the mean part (~511 nodes), so the splitter always engages
+        part_cap = (2 * DRYRUN_TIPS - 1) // 8 * 9 // 8 // 16 * 16 + 16
+        ranks = run_ranks(D, f"cuda:{device.index or 0}", part_cap, False,
+                          out_dir)
+        for r in ranks:
+            same_run(f"ebola_{D}_r{r['rank']}", ref, r["ebola"], out_dir,
+                     "ebola_1")
+        out["shared_card"] = ranks
+        log(f"phase 10(a): {D} ranks sharing {device} ({ranks[0]['backend']}"
+            f", staged {ranks[0]['staged']}) bit-equal to one process: "
+            f"log_post {ref['log_posterior']!r}, each sweep launch over "
+            f"{ranks[0]['ebola']['sweep_parts_per_launch']} of "
+            f"{ref['parts']} parts; all-reduce "
+            f"{ranks[0]['allreduce_ebola']} ({card})")
+        log(f"phase 10(b): dryrun on {D} ranks: "
+            f"{json.dumps(ranks[0]['dryrun'])}")
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log(f"phase 10(c) did NOT run: {cards} card visible, it needs "
+                f"two or more")
+        else:
+            D = min(4, cards)
+            one = large_mesh_case(None, device)
+            ranks = run_ranks(D, "cuda", 0, True, out_dir)
+            for r in ranks:
+                same_run(f"ebola_{D}_r{r['rank']}", ref, r["ebola"], out_dir,
+                         "ebola_1")
+            out["cards"] = {"D": D, "one_card": one, "ranks": ranks}
+            g = ranks[0]
+            log(f"phase 10(c): {D} ranks on {D} cards ({g['backend']}) "
+                f"bit-equal to one process on Ebola; 10k tips blocking: one "
+                f"card {one['moves_per_s']:.1f} moves/s, {D} cards "
+                f"{g['large']['moves_per_s']:.1f} moves/s; all-reduce "
+                f"{g['allreduce_large']['ms']:.4f} ms per boundary, "
+                f"{g['allreduce_large']['bytes']} bytes (Ebola: "
+                f"{g['allreduce_ebola']['ms']:.4f} ms, "
+                f"{g['allreduce_ebola']['bytes']} bytes; {card})")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "mesh.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1659,6 +1920,7 @@ def main(argv=None) -> int:
             r["max_abs_err"] = max([r["max_abs_err"]] + [
                 v["max_abs_err"] for v in exp_pop_large.values()])
     records += large
+    mesh_paths(device, card)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -10,6 +10,13 @@ cadences.  The run lives on ``--device`` (default ``cuda``; without a CUDA
 device the run raises rather than fall back).  The model options are the JAX
 package's: ``--v0-pop-model skygrid`` with its ``--v0-skygrid-*`` settings,
 ``--v0-site-rate-heterogeneity`` and ``--v0-mpox-hack``.
+
+``--mesh-devices N`` runs one process per device over a part mesh
+(``parallel/distributed.py``): without the env contract the command starts
+N ranks on this host itself (rank r on ``cuda:r``; N ranks on the CPU with
+``--device cpu``, or all on one card with ``--device cuda:K``); under the
+env contract the mesh is every rank the launcher started.  Every rank runs
+the whole program; rank 0 alone writes files and prints.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from . import DEFAULT_DEVICE
 
@@ -41,6 +49,13 @@ def build_parser() -> argparse.ArgumentParser:
            "default)")
     a("--device", default=DEFAULT_DEVICE, metavar="DEV",
       help="torch device of the run: 'cuda' (default), 'cuda:N' or 'cpu'")
+    a("--mesh-devices", type=int, default=1, metavar="N",
+      help="devices of the part mesh, one process each: 1 (default) runs "
+           "one process; -1 every visible card; N > 1 starts N ranks "
+           "(sharing the card of --device cuda:K, on the CPU with --device "
+           "cpu).  The default is 1 because every rank repeats the host "
+           "program, which bounds a run on the H100 now: more cards are a "
+           "setting to choose by measurement, not a default")
     a("--v0-paranoid", action="store_true")
     a("--v0-out-log-file", metavar="FILE")
     a("--v0-log-every", type=int, default=-1)
@@ -152,12 +167,62 @@ class _CliError(Exception):
 
 
 def main(argv=None) -> int:
+    # a rank under the env contract joins its group before anything else
+    # touches a device
+    from .parallel import distributed
+    in_group = distributed.initialize_from_env()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     try:
-        return _main(args)
+        if not in_group and _mesh_size(args) > 1:
+            return _start_ranks(args, argv)
+        rc = _main(args)
     except _CliError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 1
+    if in_group:
+        distributed.shutdown()
+    return rc
+
+
+def _mesh_size(args) -> int:
+    n = args.mesh_devices
+    if n == 0 or n < -1:
+        raise _CliError(f"--mesh-devices {n}: give -1 or N >= 1")
+    dev = torch.device(args.device)
+    if n == -1:
+        if dev.type != "cuda":
+            raise _CliError("--mesh-devices -1 counts cards: give N with "
+                            f"--device {args.device}")
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise _CliError("--mesh-devices -1: no CUDA card is visible")
+    return n
+
+
+def _start_ranks(args, argv) -> int:
+    """Start --mesh-devices ranks of this command on this host."""
+    from .parallel import distributed
+    n = _mesh_size(args)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and dev.index is None \
+            and n > torch.cuda.device_count():
+        raise _CliError(f"--mesh-devices {n}: only "
+                        f"{torch.cuda.device_count()} cards visible")
+    # build once here, not once in every rank
+    from .native import native_available
+    native_available()
+    if dev.type == "cuda":
+        from .parallel import _cuda
+        _cuda.build()
+    print(f"Starting {n} ranks, one per device of the part mesh",
+          file=sys.stderr)
+    try:
+        distributed.spawn(main, n, args=(argv,))
+    except torch.multiprocessing.ProcessException as e:
+        print(f"ERROR: {e}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def _main(args) -> int:
@@ -174,7 +239,27 @@ def _main(args) -> int:
     from .run import Run
     from .mcmc.global_moves import PriorConfig
 
-    warn = lambda msg: print(f"WARNING: {msg}", file=sys.stderr)
+    # under a mesh every rank runs the whole program; rank 0 alone writes
+    # files and prints
+    mesh = None
+    if torch.distributed.is_initialized():
+        from .parallel.distributed import global_part_mesh
+        world = torch.distributed.get_world_size()
+        if args.mesh_devices not in (-1, 1, world):
+            raise _CliError(f"--mesh-devices {args.mesh_devices}: the "
+                            f"launcher started {world} ranks")
+        mesh = global_part_mesh(device=args.device)
+    writer = mesh is None or mesh.rank == 0
+    if not writer:      # the other ranks step their runs and open no file
+        if args.v0_out_beast_xml:
+            return 0    # an export takes no step
+        args.v0_out_log_file = args.v0_out_trees_file = None
+        args.v0_out_delphy_file = args.v0_out_mcc_file = None
+
+    def say(msg):
+        if writer:
+            print(msg, file=sys.stderr)
+    warn = lambda msg: say(f"WARNING: {msg}")
 
     if args.v0_in_maple:
         mf = read_maple(args.v0_in_maple, warn=warn)
@@ -182,19 +267,19 @@ def _main(args) -> int:
     elif args.v0_in_fasta:
         records = read_fasta(args.v0_in_fasta)
         if not records:
-            print("ERROR: empty FASTA", file=sys.stderr)
+            say("ERROR: empty FASTA")
             return 1
         length = max(len(r.bits) for r in records)
         ref_seq = deduce_consensus(records, length)
         tips = fasta_to_tips(records, ref_seq, warn=warn)
     else:
-        print("ERROR: provide --v0-in-fasta or --v0-in-maple", file=sys.stderr)
+        say("ERROR: provide --v0-in-fasta or --v0-in-maple")
         return 1
 
     if len(tips) < 2:
-        print("ERROR: need at least 2 usable tips", file=sys.stderr)
+        say("ERROR: need at least 2 usable tips")
         return 1
-    print(f"Read {len(tips)} tips, {len(ref_seq)} sites", file=sys.stderr)
+    say(f"Read {len(tips)} tips, {len(ref_seq)} sites")
 
     # init-method selection incl. deprecated aliases (cmdline.cpp:427-457)
     n_init_opts = ((1 if args.v0_init is not None else 0)
@@ -446,7 +531,9 @@ def _main(args) -> int:
               skygrid_type=(popm.STAIRCASE
                             if args.v0_skygrid_type == "staircase"
                             else popm.LOG_LINEAR),
-              device=args.device, **run_kwargs)
+              device=args.device, mesh=mesh, **run_kwargs)
+    if mesh is not None:
+        say(f"Sharding partitioned sweeps over {mesh.size} ranks")
     if args.v0_init_mutation_rate is not None:
         run.set_mu(args.v0_init_mutation_rate / 365.0)
     if not is_skygrid:
@@ -471,8 +558,8 @@ def _main(args) -> int:
                 export_beast2_7_xml(f, run.tree(), run)
             else:
                 export_beast2_xml(f, run.tree(), run)
-        print(f"Wrote BEAST {args.v0_out_beast_version} XML to "
-              f"{args.v0_out_beast_xml}", file=sys.stderr)
+        say(f"Wrote BEAST {args.v0_out_beast_version} XML to "
+            f"{args.v0_out_beast_xml}")
         return 0
 
     steps = args.v0_steps if args.v0_steps > 0 else 100_000 * len(tips)
@@ -520,7 +607,7 @@ def _main(args) -> int:
             rate = (s1 - s0) / max(w1 - w0, 1e-9)
         else:
             rate = 0.0
-        print(f"{run.stats_line()}  [{rate / 1e6:.3f} Mmoves/s]", file=sys.stderr)
+        say(f"{run.stats_line()}  [{rate / 1e6:.3f} Mmoves/s]")
         if log_out and done % log_every == 0:
             log_out.write_line(run)
         if done % tree_every == 0:
@@ -550,8 +637,8 @@ def _main(args) -> int:
         mcc = derive_mcc_tree(sampled_trees, seed=args.v0_seed)
         with open(args.v0_out_mcc_file, "w") as f:
             mcc_to_nexus(mcc, f)
-        print(f"Wrote MCC tree ({len(sampled_trees)} samples) to "
-              f"{args.v0_out_mcc_file}", file=sys.stderr)
+        say(f"Wrote MCC tree ({len(sampled_trees)} samples) to "
+            f"{args.v0_out_mcc_file}")
     return 0
 
 

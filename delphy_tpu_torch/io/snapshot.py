@@ -36,9 +36,6 @@ VERSION = 1
 
 
 def save_run(run, path):
-    # settle in-flight dispatches so the adaptive feedback state
-    # (_per_block_rate, attempted counts) is final before serialization
-    run._drain_inflight(block=True)
     arrays = {}
     if isinstance(run.pop, popm.SkygridPopParams):
         pop_meta = {"model": "skygrid", "type": int(run.pop.type)}
@@ -117,10 +114,13 @@ def _group(data: dict, prefix: str) -> dict:
             if k.startswith(prefix)}
 
 
-def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
+def restore_run(meta: dict, data: dict, device, gen_seed: int = 0,
+                mesh=None):
     """A Run in the state of a parsed snapshot, generators apart: tree,
     partition maps, parameters, adaptive scalars and the host generator.  The
-    run's ``torch.Generator`` is seeded with ``gen_seed``."""
+    run's ``torch.Generator`` is seeded with ``gen_seed``.  With a mesh the
+    saved part axis must divide over its ranks, as a run under that mesh
+    would have padded it."""
     hyp = PriorConfig(**meta["hyp"])
     drv = meta["driver"]
     model = meta["pop"]["model"]
@@ -133,7 +133,8 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
               topology_moves_enabled=meta["topology_moves_enabled"],
               topology_partitions=drv["topology_partitions"],
               device_partitions=drv["device_partitions"], device=device,
-              pop_model=model, mpox_hack=drv.get("mpox_hack", False), **sky)
+              pop_model=model, mpox_hack=drv.get("mpox_hack", False),
+              mesh=mesh, **sky)
     # the exact adaptive state: the packed arrays, partition maps and
     # feedback scalars as of the save; bit-identical resume depends on every
     # one of these (they steer n_blocks, kernel shapes and the repartition
@@ -159,6 +160,11 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
     run._m_cap_sticky = drv["m_cap_sticky"]
     # the JAX package's snapshot has no P_sticky: its width is pm's part axis
     run._P_sticky = drv.get("P_sticky", int(run.pm.node_map.shape[0]))
+    if mesh is not None and (run.device_partitions != drv["device_partitions"]
+                             or run.pm.node_map.shape[0] % mesh.size):
+        raise ValueError(f"a snapshot of {drv['device_partitions']} parts "
+                         f"padded to {run.pm.node_map.shape[0]} does not "
+                         f"divide over {mesh.size} ranks")
     run._per_block_rate = drv["per_block_rate"]
     run._topo_debt = drv["topo_debt"]
     run._boundaries_since_repart = drv["boundaries_since_repart"]
@@ -174,18 +180,20 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0):
     return run
 
 
-def load_run(path, device=DEFAULT_DEVICE):
+def load_run(path, device=DEFAULT_DEVICE, mesh=None):
     """The Run saved at ``path``, on ``device`` (CUDA unless the caller asks
-    for the CPU).  The device type must be the one that wrote the snapshot:
-    a generator's state cannot cross between the CPU and CUDA."""
-    device = resolve_device(device)
+    for the CPU), or on every rank of ``mesh`` (a ``PartMesh``: each rank
+    loads the same file onto its own device).  The device type must be the
+    one that wrote the snapshot: a generator's state cannot cross between
+    the CPU and CUDA."""
+    device = resolve_device(mesh.device if mesh is not None else device)
     meta, data = read_snapshot(path, MAGIC, VERSION)
     if meta["gen_device_type"] != device.type:
         raise ValueError(
             f"{path}: snapshot written on a {meta['gen_device_type']} device "
             f"cannot resume on {device.type}: the torch.Generator state does "
             f"not carry between device types")
-    run = restore_run(meta, data, device)
+    run = restore_run(meta, data, device, mesh=mesh)
     run.gen.set_state(torch.from_numpy(data["gen_state"].copy()))
     return run
 

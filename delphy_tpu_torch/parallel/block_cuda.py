@@ -99,7 +99,8 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                       u: BlockUniforms):
     """Plain PyTorch chain over all P parts at once (index gathers, dense
     (P, NC, C) dk).  Returns (t (P,1,NC), mut_t (P,1,MC), k_p (P,1,C),
-    dG (P,), dC (P,), cnt (P,))."""
+    dG (P,), dC (P,), cnt (P,)), the last three the columns of one (P, 3)
+    tensor."""
     NC, MC, C = stat.NC, stat.MC, stat.C
     t = _rows(ctx_arrs, "t").to(DTYPE)
     mut_t = _rows(ctx_arrs, "mut_t").to(DTYPE)
@@ -327,8 +328,11 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         dG = dG + torch.sum(torch.where(accept_n, delta_n, zero), 1)
         cnt = cnt + torch.sum(in_batch.to(DTYPE), 1)
 
+    # the kernel's layout: the columns of one (P, 3) tensor, so that a sum
+    # over P rounds alike on either
+    acc = torch.stack([dG, dC, cnt], 1)
     return (t.reshape(P, 1, NC), mut_t.reshape(P, 1, MC),
-            k_p.reshape(P, 1, C), dG, dC, cnt)
+            k_p.reshape(P, 1, C), acc[:, 0], acc[:, 1], acc[:, 2])
 
 
 _INT_ROWS = ("par", "c0", "c1", "mnode", "mvalid", "msingle")

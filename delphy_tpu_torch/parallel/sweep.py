@@ -1,7 +1,9 @@
-"""Partitioned local-move sweep on one device (port of
-``delphy_tpu/parallel/sweep.py``, single device).  Both population models
-run through the sweep kernel: its skygrid build takes the place of the JAX
-package's XLA ``part_sweep`` for a skygrid run (same moves).
+"""Partitioned local-move sweep (port of ``delphy_tpu/parallel/sweep.py``).
+Both population models run through the sweep kernel: its skygrid build
+takes the place of the JAX package's XLA ``part_sweep`` for a skygrid run
+(same moves).  With a ``PartMesh`` (``distributed.py``), the counterpart of
+the JAX package's shard_map branch, each rank sweeps its own slice of the
+part rows and one all-reduce reassembles the deltas (``mesh_reassemble``).
 
 Each part runs the reference's local move mix (subrun.cpp:98-121) on its own
 index view of the global flat arrays, all parts in one launch of the sweep
@@ -163,12 +165,13 @@ def prepare_sweep(ts: TreeState, evo, pop_params, grid, caches, pm,
     contexts packed as chain rows.  Returns (stat, ctx_arrs, shared, t_p,
     mut_t_p).
 
-    part_sel (i32[P_sel], optional): sweep only these part rows, the device
-    half of the overlapped driver (run.py).  The fields are still sampled
-    over ALL parts (the augmentation conditions on the full boundary state;
-    the other parts' k_bar stays frozen, as the reference's frozen cut
-    points, run.cpp:682-693), then the context, k_p, t_p and mut_t_p are
-    gathered down to the selected rows before packing."""
+    part_sel (i32[P_sel] or a slice, optional): sweep only these part rows,
+    the device half of the overlapped driver (run.py) or a rank's shard.
+    The fields are still sampled over ALL parts (the augmentation
+    conditions on the full boundary state; the other parts' k_bar stays
+    frozen, as the reference's frozen cut points, run.cpp:682-693), then
+    the context, k_p, t_p and mut_t_p are gathered down to the selected
+    rows before packing."""
     nm = pm.node_map.clamp(min=0).long()
     t_p = ts.t[nm]
     k_p = vsc.calc_k_bar_signed(t_p, pm.sign, grid.t_lo, grid.t_step,
@@ -195,14 +198,38 @@ def prepare_sweep(ts: TreeState, evo, pop_params, grid, caches, pm,
     return stat, ctx_arrs, shared, t_p, mut_t_p
 
 
+def mesh_reassemble(mesh, shard: slice, P: int, dt, dmut, dG_p, dC_p,
+                    cnt_p):
+    """The reassembly collective of a rank's sweep of rows ``shard`` of a
+    part axis of width P: its scattered ``dt`` [N] and ``dmut`` [M] and its
+    per-part ``dG_p``, ``dC_p`` and ``cnt_p``, each written into its own
+    rows of a [P] vector, packed into one f64 buffer and summed over the
+    ranks with one all-reduce (the JAX package psums instead,
+    delphy_tpu/parallel/sweep.py:569-573).  Every entry has exactly one
+    nonzero contributor, so the sum is exact in any order on any backend.
+    Returns (dt, dmut, dG_p, dC_p, cnt_p) of the whole part axis, the
+    per-part vectors the columns of one [P, 3] tensor as the sweep's own
+    are (block_cuda.sweep_chain_kernel), so a sum over P rounds as the
+    single-process path's does."""
+    N, M = dt.shape[0], dmut.shape[0]
+    full = torch.zeros((P, 3), dtype=DTYPE, device=dt.device)
+    full[shard] = torch.stack([dG_p, dC_p, cnt_p], 1)
+    buf = mesh.all_reduce_sum(torch.cat([dt, dmut, full.reshape(-1)]))
+    parts = buf[N + M:].view(P, 3).clone().unbind(1)
+    return (buf[:N], buf[N:N + M], *parts)
+
+
 def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
                    tout, pm, n_blocks: int, t_max_tip, hyp, num_cells: int,
                    param_moves: bool = True, part_sel=None,
-                   nb_max: int = NB_MAX):
+                   nb_max: int = NB_MAX, mesh=None):
     """One boundary: global moves, then the partitioned local sweep of at
     most nb_max blocks over the part rows part_sel (None: all).  With no
     block to run (the overlapped driver's globals-only boundary) the sweep,
-    a no-op, is skipped."""
+    a no-op, is skipped.  With a mesh, every rank runs the global moves and
+    the draws, sweeps its shard of the (selected) rows on uniforms sliced
+    from the whole draw, and the deltas are reassembled (mesh_reassemble):
+    the result is the single-process boundary's, bit for bit."""
     ts, evo, pop_params, grid, caches, ledger, stats = run_global_moves(
         ts, evo, pop_params, gen, tin, tout, t_max_tip, hyp, num_cells,
         param_moves=param_moves)
@@ -211,17 +238,29 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
         return ts, evo, pop_params, ledger, dict(
             stats, local_moves_attempted=torch.zeros(
                 (), dtype=torch.int64, device=ts.t.device))
+    P = pm.node_map.shape[0] if part_sel is None else part_sel.shape[0]
+    rows = part_sel
+    if mesh is not None:
+        shard = mesh.shard_rows(P)
+        rows = shard if part_sel is None else part_sel[shard]
     stat, ctx_arrs, shared, t_p, mut_t_p = prepare_sweep(
         ts, evo, pop_params, grid, caches, pm, gen, t_max_tip, num_cells,
-        part_sel)
-    P = t_p.shape[0]
+        rows)
+    # all P rows are drawn on every rank: a smaller draw is not a slice of
+    # the larger one
     u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, ts.t.device)
+    if mesh is not None:
+        u = select_parts(u, shard)
     t_new, mut_new, _kp, dG_p, dC_p, cnt_p = bc.sweep_chain_kernel(
         stat, nb, ctx_arrs, shared, u)
-    dt_p = t_new.reshape(P, stat.NC) - t_p
-    dmut_p = mut_new.reshape(P, stat.MC) - mut_t_p
-    dt, dmut = scatter_deltas(select_parts(pm, part_sel), ts.num_nodes,
+    P_run = t_p.shape[0]
+    dt_p = t_new.reshape(P_run, stat.NC) - t_p
+    dmut_p = mut_new.reshape(P_run, stat.MC) - mut_t_p
+    dt, dmut = scatter_deltas(select_parts(pm, rows), ts.num_nodes,
                               ts.mut_t.shape[0], dt_p, dmut_p)
+    if mesh is not None:
+        dt, dmut, dG_p, dC_p, cnt_p = mesh_reassemble(
+            mesh, shard, P, dt, dmut, dG_p, dC_p, cnt_p)
     ts = ts._replace(t=ts.t + dt, mut_t=ts.mut_t + dmut)
     # within-sweep coal deltas are under the AUGMENTED prior; the ledger's
     # log_coal is refreshed from the plain prior at the next boundary
@@ -236,18 +275,19 @@ def parts_multi_super_step(ts: TreeState, evo, pop_params,
                            gen: torch.Generator, tin, tout, pm,
                            n_blocks: int, t_max_tip, hyp, num_cells: int,
                            n_boundaries: int, param_moves: bool = True,
-                           part_sel=None, nb_max: int = NB_MAX):
+                           part_sel=None, nb_max: int = NB_MAX, mesh=None):
     """n_boundaries partitioned boundaries in one host call, with no host
-    synchronisation.  Returns (ts, evo, pop_params, ledger, stats, fused);
-    stats["local_moves_attempted"] is a device tensor summed over the
-    boundaries, and ``fused`` is fuse_for_host((ts, evo, pop_params)) for
-    a following topology burst.  part_sel and nb_max as in _boundary_body."""
+    synchronisation (but a staged reassembly's).  Returns (ts, evo,
+    pop_params, ledger, stats, fused); stats["local_moves_attempted"] is a
+    device tensor summed over the boundaries (over every rank's parts), and
+    ``fused`` is fuse_for_host((ts, evo, pop_params)) for a following
+    topology burst.  part_sel, nb_max and mesh as in _boundary_body."""
     total = None
     for _ in range(n_boundaries):
         ts, evo, pop_params, ledger, stats = _boundary_body(
             ts, evo, pop_params, gen, tin, tout, pm, n_blocks, t_max_tip,
             hyp, num_cells, param_moves=param_moves, part_sel=part_sel,
-            nb_max=nb_max)
+            nb_max=nb_max, mesh=mesh)
         att = stats["local_moves_attempted"]
         total = att if total is None else total + att
     stats = dict(stats, local_moves_attempted=total)

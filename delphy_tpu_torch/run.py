@@ -1,7 +1,8 @@
-"""The MCMC ``Run`` (port of the ``Run`` of ``delphy_tpu/run.py``, one
-device): the exponential or skygrid population model, optional site-rate
-heterogeneity (``hyp.alpha_move_enabled``) and the mpox hack's
-two-partition APOBEC model.
+"""The MCMC ``Run`` (port of the ``Run`` of ``delphy_tpu/run.py``): the
+exponential or skygrid population model, optional site-rate heterogeneity
+(``hyp.alpha_move_enabled``) and the mpox hack's two-partition APOBEC model,
+on one device or, with a ``PartMesh`` (``parallel/distributed.py``), one
+process per device.
 
 Owns the device state and the step/cadence bookkeeping.  Each
 ``do_mcmc_steps`` call runs dispatches of partitioned boundaries (global
@@ -13,10 +14,20 @@ blocking one (a dispatch, then a burst), and above 6M local moves per
 boundary (about 60k tips) the overlapped one, whose host burst on one half
 of the parts runs while the device sweeps the other half
 (``DELPHY_TPU_OVERLAP`` = ``auto`` | ``0`` | ``1`` chooses).
+
+Under a mesh every rank runs this same host program on the same seeds:
+the host RNG, the topology bursts, the repartitions and the moves-per-block
+feedback (fed by the all-reduced move counts) are replicated, and only the
+sweep's part rows are split between the ranks.  Trajectories are the
+single-process run's bit for bit, except that the overlapped driver rounds
+its selection width down to a multiple of the ranks, as the JAX mesh run
+does, and then follows that run's split; ``check_derived_quantities`` also
+checks that the ranks still agree.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -69,6 +80,19 @@ def _round16(n: int) -> int:
     return (max(n, 16) + 15) // 16 * 16
 
 
+def mesh_partitions(P: int, D: int) -> int:
+    """The device part count of a run asking for P parts on a mesh of D
+    ranks: a multiple of D, at least D (delphy_tpu/run.py:238-241)."""
+    return max(D, (P + D - 1) // D * D)
+
+
+def round_parts(p: int, D: int) -> int:
+    """A sticky padded part axis for p parts: a multiple of 8, then of the
+    mesh's D ranks (the JAX package's ``_round_parts``, run.py:317-323)."""
+    q = (p + 7) // 8 * 8
+    return (q + D - 1) // D * D
+
+
 class HostView(NamedTuple):
     """What the I/O layer reads of a run, on the host: ``evo`` and ``pop``
     with numpy leaves, the ledger's terms as numpy floats (None before the
@@ -110,7 +134,14 @@ class Run:
                  skygrid_tau: float | None = None,
                  skygrid_double_half_time_days: float | None = None,
                  skygrid_init_nbar_days: float = 3.0 * 365.0,
-                 mpox_hack: bool = False):
+                 mpox_hack: bool = False, mesh=None):
+        # with a mesh the run lives on the rank's device
+        self.mesh = mesh
+        if mesh is not None:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not of the mesh's "
+                                 f"type ({mesh.device})")
+            device = mesh.device
         self.device = resolve_device(device)
         if topology_moves_enabled:
             # the port has no Python topology mixer to fall back to
@@ -198,6 +229,9 @@ class Run:
 
         self.device_partitions = (device_partitions if device_partitions > 0
                                   else auto_num_partitions(tree.num_tips))
+        if mesh is not None:
+            self.device_partitions = mesh_partitions(self.device_partitions,
+                                                     mesh.size)
         self._host_tree = tree          # topology/t synced at repartition
         self._n_cap_sticky = 0
         self._m_cap_sticky = 0
@@ -209,10 +243,7 @@ class Run:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.step = 0
-        self._attempted_done = 0
-        # dispatch results not yet drained: (count tensor, done event or
-        # None, boundaries, n_blocks)
-        self._inflight: list = []
+        self.local_moves_attempted = 0
         self.ledger: Ledger | None = None
         self.last_stats = None
 
@@ -257,35 +288,16 @@ class Run:
         self.tin = torch.as_tensor(np.asarray(tin), device=self.device)
         self.tout = torch.as_tensor(np.asarray(tout), device=self.device)
 
-    # -- lazy attempted-move accounting -------------------------------------
+    # -- attempted-move accounting -----------------------------------------
 
     def _absorb(self, arr, boundaries: int, n_blocks: int):
         """Count one dispatch's attempted moves (a host sync) and feed the
         measured moves-per-block rate that sizes later dispatches."""
         attempted = int(arr)
-        self._attempted_done += attempted
+        self.local_moves_attempted += attempted
         measured = attempted / (boundaries * n_blocks)
         self._per_block_rate = max(
             1.0, 0.7 * self._per_block_rate + 0.3 * measured)
-
-    def _drain_inflight(self, block: bool = True):
-        keep = []
-        for arr, done, boundaries, n_blocks in self._inflight:
-            if not block and done is not None and not done.query():
-                keep.append((arr, done, boundaries, n_blocks))
-                continue
-            self._absorb(arr, boundaries, n_blocks)
-        self._inflight = keep
-
-    @property
-    def local_moves_attempted(self) -> int:
-        self._drain_inflight(block=True)
-        return self._attempted_done
-
-    @local_moves_attempted.setter
-    def local_moves_attempted(self, v: int):
-        self._inflight.clear()
-        self._attempted_done = v
 
     def _repartition(self, sync_times: bool = False):
         """(Re)build the device partition maps from the current tree
@@ -301,7 +313,8 @@ class Run:
         if self._P_sticky < P:
             self._P_sticky = P
         if pm.num_parts > self._P_sticky:
-            self._P_sticky = (int(1.1 * pm.num_parts) + 7) // 8 * 8
+            self._P_sticky = round_parts(int(1.1 * pm.num_parts),
+                                         self.mesh.size if self.mesh else 1)
         P = self._P_sticky
         if self._n_cap_sticky == 0:
             self._n_cap_sticky = _round16(int(1.4 * pm.n_cap) + 16)
@@ -380,18 +393,14 @@ class Run:
              self._fused_bundle) = parts_multi_super_step(
                 self.ts, self.evo, self.pop, self.gen, self.tin, self.tout,
                 self.pm, n_blocks, self.t_max_tip, self.hyp, self.num_cells,
-                boundaries, nb_max=nb_cap)
+                boundaries, nb_max=nb_cap, mesh=self.mesh)
             self.dispatch_count += 1
-            done_event = None
-            if self.device.type == "cuda":
-                done_event = torch.cuda.Event()
-                done_event.record()
-            self._inflight.append((self.last_stats["local_moves_attempted"],
-                                   done_event, boundaries, n_blocks))
-            self._drain_inflight(block=False)
-            while len(self._inflight) > 3:
-                arr, _ev, b_, nb_ = self._inflight.pop(0)
-                self._absorb(arr, b_, nb_)
+            # every dispatch's count feeds the next dispatch's size, waiting
+            # for the card's tail of it: a rule, not a question of whether
+            # the card has finished, so repeats of a run and the ranks of a
+            # mesh size their dispatches alike
+            self._absorb(self.last_stats["local_moves_attempted"],
+                         boundaries, n_blocks)
             self._boundaries_since_repart += boundaries
             repartitioned = False
             if self.topology_moves_enabled:
@@ -403,7 +412,7 @@ class Run:
                          >= max(32, int(cadence * 2.0 / 30.0)))
                 if self._topo_debt >= threshold or flush:
                     self._topology_burst(self._topo_debt)
-                    self._attempted_done += self._topo_debt
+                    self.local_moves_attempted += self._topo_debt
                     self._topo_debt = 0
                     repartitioned = True
             if (not repartitioned and P > 1
@@ -427,7 +436,14 @@ class Run:
         the two workers).  ``DELPHY_TPU_OVERLAP``: ``0`` off, ``1`` on,
         ``auto`` (the default) on above OVERLAP_MIN_MOVES local moves per
         boundary, where the reference measured overlap winning (100k tips)
-        and not below (a tie at 30k, a loss at 10k)."""
+        and not below (a tie at 30k, a loss at 10k).
+
+        It stays on under a mesh.  The JAX package turns it off on a
+        multi-process mesh (delphy_tpu/run.py:418-425) because its merge
+        repacks host state that would then need its ``replicate_to_mesh``
+        step; here every rank runs the same burst and merge into state of
+        its own, so no such step exists, and the L-dispatch's selected rows
+        are split between the ranks like any other."""
         env = os.environ.get("DELPHY_TPU_OVERLAP", "auto")
         if env == "0":
             return False
@@ -471,6 +487,12 @@ class Run:
             P_sticky = self.pm.node_map.shape[0]
             n_real = len(self._last_cuts) + 1
             W = max(1, P_sticky // 2)
+            if self.mesh is not None:
+                # the selection shards over the ranks: round its width as
+                # the JAX mesh run does (delphy_tpu/run.py:485-487), so the
+                # split, and the trajectory, follow that run's
+                D = self.mesh.size
+                W = max(D, W // D * D)
             perm = self.host_rng.permutation(n_real)
             n_dev = min(W, max(1, n_real - 1))
             A = np.sort(perm[:n_dev])
@@ -488,7 +510,7 @@ class Run:
                 parts_multi_super_step(
                     self.ts, self.evo, self.pop, self.gen, self.tin,
                     self.tout, self.pm, 0, self.t_max_tip, self.hyp,
-                    self.num_cells, 1, param_moves=True)
+                    self.num_cells, 1, param_moves=True, mesh=self.mesh)
             g_params = fetch_later((evo_g, pop_g))
             # L: locals-only boundaries on the device half, enqueued before
             # the burst starts; the half-width sweep gets twice the blocks
@@ -502,7 +524,7 @@ class Run:
                     self.pm, n_blocks, self.t_max_tip, self.hyp,
                     self.num_cells, boundaries, param_moves=False,
                     part_sel=sel_t,
-                    nb_max=nb_cap)
+                    nb_max=nb_cap, mesh=self.mesh)
             self.dispatch_count += 2
             t1 = time.perf_counter()
 
@@ -566,7 +588,7 @@ class Run:
             self.ts, self.evo, self.pop = ts_l, evo_l, pop_l
             self.last_stats = stats_l
             att = int(stats_l["local_moves_attempted"])
-            self._attempted_done += att + budget
+            self.local_moves_attempted += att + budget
             if att > 0:
                 measured = (att / (boundaries * n_blocks) * n_real
                             / max(1, n_dev))
@@ -695,9 +717,22 @@ class Run:
 
     def check_derived_quantities(self, tol: float = 1e-6):
         """The incrementally maintained log_G must match a full recompute
-        (run.cpp:316-338)."""
+        (run.cpp:316-338).  Under a mesh every rank must call it: the ranks
+        first compare log_G, the sum of t, topology_proposed and one draw of
+        a copy of the host RNG, and raise on any difference."""
         if self.ledger is None:
             return
+        if self.mesh is not None:
+            probe = np.random.Generator(
+                copy.deepcopy(self.host_rng.bit_generator))
+            bad = self.mesh.disagreeing({
+                "log_G": float(self.ledger.log_G),
+                "sum of t": float(torch.sum(self.ts.t)),
+                "topology_proposed": float(self.topology_proposed),
+                "host RNG draw": probe.random()})
+            if bad:
+                raise AssertionError(f"rank {self.mesh.rank}: the ranks "
+                                     f"disagree on {', '.join(bad)}")
         got = float(self.ledger.log_G)
         want = float(self.calc_cur_ledger().log_G)
         if not abs(got - want) < tol:

@@ -54,7 +54,11 @@ def _actions(parser):
 def test_parsers_have_the_same_flags_and_defaults():
     got, want = _actions(cli.build_parser()), _actions(jcli.build_parser())
     assert got.pop("--device")[1] == "cuda"
-    assert want.pop("--mesh-devices")
+    # the same flag, one process by default where the JAX package takes
+    # every device (-1)
+    mesh, jmesh = got.pop("--mesh-devices"), want.pop("--mesh-devices")
+    assert (mesh[1], jmesh[1]) == (1, -1)
+    assert mesh[:1] + mesh[2:] == jmesh[:1] + jmesh[2:]
     assert got.keys() == want.keys()
     for flag in want:
         assert got[flag] == want[flag], flag

@@ -676,3 +676,125 @@ def test_dispatch_repeats_itself_bit_for_bit(device):
                      pop.n0.clone(), led.log_G.clone()))
     for o in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+def _mesh_run_on_card(mesh, device, out: str) -> dict:
+    """48 tips, P=8, topology moves: three dispatch calls, each ending in a
+    burst, under ``mesh`` (None: this process); the ledger at 1e-6, and t,
+    mut_t and the generator state saved to ``out``."""
+    import numpy as np
+    import torch
+
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.phylo import build_random_tree
+    from delphy_tpu_torch.run import Run
+    from delphy_tpu_torch.sim import simulate_dataset
+
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        48, 400, mu=2e-3, missing_fraction=0.02, seed=13)
+    tree = build_random_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(13))
+    run = Run(tree, seed=15, num_cells=64, device_partitions=8,
+              local_moves_per_global_move=200, device=device, mesh=mesh)
+    run.topology_burst_chunks = 2
+    _cuda.reset_launch_counts()
+    for _ in range(3):
+        run.do_mcmc_steps(400)
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    torch.save({"t": run.ts.t.cpu(), "mut_t": run.ts.mut_t.cpu(),
+                "gen": run.gen.get_state().cpu()}, out)
+    return {"log_G": float(run.ledger.log_G),
+            "topology_proposed": run.topology_proposed,
+            "bursts": run.burst_count, "moves": run.local_moves_attempted,
+            "parts_per_sweep": _cuda.launch_blocks["sweep_chain"]
+            / _cuda.launch_counts["sweep_chain"]}
+
+
+_MESH_RANK = """
+import json, os
+from delphy_tpu_torch.parallel import distributed
+assert distributed.initialize_from_env()
+mesh = distributed.global_part_mesh(device="cuda:0")
+res = _mesh_run_on_card(mesh, mesh.device,
+                        os.path.join(os.environ["OUT"], f"r{mesh.rank}.pt"))
+print("RESULT " + json.dumps(res), flush=True)
+distributed.shutdown()
+"""
+
+
+def test_two_ranks_on_one_card_match_one_process(device, tmp_path):
+    """Two ranks sharing the card (gloo, the reassembly staged through the
+    host) each sweep 4 of the 8 parts, and each ends bit-equal to the same
+    run in one process."""
+    import inspect
+    import json
+    import socket
+    import subprocess
+    import sys
+    import textwrap
+
+    want = _mesh_run_on_card(None, device, str(tmp_path / "one.pt"))
+    assert want["parts_per_sweep"] == 8 and want["bursts"] >= 1
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = textwrap.dedent(inspect.getsource(_mesh_run_on_card)) + _MESH_RANK
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", src], cwd=REPO, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=REPO, OUT=str(tmp_path),
+                 DELPHY_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                 DELPHY_TPU_NUM_PROCESSES="2", DELPHY_TPU_PROCESS_ID=str(r)))
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    one = torch.load(tmp_path / "one.pt")
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, se[-4000:]
+        got = json.loads([ln for ln in so.splitlines()
+                          if ln.startswith("RESULT ")][0][len("RESULT "):])
+        assert got == dict(want, parts_per_sweep=4.0), (r, got, want)
+        saved = torch.load(tmp_path / f"r{r}.pt")
+        assert all(torch.equal(saved[k], one[k]) for k in one), r
+
+
+def test_dispatch_feedback_does_not_depend_on_timing(device, monkeypatch):
+    """The moves-per-block feedback sizes the next dispatch by a rule, not
+    by whether the card has finished the last one: a run whose card is
+    still busy after each dispatch (a ~50 ms sleep kernel queued behind
+    it) ends in the same state as one whose every dispatch is waited for
+    (three dispatches of 200 boundaries in one call)."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.phylo import build_random_tree
+    from delphy_tpu_torch.sim import simulate_dataset
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        48, 400, mu=2e-3, seed=17)
+    runs = [run_mod.Run(build_random_tree(ref, deltas, miss, dates,
+                                          names=names,
+                                          rng=np.random.default_rng(17)),
+                        seed=19, num_cells=64, device_partitions=8,
+                        local_moves_per_global_move=200,
+                        topology_moves_enabled=False, device=device)
+            for _ in range(2)]
+    orig = run_mod.parts_multi_super_step
+
+    def busy(*a, **kw):
+        out = orig(*a, **kw)
+        torch.cuda._sleep(100_000_000)
+        return out
+
+    def waited(*a, **kw):
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        return out
+    for run, wrap in zip(runs, (busy, waited)):
+        monkeypatch.setattr(run_mod, "parts_multi_super_step", wrap)
+        run.do_mcmc_steps(450 * 200)
+    assert runs[0].dispatch_count == runs[1].dispatch_count == 3
+    assert runs[0]._per_block_rate == runs[1]._per_block_rate
+    assert torch.equal(runs[0].ts.t, runs[1].ts.t)
+    assert runs[0].log_posterior == runs[1].log_posterior

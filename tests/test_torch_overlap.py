@@ -181,7 +181,8 @@ def _identity_jax(calls):
 def _identity_port(calls):
     def fake(ts, evo, pop, gen, tin, tout, pm, n_blocks, t_max_tip, hyp,
              num_cells, n_boundaries, param_moves=True, part_sel=None,
-             nb_max=64):
+             nb_max=64, mesh=None):
+        assert mesh is None
         calls.append((param_moves, n_boundaries, n_blocks, nb_max,
                       None if part_sel is None else part_sel.numpy()))
         led = Ledger(*(torch.tensor(v, dtype=torch.float64)
