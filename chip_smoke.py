@@ -85,7 +85,20 @@ Phases, each of which raises (exit code != 0) on failure:
      this process and on D cards, moves/s of each, and the all-reduce's ms
      per boundary and bytes (8 (N + M + 3P)); on one card, (c) says in a
      line that it did not run.  The ranks' records go to
-     chiprun_out/mesh.json.
+     chiprun_out/mesh.json;
+ 11. the unpartitioned step (mcmc/kernel.py super_step and
+     multi_super_step, mcmc/moves.py): (a) the JAX package's
+     __graft_entry__.entry problem (8 x 64 simulated, Run(seed=0,
+     num_cells=64)), one super_step of 32 local moves, its ledger equal to
+     a from-scratch recompute; (b) the main path's Run (seed=1,
+     num_cells=400, 8,050 local moves a boundary): multi_super_step over 10
+     boundaries bit-equal to 10 super_step calls from the same generator
+     state, the ledger against the recompute, check_derived_quantities(1e-6)
+     and the tree's integrity, hky_chain and exp_pop_chain launched 10
+     times each and no sweep kernel, ms per boundary (wall and enqueue),
+     local moves attempted per second and the host syncs in one sweep's
+     enqueue; (c) one sweep's draws made on the card and the same cores run
+     on the CPU and on the card, agreeing to 1e-10.
 Phases 6 and 7 also write a .dphy stream and read it back where the
 flatbuffers package imports, and say so in one line where it does not.
 The last three lines are the kernels' JSON record, the card line and
@@ -1347,7 +1360,9 @@ def busy_share(fn, what: str) -> dict:
 
 def syncs_in(fn) -> dict:
     """Host synchronisations of the stream that fn() makes (PyTorch's sync
-    debug mode warns at each), counted by the source line that made them."""
+    debug mode warns at each), counted by the source line that made them.
+    The notice that the mode is a prototype, which PyTorch gives once a
+    process when the mode is first set, is not a synchronisation."""
     import warnings
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1358,7 +1373,7 @@ def syncs_in(fn) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     where = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        if "called a synchronizing CUDA operation" in str(w.message):
             k = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
             where[k] = where.get(k, 0) + 1
     return where
@@ -1866,6 +1881,165 @@ def mesh_paths(device, card: str) -> dict:
     return out
 
 
+# phase 11: __graft_entry__.entry's tiny problem
+ENTRY_TIPS, ENTRY_SITES, ENTRY_CELLS, ENTRY_MOVES = 8, 64, 64, 32
+UNPART_BOUNDARIES = 10
+
+
+def step_ledger(ts_in, ts, evo, pop, t_max_tip, num_cells, hyp):
+    """From-scratch ledger of a super_step's output: the grid it swept on
+    (bounds from the input state's root, popsize_bar from the output's
+    population), the output's times and parameters."""
+    from delphy_tpu_torch.mcmc import global_moves as gm
+    from delphy_tpu_torch.mcmc.kernel import boundary_grid_bounds
+    from delphy_tpu_torch.mcmc.moves import Ledger
+    from delphy_tpu_torch.ops import coalescent as coal
+    from delphy_tpu_torch.ops import likelihood as lk
+    t_lo, t_step = boundary_grid_bounds(ts_in, t_max_tip, num_cells)
+    grid = coal.make_grid(pop, ts.t, ts.is_tip, t_lo, t_step, num_cells)
+    caches = gm.compute_caches(ts, evo)
+    return Ledger(lk.calc_log_G(ts, evo, caches.lambda_i, caches.root_freq),
+                  coal.calc_log_prior(grid, pop, ts.t, ts.is_tip),
+                  gm.calc_log_other_priors(evo, pop, hyp))
+
+
+def check_step_ledger(what, ledger, want, tol=1e-6) -> float:
+    err = max(abs(float(getattr(ledger, f)) - float(getattr(want, f)))
+              for f in ledger._fields)
+    if not (math.isfinite(float(ledger.log_posterior)) and err < tol):
+        raise AssertionError(f"{what}: ledger {ledger} != recompute {want}")
+    return err
+
+
+def same_tuple(what, got, want) -> None:
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def to_cpu(nt):
+    return nt._replace(**{f: v.cpu() for f, v in nt._asdict().items()
+                          if isinstance(v, torch.Tensor)})
+
+
+def unpartitioned_path(device, card: str) -> dict:
+    """Phase 11: the unpartitioned step (``mcmc/kernel.py`` super_step,
+    multi_super_step, run_local_sweep; ``mcmc/moves.py``) on the card."""
+    from delphy_tpu_torch.mcmc import kernel as mk
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.phylo import build_random_tree
+    from delphy_tpu_torch.run import Run
+    from delphy_tpu_torch.sim import simulate_dataset
+
+    # (a) __graft_entry__.entry: one super_step of 32 local moves
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        ENTRY_TIPS, ENTRY_SITES, mu=2e-3, seed=0)
+    tree = build_random_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(0))
+    run = Run(tree, seed=0, num_cells=ENTRY_CELLS,
+              local_moves_per_global_move=64, device=device)
+    ts, evo, pop, ledger, stats = mk.super_step(
+        run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, ENTRY_MOVES,
+        run.t_max_tip, run.hyp, run.num_cells)
+    err = check_step_ledger("phase 11(a)", ledger, step_ledger(
+        run.ts, ts, evo, pop, run.t_max_tip, run.num_cells, run.hyp))
+    out = {"entry": {"log_posterior": float(ledger.log_posterior),
+                     "ledger_err": err, "local_moves_attempted": int(
+                         stats["local_moves_attempted"])}}
+    log(f"phase 11(a): entry's step: {json.dumps(out['entry'])}")
+
+    # (b) the Ebola main path's Run at full width, 10 boundaries
+    run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device)
+    lm, K = run.local_moves_per_global_move, UNPART_BOUNDARIES
+    args = (run.tin, run.tout, lm, run.t_max_tip, run.hyp, run.num_cells)
+    warm = torch.Generator(device=device).manual_seed(99)
+    mk.super_step(run.ts, run.evo, run.pop, warm, *args)     # warm-up
+    sync(device)
+    gen_state = run.gen.get_state()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    ts, evo, pop, ledger, stats = mk.multi_super_step(
+        run.ts, run.evo, run.pop, run.gen, *args, K)
+    enq = time.perf_counter() - t0
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = dict(_cuda.launch_counts)
+    want = {k: (K if k in ("hky_chain", "exp_pop_chain") else 0)
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"phase 11(b): launch counts {counts}, "
+                             f"expected {want}")
+    attempted = int(stats["local_moves_attempted"])
+    # the same boundaries as K super_step calls from the same generator
+    run.gen.set_state(gen_state)
+    state, total = (run.ts, run.evo, run.pop), 0
+    for _ in range(K):
+        ts_last = state[0]
+        *state, led1, st1 = mk.super_step(*state, run.gen, *args)
+        total += int(st1["local_moves_attempted"])
+    for name, a, b in (("ts", ts, state[0]), ("evo", evo, state[1]),
+                       ("pop", pop, state[2]), ("ledger", ledger, led1)):
+        same_tuple(f"phase 11(b) {name}", a, b)
+    if total != attempted:
+        raise AssertionError(f"phase 11(b): {attempted} moves attempted, "
+                             f"{total} over single steps")
+    err = check_step_ledger("phase 11(b)", ledger, step_ledger(
+        ts_last, ts, evo, pop, run.t_max_tip, run.num_cells, run.hyp))
+    run.ts, run.evo, run.pop, run.ledger = ts, evo, pop, ledger
+    run._fused_bundle = None
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    # host syncs in one sweep's enqueue
+    ts_b, evo_b, pop_b, grid, caches, ledger_b, _ = mk.run_global_moves(
+        ts, evo, pop, run.gen, run.tin, run.tout, run.t_max_tip, run.hyp,
+        run.num_cells)
+    sync(device)
+    syncs = syncs_in(lambda: mk.run_local_sweep(
+        ts_b, caches, grid, ledger_b, evo_b, pop_b, run.gen, lm,
+        run.t_max_tip))
+    sync(device)
+    n_blocks, k_max = mk.sweep_shape(lm, run.num_cells)
+    out["ebola"] = {
+        "boundaries": K, "local_moves_per_boundary": lm,
+        "n_blocks": n_blocks, "k_max": k_max,
+        "ms_per_boundary": wall * 1e3 / K,
+        "enqueue_ms_per_boundary": enq * 1e3 / K,
+        "local_moves_attempted": attempted,
+        "moves_per_s": attempted / wall, "launch_counts": counts,
+        "ledger_err": err, "log_posterior": float(ledger.log_posterior),
+        "syncs_in_sweep_enqueue": syncs}
+    log(f"phase 11(b): {K} boundaries of {lm} local moves ({n_blocks} "
+        f"blocks, k_max {k_max}): {wall * 1e3 / K:.3f} ms per boundary "
+        f"(enqueue {enq * 1e3 / K:.3f}), {attempted / wall:.1f} local moves "
+        f"attempted per s; bit-equal to {K} super_step calls; ledger err "
+        f"{err:.3e}; launch counts {counts}; host syncs in a sweep's "
+        f"enqueue: {syncs or 'none'} ({card})")
+
+    # (c) one sweep's draws made on the card, the cores on both devices
+    draws = mk.draw_sweep(run.gen, ts_b, n_blocks, k_max)
+    outs = [mk.local_sweep_core(*[to_cpu(x) if cpu else x for x in (
+        ts_b, caches, grid, ledger_b, evo_b, pop_b, draws)], run.t_max_tip)
+        for cpu in (False, True)]
+    err = 0.0
+    for name, g, c in (("t", outs[0][0].t, outs[1][0].t),
+                       ("mut_t", outs[0][0].mut_t, outs[1][0].mut_t),
+                       ("k_bar", outs[0][1].k_bar, outs[1][1].k_bar)) + tuple(
+            (f, getattr(outs[0][2], f), getattr(outs[1][2], f))
+            for f in ("log_G", "log_coal")):
+        err = max(err, assert_close(f"phase 11(c) {name}", g.cpu(), c,
+                                    rtol=1e-10, atol=1e-10))
+    if int(outs[0][3]) != int(outs[1][3]):
+        raise AssertionError("phase 11(c): attempted counts differ")
+    if torch.equal(outs[1][0].t, ts_b.t.cpu()):
+        raise AssertionError("phase 11(c): the sweep moved nothing")
+    out["cpu_vs_card"] = {"max_abs_err": err, "n_blocks": n_blocks}
+    log(f"phase 11(c): one sweep's draws on the card, the cores on the CPU "
+        f"and the card agree: max abs err {err:.3e} (t, mut_t, k_bar, "
+        f"ledger; tolerance 1e-10)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1921,6 +2095,11 @@ def main(argv=None) -> int:
                 v["max_abs_err"] for v in exp_pop_large.values()])
     records += large
     mesh_paths(device, card)
+    unpart = unpartitioned_path(device, card)
+    for r in records:
+        if r["name"] in ("hky_chain", "exp_pop_chain"):
+            r["launches_unpartitioned"] = \
+                unpart["ebola"]["launch_counts"][r["name"]]
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

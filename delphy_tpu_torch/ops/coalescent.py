@@ -86,3 +86,30 @@ def calc_log_prior(grid: CoalGrid, pop_params, t, is_tip):
                       / (2.0 * grid.popsize_bar))
     logN = torch.log(popm.pop_at_time(pop_params, t))
     return quad - torch.sum(torch.where(is_tip, torch.zeros_like(logN), logN))
+
+
+def displace_delta(grid: CoalGrid, pop_params, old_t, new_t, node_is_tip):
+    """(delta_log_prior, new_k_bar) for one node displacement, O(C).
+
+    ``old_t`` and ``new_t`` hold one time each (0-d or shape [1]).  A tip
+    (``node_is_tip``, a bool or a bool tensor of one element) moves lineage
+    mass with sign +1, a coalescence with sign -1, and only a coalescence
+    carries the -log N(t) point term (scalable_coalescent.cpp:118-138,
+    189-251)."""
+    lb = grid.cell_lbounds()
+    frac_old = torch.clamp((old_t - lb) / grid.t_step, 0.0, 1.0)
+    frac_new = torch.clamp((new_t - lb) / grid.t_step, 0.0, 1.0)
+    dlogN = -(torch.log(popm.pop_at_time(pop_params, new_t))
+              - torch.log(popm.pop_at_time(pop_params, old_t)))
+    if isinstance(node_is_tip, torch.Tensor):
+        sign = torch.where(node_is_tip, 1.0, -1.0).to(DTYPE)
+        delta_logN = torch.where(node_is_tip, torch.zeros_like(dlogN), dlogN)
+    else:
+        sign = 1.0 if node_is_tip else -1.0
+        delta_logN = torch.zeros_like(dlogN) if node_is_tip else dlogN
+    dk = sign * (frac_new - frac_old)
+    k = grid.k_bar
+    delta_quad = -torch.sum(grid.t_step * ((k + dk) * (k + dk - 1.0)
+                                           - k * (k - 1.0))
+                            / (2.0 * grid.popsize_bar))
+    return delta_quad + delta_logN, k + dk

@@ -21,7 +21,9 @@ shapes: the build the sweep kernel picks on either side of the 227 KB
 shared-memory line, its global build against the plain chain at NC = 1152,
 MC = 3200 for the three population models, a one-part Run on 1,000
 simulated tips (global build only, ledger green), and an overlapped cycle
-bit-equal to the same cycle forced sequential.
+bit-equal to the same cycle forced sequential.  The unpartitioned step
+(``mcmc/kernel.py`` super_step) repeats itself bit for bit and enqueues a
+sweep without a host synchronisation.
 """
 
 import os
@@ -798,3 +800,49 @@ def test_dispatch_feedback_does_not_depend_on_timing(device, monkeypatch):
     assert runs[0]._per_block_rate == runs[1]._per_block_rate
     assert torch.equal(runs[0].ts.t, runs[1].ts.t)
     assert runs[0].log_posterior == runs[1].log_posterior
+
+
+def test_unpartitioned_step_on_card(device):
+    """The unpartitioned step on 30 Ebola tips: multi_super_step over 3
+    boundaries bit-equal to 3 super_step calls from the same generator
+    state, hky_chain and exp_pop_chain launched once a boundary and no
+    sweep kernel, the incremental log_G equal to the recompute, and no host
+    synchronisation while a sweep is enqueued."""
+    import warnings
+
+    from delphy_tpu_torch.mcmc import kernel as mk
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+    run = Run(ebola_tree(30), seed=3, num_cells=128, device=device,
+              topology_moves_enabled=False)
+    args = (run.tin, run.tout, 1000, run.t_max_tip, run.hyp, run.num_cells)
+    state = run.gen.get_state()
+    _cuda.reset_launch_counts()
+    ts, evo, pop, led, stats = mk.multi_super_step(
+        run.ts, run.evo, run.pop, run.gen, *args, 3)
+    counts = dict(_cuda.launch_counts)
+    assert counts == {k: (3 if k in ("hky_chain", "exp_pop_chain") else 0)
+                      for k in counts}
+    run.gen.set_state(state)
+    one = (run.ts, run.evo, run.pop)
+    for _ in range(3):
+        *one, led1, _ = mk.super_step(*one, run.gen, *args)
+    for a, b in zip((ts, evo, pop, led), one + [led1]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    run.ts, run.evo, run.pop, run.ledger = ts, evo, pop, led
+    run._fused_bundle = None
+    run.check_derived_quantities(1e-9)
+    ts_b, evo_b, pop_b, grid, caches, led_b, _ = mk.run_global_moves(
+        ts, evo, pop, run.gen, run.tin, run.tout, run.t_max_tip, run.hyp,
+        run.num_cells)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            mk.run_local_sweep(ts_b, caches, grid, led_b, evo_b, pop_b,
+                               run.gen, 1000, run.t_max_tip)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught if "called a synchronizing CUDA operation"
+                in str(w.message)]
