@@ -98,7 +98,35 @@ Phases, each of which raises (exit code != 0) on failure:
      times each and no sweep kernel, ms per boundary (wall and enqueue),
      local moves attempted per second and the host syncs in one sweep's
      enqueue; (c) one sweep's draws made on the card and the same cores run
-     on the CPU and on the card, agreeing to 1e-10.
+     on the CPU and on the card, agreeing to 1e-10;
+ 12. the f32 engine (DELPHY_TPU_F32=1, the JAX package's production
+     precision and bench.py's): (a) each kernel's float32 build (C entries
+     *_f32) against its float32 plain version on the card, at phase 3's
+     shapes (exponential and both skygrid types, exp_pop, hky), at phase
+     9b's shape NC=1152, MC=3200, C=400 (the global build in float64, a
+     shared one in float32) and at NC=2304, MC=6400 (global in both), and
+     exp_pop's node rows at N=19,999 and N=40,000: max abs err, counts
+     equal, kernel, wrapper and plain ms, the bound at 4 bytes a float and
+     the FP32 rate, beside the float64 kernel's ms of this call; the
+     float32 global builds launched by one-part Runs on 1,000 tips; no
+     float64 instruction in any float32 kernel's SASS (cuobjdump); (b)
+     bench.py's recipe on the port: the frozen Ebola MAPLE,
+     build_initial_tree(rng=42), Run(seed=1, num_cells=400) under
+     DELPHY_TPU_F32=1, bench.py's warm-up, then calls of lm x
+     topology_burst_chunks moves in turns with the same recipe in float64
+     (f64, f32, f32, f64): moves/s of each, check_derived_quantities(0.05),
+     the tree's integrity, only *_f32 entries launched, the end log_post;
+     (e) that run saved and resumed bit-equal; (c) phase 9c's 10,000-tip
+     tree through the blocking driver in float32, moves/s beside phase 9c's
+     float64 figure, with the sweep build, shared bytes per part and
+     uniform MB a boundary of each precision; (d)
+     scripts/torch_f32_study.py at 200,000 steps (f32, f64 and a second
+     f64 seed, 40 tips x 1,200 sites).  The f32 records join the kernels'
+     JSON line.
+Phases 1-11 run in float64 whatever DELPHY_TPU_F32 says (the script
+clears it and sets it only for phase 12, as bench.py sets it itself), so
+`python3 chip_smoke.py` and `DELPHY_TPU_F32=1 python3 chip_smoke.py` run
+the same checks.
 Phases 6 and 7 also write a .dphy stream and read it back where the
 flatbuffers package imports, and say so in one line where it does not.
 The last three lines are the kernels' JSON record, the card line and
@@ -135,9 +163,12 @@ ONE_PART_TIPS = 1000
 LARGE_TIPS = 10_000
 REPS = 5            # plain versions and wrappers
 KERNEL_REPS = 50    # bare kernel launches
-# NVIDIA H100 SXM data sheet: HBM3 rate, FP64 rate outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, FP64 and FP32 rates outside the
+# tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12
+F32_ENV = "DELPHY_TPU_F32"
 # one f64 exp, expm1, log or log1p counted as this many operations
 TRANSCENDENTAL_OPS = 20
 
@@ -214,11 +245,12 @@ def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, ops: float):
+def bound(n_bytes: float, ops: float, dtype=torch.float64):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the FP64 rate."""
+    operations over the FP64 (or, for float32 work, FP32) rate."""
+    rate = FP32_OPS_PER_S if dtype == torch.float32 else FP64_OPS_PER_S
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP64_OPS_PER_S * 1e3
+    by_ops = ops / rate * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -269,7 +301,46 @@ def build_all(baseline):
         paths = list(ex.map(lambda kw: _cuda.build(**kw), builds))
     _cuda.lib()
     log(f"kernels built: {os.path.relpath(paths[0], REPO)}")
+    check_f32_sass(paths[0])
     return paths[1], (_cuda.load(paths[2]) if baseline else None)
+
+
+# SASS opcodes of float64 work: arithmetic, compares, min/max, and any
+# conversion to or from float64
+F64_OPCODE = re.compile(r"^(DADD|DMUL|DFMA|DSETP|DMNMX|DMMA|DRCP)|\.F64")
+# the float32 instantiations of the three kernel templates (hky 1, exp_pop
+# 2, sweep 3 models x 2 builds): mangled names with the float argument
+N_F32_KERNELS = 9
+
+
+def check_f32_sass(lib_path: str) -> None:
+    """Phase 12: no float64 instruction in the SASS of any float32 kernel
+    (cuobjdump -sass of the built library; mangled kernel names with the
+    float template argument, ``kernelIf``).  Where the toolkit has no
+    cuobjdump this prints that the check did not run."""
+    exe = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        log("no cuobjdump: the float32 kernels' SASS was NOT checked")
+        return
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    f64, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "kernelIf" in m.group(1) else None
+            if fn:
+                f64.setdefault(fn, set())
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)", line)
+        if fn and m and F64_OPCODE.search(m.group(1)):
+            f64[fn].add(m.group(1))
+    bad = {k: sorted(v) for k, v in f64.items() if v}
+    if len(f64) != N_F32_KERNELS or bad:
+        raise AssertionError(f"float32 kernels in the SASS: {len(f64)} of "
+                             f"{N_F32_KERNELS}; float64 instructions: {bad}")
+    log(f"SASS of the {len(f64)} float32 kernels: no float64 instruction")
 
 
 def compare_baseline(name, entry, pk, outs_ref, base, tols) -> dict:
@@ -295,14 +366,15 @@ def compare_baseline(name, entry, pk, outs_ref, base, tols) -> dict:
 def measure(name, entry, pk, wrapper, plain, ops, base, tols, device):
     """The record of one kernel: kernel-only, wrapper and plain times, the
     bound (``ops`` may be a function of the packed outputs after the timed
-    launches), and the baseline's times."""
+    launches; the rate is that of the outputs' dtype), and the baseline's
+    times."""
     from delphy_tpu_torch.parallel import _cuda
     ms = kernel_ms(_cuda.lib(), entry, pk.args)
     outs_ref = [o.clone() for o in pk.outs]
     if callable(ops):
         ops = ops(outs_ref)
     n_bytes = nbytes(pk.keep) + nbytes(pk.outs)
-    bound_ms, bound_by = bound(n_bytes, ops)
+    bound_ms, bound_by = bound(n_bytes, ops, pk.outs[0].dtype)
     rec = dict(
         ms=ms, wrapper_ms=time_ms(wrapper, device),
         plain_ms=time_ms(plain, device),
@@ -316,14 +388,49 @@ def measure(name, entry, pk, wrapper, plain, ops, base, tols, device):
     return rec
 
 
-def compare_kernels(run, device, base, floor_so):
-    """Phase 3: each kernel against its plain version on one boundary."""
-    from delphy_tpu_torch import DTYPE
+# kernel-vs-plain tolerances (rtol, atol) by dtype.  float64: the kernels
+# repeat the plain arithmetic (sums in another order).  float32: the JAX
+# package's own f32 tolerances (tests/test_block_pallas.py,
+# test_pop_pallas.py, test_hky_pallas.py), t and mut_t with a relative
+# term of 4 float32 ulps beside the JAX atol of 5e-5 (Ebola times lie near
+# -2,000 days, where one ulp is 1.2e-4)
+CHAIN_TOL = {torch.float64: (1e-12, 1e-15), torch.float32: (1e-4, 1e-7)}
+SWEEP_TOL = {"t": (0.0, 1e-9), "mut_t": (0.0, 1e-9), "k_p": (0.0, 1e-9),
+             "dG": (1e-10, 1e-12), "dC": (1e-10, 1e-12), "cnt": (0.0, 0.0)}
+SWEEP_TOL_F32 = {"t": (5e-7, 5e-5), "mut_t": (5e-7, 5e-5),
+                 "k_p": (0.0, 1e-3), "dG": (1e-3, 1e-3), "dC": (1e-3, 1e-3),
+                 "cnt": (0.0, 0.0)}
+
+
+def sweep_tol(dtype) -> dict:
+    return SWEEP_TOL_F32 if dtype == torch.float32 else SWEEP_TOL
+
+
+def check_sweep(name, got, want, dtype) -> float:
+    """The sweep kernel's outputs against the plain chain's at the dtype's
+    tolerances (counts equal); the largest error of t, mut_t and k_p."""
+    err = 0.0
+    for n, g, w in zip(SWEEP_TOL, got, want):
+        e = assert_close(f"{name} {n}", g, w, *sweep_tol(dtype)[n])
+        if n in ("t", "mut_t", "k_p"):
+            err = max(err, e)
+    return err
+
+
+def compare_kernels(run, device, base, floor_so, dtype=torch.float64):
+    """Phase 3 (and, in float32, phase 12a): each kernel against its plain
+    version on one boundary of ``run`` (whose dtype is ``dtype``).  Records
+    are named by C entry without ``delphy_`` (``hky_chain_f32``, ...)."""
     from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel import _cuda
     from delphy_tpu_torch.parallel import block_cuda as bc
     from delphy_tpu_torch.parallel import hky_cuda, pop_cuda
     from delphy_tpu_torch.parallel.sweep import NB_MAX, prepare_sweep
 
+    if run.dtype != dtype:
+        raise AssertionError(f"a {run.dtype} run for {dtype} kernels")
+    sfx = _cuda.suffix(dtype)
+    chain_tol = CHAIN_TOL[dtype]
     gen = run.gen
     ts, evo, pop, grid, caches, _ledger, stats = run_global_moves(
         run.ts, run.evo, run.pop, gen, run.tin, run.tout, run.t_max_tip,
@@ -338,27 +445,28 @@ def compare_kernels(run, device, base, floor_so):
     # matrix (~60).
     hyp = run.hyp
     n_rounds = 10
-    u = torch.rand((n_rounds, hky_cuda.N_LANES), generator=gen, dtype=DTYPE,
+    u = torch.rand((n_rounds, hky_cuda.N_LANES), generator=gen, dtype=dtype,
                    device=device)
     args = (u, evo.mu, evo.kappa, evo.pi.reshape(1, 4),
-            stats["Ttwiddle_a"], stats["M_ab"].to(DTYPE),
+            stats["Ttwiddle_a"], stats["M_ab"].to(dtype),
             caches.root_freq.reshape(1, 4),
             (hyp.kappa_prior_mean_log, hyp.kappa_prior_sigma_log), n_rounds)
     got = hky_cuda.hky_chain_kernel(*args)
     want = hky_cuda.hky_chain_torch(*args)
-    err = max(assert_close(f"hky_chain {n}", g, w, rtol=1e-12, atol=1e-15)
+    err = max(assert_close(f"hky_chain{sfx} {n}", g, w, *chain_tol)
               for n, g, w in zip(("kappa", "pi", "q"), got, want))
     path = hky_cuda.kernel_path(evo.kappa, evo.pi)
-    log(f"hky_chain path: {path}")
-    rec = dict(name="hky_chain", route="cuda",
+    log(f"hky_chain{sfx} path: {path}")
+    rec = dict(name="hky_chain" + sfx, route="cuda",
                source="delphy_tpu_torch/csrc/hky_chain.cu",
                replaces="delphy_tpu/parallel/hky_pallas.py:135",
                max_abs_err=err, path=path)
     rec.update(measure(
-        "hky_chain", "delphy_hky_chain", hky_cuda.pack_launch(*args),
+        "hky_chain" + sfx, "delphy_hky_chain" + sfx,
+        hky_cuda.pack_launch(*args),
         lambda: hky_cuda.hky_chain_kernel(*args),
         lambda: hky_cuda.hky_chain_torch(*args),
-        n_rounds * (7 * X + 60) + 60, base, [(1e-12, 1e-15)] * 3, device))
+        n_rounds * (7 * X + 60) + 60, base, [chain_tol] * 3, device))
     records.append(rec)
 
     # K2: exp-pop chain.  Operations, from the work the kernel reports in
@@ -368,7 +476,7 @@ def compare_kernels(run, device, base, floor_so):
     # more: the fold H / n0 + n_inner log n0 + X), and ~12 per cell more
     # where it was not folded; per g proposal a log and ~12 more.
     n_rounds = 50
-    u = torch.rand((n_rounds, pop_cuda.N_LANES), generator=gen, dtype=DTYPE,
+    u = torch.rand((n_rounds, pop_cuda.N_LANES), generator=gen, dtype=dtype,
                    device=device)
     lbs, k2, t_row, inner = pop_cuda.pack_rows(grid, ts.t, ts.is_tip)
     hypf = pop_cuda.hyp_floats(hyp)
@@ -376,28 +484,28 @@ def compare_kernels(run, device, base, floor_so):
             pop.n0, pop.g, hypf, n_rounds)
     got = pop_cuda.exp_pop_chain_kernel(*args)
     want = pop_cuda.exp_pop_chain_torch(*args)
-    err = max(assert_close(f"exp_pop_chain {n}", g, w, rtol=1e-12,
-                           atol=1e-15)
+    err = max(assert_close(f"exp_pop_chain{sfx} {n}", g, w, *chain_tol)
               for n, g, w in zip(("n0", "g"), got, want))
     C, n_inner = lbs.numel(), int(inner.sum())
 
     def ops(outs):
         n0_per_cell, g_evaluated = (int(v) for v in outs[0][2:4].tolist())
-        log(f"exp_pop_chain work: {n0_per_cell} of {n_rounds} n0 proposals "
-            f"per cell, {g_evaluated} g proposals evaluated")
+        log(f"exp_pop_chain{sfx} work: {n0_per_cell} of {n_rounds} n0 "
+            f"proposals per cell, {g_evaluated} g proposals evaluated")
         full = (1 + g_evaluated) * (C * (2 * X + 15) + 4 * n_inner + 2 * X)
         n0 = (n_rounds * (4 * X + 26) if hypf[6] else 0) \
             + n0_per_cell * 12 * C
         return full + n0 + (n_rounds * (X + 12) if hypf[7] else 0)
-    rec = dict(name="exp_pop_chain", route="cuda",
+    rec = dict(name="exp_pop_chain" + sfx, route="cuda",
                source="delphy_tpu_torch/csrc/exp_pop_chain.cu",
                replaces="delphy_tpu/parallel/pop_pallas.py:171",
                max_abs_err=err)
     rec.update(measure(
-        "exp_pop_chain", "delphy_exp_pop_chain", pop_cuda.pack_launch(*args),
+        "exp_pop_chain" + sfx, "delphy_exp_pop_chain" + sfx,
+        pop_cuda.pack_launch(*args),
         lambda: pop_cuda.exp_pop_chain_kernel(*args),
         lambda: pop_cuda.exp_pop_chain_torch(*args), ops, base,
-        [(1e-12, 1e-15)], device))
+        [chain_tol], device))
     records.append(rec)
 
     # K3: sweep chain, at the block count Run.do_mcmc_steps would use.
@@ -409,57 +517,55 @@ def compare_kernels(run, device, base, floor_so):
     nb = max(1, min(NB_MAX, round(run.local_moves_per_global_move
                                   / run._per_block_rate)))
     P = t_p.shape[0]
-    u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device)
+    u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device, dtype)
     got = bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared, u)
     want = bc.sweep_chain_torch(stat, nb, ctx_arrs, shared, u)
-    err = 0.0
-    for n, g, w in zip(SWEEP_TOL, got, want):
-        rtol, atol = SWEEP_TOL[n]
-        e = assert_close(f"sweep_chain {n}", g, w, rtol=rtol, atol=atol)
-        if n in ("t", "mut_t", "k_p"):
-            err = max(err, e)
+    err = check_sweep("sweep_chain" + sfx, got, want, dtype)
     moved = float((got[0].reshape(t_p.shape) - t_p).abs().max())
     moves = float(got[5].sum())
     if not moved > 0.0 or not moves > 0.0:
         raise AssertionError("sweep_chain moved nothing")
-    log(f"sweep_chain at P={P} NC={stat.NC} MC={stat.MC} C={stat.C} "
+    log(f"sweep_chain{sfx} at P={P} NC={stat.NC} MC={stat.MC} C={stat.C} "
         f"n_blocks={nb}: {int(moves)} moves")
     ops = nb * P * (300 + 30 * stat.NC + 8 * stat.MC) + 150 * moves
-    rec = dict(name="sweep_chain", route="cuda",
+    rec = dict(name="sweep_chain" + sfx, route="cuda",
                source="delphy_tpu_torch/csrc/sweep_chain.cu",
                replaces="delphy_tpu/parallel/block_pallas.py:465",
                max_abs_err=err)
     rec.update(measure(
-        "sweep_chain", "delphy_sweep_chain",
+        "sweep_chain" + sfx, bc.entry(stat, 0, dtype),
         bc.pack_launch(stat, nb, ctx_arrs, shared, u),
         lambda: bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared, u),
         lambda: bc.sweep_chain_torch(stat, nb, ctx_arrs, shared, u), ops,
-        base, [(0.0, 1e-9)] * 3 + [(1e-10, 1e-12)], device))
+        base, [sweep_tol(dtype)[k] for k in ("t", "mut_t", "k_p", "dG")],
+        device))
     records.append(rec)
-    records.append(compare_skygrid_sweep(device, base))
+    records.append(compare_skygrid_sweep(device, base, dtype))
+    if floor_so is None:
+        return records, None
     floor = launch_floor_ms(floor_so)
     log(f"launch floor: {floor:.5f} ms per empty kernel launch")
     return records, floor
 
 
-SWEEP_TOL = {"t": (0.0, 1e-9), "mut_t": (0.0, 1e-9), "k_p": (0.0, 1e-9),
-             "dG": (1e-10, 1e-12), "dC": (1e-10, 1e-12), "cnt": (0.0, 0.0)}
-
-
-def compare_skygrid_sweep(device, base) -> dict:
+def compare_skygrid_sweep(device, base, dtype=torch.float64) -> dict:
     """K3's skygrid build against its plain version on a real skygrid
     boundary of each type (a skygrid Run of the Ebola file after one
-    boundary), with phase 3's tolerances; the record times the staircase
-    (the default type) and gives the log-linear type's times beside it.
-    Operations: K3's count, plus two log N(t) per move made (a binary
-    search over the knots and the staircase pick or interpolation, ~20)."""
+    boundary, in ``dtype``), with phase 3's tolerances (or the float32
+    ones); the record times the staircase (the default type) and gives the
+    log-linear type's times beside it, and the skygrid build's launches in
+    those Runs' boundaries.  Operations: K3's count, plus two log N(t) per
+    move made (a binary search over the knots and the staircase pick or
+    interpolation, ~20)."""
     from delphy_tpu_torch import pop as popm
     from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    from delphy_tpu_torch.parallel import _cuda
     from delphy_tpu_torch.parallel import block_cuda as bc
     from delphy_tpu_torch.parallel.sweep import NB_MAX, prepare_sweep
     from delphy_tpu_torch.run import Run
 
-    rec = dict(name="sweep_chain_skygrid", route="cuda",
+    sfx = _cuda.suffix(dtype)
+    rec = dict(name="sweep_chain_skygrid" + sfx, route="cuda",
                source="delphy_tpu_torch/csrc/sweep_chain.cu",
                replaces="delphy_tpu/parallel/block_pallas.py:465",
                jax_skygrid_route="delphy_tpu/parallel/sweep.py:328 "
@@ -468,8 +574,11 @@ def compare_skygrid_sweep(device, base) -> dict:
     for type_, label in ((popm.LOG_LINEAR, "log_linear"),
                          (popm.STAIRCASE, "staircase")):
         run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
-                  pop_model="skygrid", skygrid_type=type_)
+                  pop_model="skygrid", skygrid_type=type_, dtype=dtype)
+        _cuda.reset_launch_counts()
         run.do_mcmc_steps(run.local_moves_per_global_move)
+        sky_counts = check_counts(f"on a {label} skygrid boundary{sfx}",
+                                  tuple(k + sfx for k in SKYGRID_PATH))
         gen = run.gen
         ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
             run.ts, run.evo, run.pop, gen, run.tin, run.tout, run.t_max_tip,
@@ -482,36 +591,37 @@ def compare_skygrid_sweep(device, base) -> dict:
         nb = max(1, min(NB_MAX, round(run.local_moves_per_global_move
                                       / run._per_block_rate)))
         P = t_p.shape[0]
-        u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device)
+        u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, device,
+                                  dtype)
         got = bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared, u)
         want = bc.sweep_chain_torch(stat, nb, ctx_arrs, shared, u)
-        for n, g, w in zip(SWEEP_TOL, got, want):
-            rtol, atol = SWEEP_TOL[n]
-            e = assert_close(f"sweep_chain_skygrid ({label}) {n}", g, w,
-                             rtol=rtol, atol=atol)
-            if n in ("t", "mut_t", "k_p"):
-                err = max(err, e)
+        err = max(err, check_sweep(f"sweep_chain_skygrid{sfx} ({label})",
+                                   got, want, dtype))
         moves = float(got[5].sum())
         if not moves > 0.0 or not float(
                 (got[0].reshape(t_p.shape) - t_p).abs().max()) > 0.0:
             raise AssertionError("sweep_chain_skygrid moved nothing")
-        log(f"sweep_chain_skygrid ({label}) at P={P} NC={stat.NC} "
-            f"MC={stat.MC} C={stat.C} K={shared['x'].numel()} "
-            f"n_blocks={nb}: {int(moves)} moves")
+        K = shared['x'].numel()
+        log(f"sweep_chain_skygrid{sfx} ({label}) at P={P} NC={stat.NC} "
+            f"MC={stat.MC} C={stat.C} K={K} n_blocks={nb}: {int(moves)} "
+            f"moves")
         ops = nb * P * (300 + 30 * stat.NC + 8 * stat.MC) + 190 * moves
-        m = measure(f"sweep_chain_skygrid ({label})",
-                    "delphy_sweep_chain_skygrid",
+        m = measure(f"sweep_chain_skygrid{sfx} ({label})",
+                    bc.entry(stat, K, dtype),
                     bc.pack_launch(stat, nb, ctx_arrs, shared, u),
                     lambda: bc.sweep_chain_kernel(stat, nb, ctx_arrs, shared,
                                                   u),
                     lambda: bc.sweep_chain_torch(stat, nb, ctx_arrs, shared,
                                                  u),
-                    ops, base, [(0.0, 1e-9)] * 3 + [(1e-10, 1e-12)], device)
+                    ops, base, [sweep_tol(dtype)[k] for k in
+                                ("t", "mut_t", "k_p", "dG")], device)
+        m["launches_one_boundary"] = sky_counts["sweep_chain_skygrid" + sfx]
         if type_ == popm.STAIRCASE:
             rec.update(m)
         else:
             rec["log_linear"] = {k: m[k] for k in (
-                "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+                "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                "launches_one_boundary")}
         del run
     rec["max_abs_err"] = err
     return rec
@@ -1173,7 +1283,8 @@ def sim_tree(n_tips: int, cache: bool = False):
 
 
 def sweep_shapes(run) -> dict:
-    """The sweep kernel's build and memory at a run's shapes."""
+    """The sweep kernel's build and memory at a run's shapes, in the run's
+    dtype."""
     from delphy_tpu_torch.parallel import _cuda
     from delphy_tpu_torch.parallel import block_cuda as bc
     NC, MC = run.pm.node_map.shape[1], run.pm.mut_map.shape[1]
@@ -1181,14 +1292,14 @@ def sweep_shapes(run) -> dict:
     pop = run.pop.type if K else bc.POP_EXP
     stat = bc.ChainStatics(NC=NC, MC=MC, C=run.num_cells,
                            C_real=run.num_cells, cpb=16, pop=pop)
-    lib = _cuda.lib()
+    ws = getattr(_cuda.lib(), "delphy_sweep_chain_workspace_bytes"
+                 + _cuda.suffix(run.dtype))
     return {"P": run.pm.node_map.shape[0], "NC": NC, "MC": MC,
-            "build": bc.build(stat, K), "entry": bc.entry(stat, K),
-            "smem_bytes_per_part": lib.delphy_sweep_chain_skygrid_smem_bytes(
-                NC, MC, run.num_cells, 16, K),
-            "workspace_bytes_per_part":
-                lib.delphy_sweep_chain_workspace_bytes(NC, MC, run.num_cells,
-                                                       16, K)}
+            "dtype": str(run.dtype),
+            "build": bc.build(stat, K, run.dtype),
+            "entry": bc.entry(stat, K, run.dtype),
+            "smem_bytes_per_part": bc.smem_bytes(stat, K, run.dtype),
+            "workspace_bytes_per_part": ws(NC, MC, run.num_cells, 16, K)}
 
 
 def one_part_paths(device, card: str, tree) -> dict:
@@ -1402,47 +1513,54 @@ def kernel_at_shape(run, device, half: bool) -> dict:
     nb = max(1, min(run._nb_cap(overlapped=half),
                     round(run.local_moves_per_global_move / max(1.0, rate))))
     u = bc.gen_block_uniforms(run.gen, len(sel), nb, stat.NC, stat.MC,
-                              device)
+                              device, run.dtype)
     K = shared["x"].numel() if "x" in shared else 0
     pk = bc.pack_launch(stat, nb, ctx, shared, u)
-    entry = bc.entry(stat, K)
+    entry = bc.entry(stat, K, run.dtype)
     ms = kernel_ms(_cuda.lib(), entry, pk.args, reps=5)
     moves = float(pk.outs[3][:, 2].sum())
     res = {"parts": len(sel), "NC": stat.NC, "MC": stat.MC,
-           "n_blocks": nb, "entry": entry, "build": bc.build(stat, K),
-           "smem_bytes_per_part":
-               _cuda.lib().delphy_sweep_chain_skygrid_smem_bytes(
-                   stat.NC, stat.MC, stat.C_real, stat.cpb, K),
+           "n_blocks": nb, "entry": entry,
+           "build": bc.build(stat, K, run.dtype),
+           "smem_bytes_per_part": bc.smem_bytes(stat, K, run.dtype),
            "uniform_bytes": nbytes(u), "kernel_ms": ms,
            "moves_per_launch": moves}
     return res
 
 
-def exp_pop_at_shape(run, device) -> dict:
-    """The exp-pop kernel on a boundary of a large run, whose node rows are
-    read in place (beyond ~18k nodes they no longer fit in shared memory),
-    against the plain version (phase 3's tolerances), and its times."""
+def exp_pop_at_shape(run, device, pad_to: int = 0) -> dict:
+    """The exp-pop kernel on a boundary of a large run, in the run's dtype,
+    whose node rows are read in place where they do not fit in shared
+    memory (beyond ~18k nodes in float64, ~27.7k in float32), against the
+    plain version (phase 3's tolerances, or the float32 ones), and its
+    times.  ``pad_to``: pad the node rows with inert nodes (not inner, so
+    they add no term) to that many."""
     from delphy_tpu_torch.mcmc.kernel import run_global_moves
     from delphy_tpu_torch.parallel import _cuda, pop_cuda
     ts, evo, pop, grid, caches, _ledger, _stats = run_global_moves(
         run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.t_max_tip,
         run.hyp, run.num_cells, param_moves=False)
-    u = torch.rand((50, pop_cuda.N_LANES), generator=run.gen,
-                   dtype=torch.float64, device=device)
+    dtype, sfx = run.dtype, _cuda.suffix(run.dtype)
+    u = torch.rand((50, pop_cuda.N_LANES), generator=run.gen, dtype=dtype,
+                   device=device)
     lbs, k2, t_row, inner = pop_cuda.pack_rows(grid, ts.t, ts.is_tip)
+    if pad_to > t_row.numel():
+        n_pad = pad_to - t_row.numel()
+        t_row = torch.cat([t_row, t_row[:, -1:].expand(1, n_pad)], 1)
+        inner = torch.cat([inner, inner.new_zeros(1, n_pad)], 1)
     args = (u, lbs, k2, t_row, inner, grid.t_step, pop.t0, pop.min_pop,
             pop.n0, pop.g, pop_cuda.hyp_floats(run.hyp), 50)
     got = pop_cuda.exp_pop_chain_kernel(*args)
     want = pop_cuda.exp_pop_chain_torch(*args)
-    err = max(assert_close(f"exp_pop_chain at N={t_row.numel()} {n}", g, w,
-                           rtol=1e-12, atol=1e-15)
+    err = max(assert_close(f"exp_pop_chain{sfx} at N={t_row.numel()} {n}",
+                           g, w, *CHAIN_TOL[dtype])
               for n, g, w in zip(("n0", "g"), got, want))
-    return {"N": t_row.numel(), "C": lbs.numel(),
-            "nodes_in_shared_memory":
-                _cuda.lib().delphy_exp_pop_chain_nodes_shared(
+    return {"N": t_row.numel(), "C": lbs.numel(), "dtype": str(dtype),
+            "nodes_in_shared_memory": getattr(
+                _cuda.lib(), "delphy_exp_pop_chain_nodes_shared" + sfx)(
                     lbs.numel(), 50, t_row.numel()),
             "max_abs_err": err,
-            "ms": kernel_ms(_cuda.lib(), "delphy_exp_pop_chain",
+            "ms": kernel_ms(_cuda.lib(), "delphy_exp_pop_chain" + sfx,
                             pop_cuda.pack_launch(*args).args, reps=10),
             "plain_ms": time_ms(lambda: pop_cuda.exp_pop_chain_torch(*args),
                                 device, reps=2)}
@@ -1622,9 +1740,10 @@ def large_tree_path(device, card: str, n_tips: int, gate: str,
 
 
 def large_trees(device, card: str, base, large_tips):
-    """Phase 9: large trees.  Returns the global builds' kernel records and
-    the exp-pop kernel's readings at the large trees' node counts."""
-    tree = sim_tree(ONE_PART_TIPS)
+    """Phase 9: large trees.  Returns the global builds' kernel records,
+    the exp-pop kernel's readings at the large trees' node counts and the
+    10,000-tip record (phase 12 sets its float32 run beside it)."""
+    tree = sim_tree(ONE_PART_TIPS, cache=True)    # phase 12 reads it again
     p1 = one_part_paths(device, card, tree)
     records = global_build_records(device, base, tree, p1, p1["max_abs_err"])
     del tree
@@ -1635,7 +1754,7 @@ def large_trees(device, card: str, base, large_tips):
     with open(os.path.join(REPO, "chiprun_out", "large_trees.json"),
               "w") as f:
         json.dump(res, f, indent=1, default=str)
-    return records, {r["tips"]: r["exp_pop_chain"] for r in res}
+    return records, {r["tips"]: r["exp_pop_chain"] for r in res}, res[0]
 
 
 # phase 10: the JAX package's dryrun_multichip size (__graft_entry__.py)
@@ -2040,6 +2159,401 @@ def unpartitioned_path(device, card: str) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the f32 engine
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+F32_EXP_PATH = tuple(k + "_f32" for k in EXP_PATH)
+# the f32 study's configuration: scripts/f32_study.py's defaults, the
+# length VALIDATION.md uses
+STUDY_CFG = {"tips": 40, "sites": 1200, "steps": 200_000, "seed": 3}
+
+
+@contextlib.contextmanager
+def f32_switch():
+    """DELPHY_TPU_F32=1 inside the block, as bench.py sets it."""
+    prev = os.environ.get(F32_ENV)
+    os.environ[F32_ENV] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(F32_ENV, None)
+        else:
+            os.environ[F32_ENV] = prev
+
+
+def f32_tol(log_G) -> float:
+    """The float32 ledger tolerance: bench.py's 0.05 at Ebola's |log_G|
+    (~4.5e4), scaled by |log_G| / 4.5e4, at least 1e-3 (tests/test_f32.py)."""
+    return max(0.05 * abs(float(log_G)) / 4.5e4, 1e-3)
+
+
+def padded_sweep(device, tree, kw, dtype, NC, MC):
+    """(stat, ctx, shared, u, nb) of one boundary of an 8-part Run of
+    ``tree`` (model ``kw``) in ``dtype``, its rows padded to NC x MC."""
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.run import Run
+    run = Run(tree, seed=SEED, num_cells=NUM_CELLS, device_partitions=8,
+              device=device, dtype=dtype, **kw)
+    run.do_mcmc_steps(run.local_moves_per_global_move)
+    stat, ctx, shared, nb = boundary_chain(run)
+    stat, ctx, shared = bc.pad_chain(stat, ctx, shared, NC=NC, MC=MC)
+    u = bc.gen_block_uniforms(run.gen, ctx["t"].shape[0], nb, stat.NC,
+                              stat.MC, device, dtype)
+    return stat, ctx, shared, u, nb
+
+
+def sweep_record(name, device, stat, ctx, shared, u, nb, per_move) -> dict:
+    """The sweep kernel (the build ``stat`` selects in ``u``'s dtype)
+    against the plain chain and timed, as phase 3 does."""
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    dtype = u.pri.dtype
+    K = shared["x"].numel() if "x" in shared else 0
+    got = bc.sweep_chain_kernel(stat, nb, ctx, shared, u)
+    want = bc.sweep_chain_torch(stat, nb, ctx, shared, u)
+    err = check_sweep(name, got, want, dtype)
+    moves = float(got[5].sum())
+    if not moves > 0.0:
+        raise AssertionError(f"{name} moved nothing")
+    P = ctx["t"].shape[0]
+    ops = nb * P * (300 + 30 * stat.NC + 8 * stat.MC) + per_move * moves
+    rec = dict(max_abs_err=err, entry=bc.entry(stat, K, dtype),
+               build=bc.build(stat, K, dtype),
+               smem_bytes_per_part=bc.smem_bytes(stat, K, dtype),
+               shape={"P": P, "NC": stat.NC, "MC": stat.MC, "C": stat.C,
+                      "n_blocks": nb})
+    rec.update(measure(name, rec["entry"],
+                       bc.pack_launch(stat, nb, ctx, shared, u),
+                       lambda: bc.sweep_chain_kernel(stat, nb, ctx, shared,
+                                                     u),
+                       lambda: bc.sweep_chain_torch(stat, nb, ctx, shared,
+                                                    u),
+                       ops, None, None, device))
+    log(f"{name}: {rec['entry']} (build {rec['build']}, "
+        f"{rec['smem_bytes_per_part']} shared bytes a part) at {rec['shape']}"
+        f", {int(moves)} moves, max |err| {err:.3e}")
+    return rec
+
+
+def f32_kernels(device, card, f64_records) -> list:
+    """Phase 12(a): each kernel's float32 build against its float32 plain
+    version on the card (see the module docstring)."""
+    from delphy_tpu_torch import pop as popm
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.run import Run
+
+    run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
+              dtype=F32)
+    run.do_mcmc_steps(run.local_moves_per_global_move)
+    records, _ = compare_kernels(run, device, None, None, F32)
+    del run
+    f64_ms = {r["name"]: r["ms"] for r in f64_records}
+    by_name = {r["name"]: r for r in records}
+
+    # the build selection at phase 9b's shape: the global build in float64,
+    # a shared one in float32; then a shape that needs the global build in
+    # float32 too, for each model
+    tree = sim_tree(ONE_PART_TIPS, cache=True)
+    stat, ctx, shared, u, nb = padded_sweep(device, tree, {}, F32, 1152,
+                                            3200)
+    builds = {str(dt): bc.build(stat, 0, dt)
+              for dt in (torch.float64, F32)}
+    if builds != {"torch.float64": 0, "torch.float32": 2}:
+        raise AssertionError(f"NC=1152 MC=3200 builds: {builds}")
+    rec = sweep_record("sweep_chain_f32 at NC=1152 MC=3200", device, stat,
+                       ctx, shared, u, nb, 150)
+    rec["builds"] = builds
+    by_name["sweep_chain_f32"]["at_phase_9b_shape"] = rec
+    by_name["sweep_chain_f32"]["max_abs_err"] = max(
+        by_name["sweep_chain_f32"]["max_abs_err"], rec["max_abs_err"])
+    for name, kw, per_move in (
+            ("sweep_chain_global_f32", {}, 150),
+            ("sweep_chain_skygrid_global_f32", dict(pop_model="skygrid"),
+             190),
+            ("sweep_chain_skygrid_global_f32 (log_linear)",
+             dict(pop_model="skygrid", skygrid_type=popm.LOG_LINEAR), 190)):
+        stat, ctx, shared, u, nb = padded_sweep(device, tree, kw, F32, 2304,
+                                                6400)
+        m = sweep_record(name, device, stat, ctx, shared, u, nb, per_move)
+        if m["build"] != 0 or m["entry"] != "delphy_" + name.split()[0]:
+            raise AssertionError(f"{name}: {m['entry']}, build {m['build']}")
+        # the float64 global build's kernel ms at the same shape
+        st64, c64, sh64, u64, nb64 = padded_sweep(device, tree, kw,
+                                                  torch.float64, 2304, 6400)
+        m["f64_ms_same_shape"] = kernel_ms(
+            _cuda.lib(), bc.entry(st64, 0 if "x" not in sh64
+                                  else sh64["x"].numel(), torch.float64),
+            bc.pack_launch(st64, nb64, c64, sh64, u64).args, reps=10)
+        del st64, c64, sh64, u64
+        if "log_linear" in name:
+            records[-1]["log_linear"] = {k: m[k] for k in (
+                "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                "f64_ms_same_shape")}
+            records[-1]["max_abs_err"] = max(records[-1]["max_abs_err"],
+                                             m["max_abs_err"])
+            continue
+        records.append(dict(name=name, route="cuda",
+                            source="delphy_tpu_torch/csrc/sweep_chain.cu",
+                            replaces="delphy_tpu/parallel/block_pallas.py:465",
+                            **m))
+
+    # the float32 global builds on a path: one-part Runs of the 1,000 tips
+    global_launches = {}
+    for name, kw, path in (
+            ("exponential", {}, F32_EXP_PATH[:2] + ("sweep_chain_global_f32",)),
+            ("skygrid", dict(pop_model="skygrid"),
+             ("hky_chain_f32", "sweep_chain_skygrid_global_f32"))):
+        run = Run(tree, seed=SEED, num_cells=NUM_CELLS, device_partitions=1,
+                  device=device, dtype=F32, **kw)
+        shapes = sweep_shapes(run)
+        if shapes["build"] != 0:
+            raise AssertionError(f"one-part {name} f32 run fits shared "
+                                 f"memory: {shapes}")
+        _cuda.reset_launch_counts()
+        run.do_mcmc_steps(2 * run.local_moves_per_global_move)
+        sync(device)
+        counts = check_counts(f"on the one-part {name} f32 path", path)
+        run.check_derived_quantities(f32_tol(run.ledger.log_G))
+        run.tree().check_integrity()
+        global_launches[path[-1]] = counts[path[-1]]
+        stat, ctx, shared, nb = boundary_chain(run)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)
+        u = bc.gen_block_uniforms(gen, 1, nb, stat.NC, stat.MC, device, F32)
+        got = bc.sweep_chain_kernel(stat, nb, ctx, shared, u)
+        want = bc.sweep_chain_torch(stat, nb, ctx, shared, u)
+        check_sweep(f"one-part {name} f32", got, want, F32)
+        log(f"one-part {name} f32 run: {shapes}, {counts[path[-1]]} "
+            f"launches of {path[-1]}; {run.stats_line()} ({card})")
+        del run
+    for r in records:
+        if r["name"] in global_launches:
+            r["launches"] = global_launches[r["name"]]
+    del tree
+    for r in records:
+        base = r["name"].split()[0][:-len("_f32")]
+        r["f64_ms"] = f64_ms.get(base)
+        if r["f64_ms"]:
+            log(f"{r['name']}: f32 {r['ms']:.4f} ms, f64 {r['f64_ms']:.4f} "
+                f"ms (this call): f32/f64 {r['ms'] / r['f64_ms']:.3f} "
+                f"({card})")
+    return records
+
+
+def bench_recipe(device, card) -> dict:
+    """Phase 12(b) and (e): bench.py's recipe on the port in float32,
+    beside the same recipe in float64 (calls in turns f64, f32, f32,
+    f64), then the float32 run saved and resumed bit-equal."""
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+
+    tree = load_tree()
+    with f32_switch():
+        run32 = Run(tree, seed=SEED, num_cells=NUM_CELLS, device=device)
+    if run32.dtype != F32:
+        raise AssertionError(f"{F32_ENV}=1 made a {run32.dtype} run")
+    run64 = Run(tree, seed=SEED, num_cells=NUM_CELLS, device=device,
+                dtype=torch.float64)
+    n = run32.local_moves_per_global_move * run32.topology_burst_chunks
+    for run in (run64, run32):      # bench.py's warm-up
+        run.do_mcmc_steps(10)
+        run.do_mcmc_steps(n)
+    tot = {"f64": [0, 0.0], "f32": [0, 0.0]}
+    launches = dict.fromkeys(F32_EXP_PATH, 0)
+    for tag in ("f64", "f32", "f32", "f64"):
+        run = run32 if tag == "f32" else run64
+        _cuda.reset_launch_counts()
+        sync(device)
+        base = run.local_moves_attempted
+        t0 = time.perf_counter()
+        run.do_mcmc_steps(n)
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = check_counts(f"on bench.py's recipe in {tag}",
+                              F32_EXP_PATH if tag == "f32" else EXP_PATH)
+        if tag == "f32":
+            for k in launches:
+                launches[k] += counts[k]
+        moves = run.local_moves_attempted - base
+        tot[tag][0] += moves
+        tot[tag][1] += dt
+        log(f"bench recipe, {tag} call: {moves} moves in {dt:.3f} s = "
+            f"{moves / dt:.1f} moves/s ({card})")
+    run32.check_derived_quantities(0.05)
+    run64.check_derived_quantities(1e-6)
+    for run in (run32, run64):
+        t = run.tree()
+        t.check_integrity()
+        if not (np.all(np.isfinite(t.t)) and math.isfinite(run.log_posterior)):
+            raise AssertionError("non-finite state after bench.py's recipe")
+    drift32 = abs(float(run32.ledger.log_G)
+                  - float(run32.calc_cur_ledger().log_G))
+    out = {"moves_per_s": {k: v[0] / v[1] for k, v in tot.items()},
+           "end": {"f32": {"step": run32.step,
+                           "log_post": run32.log_posterior,
+                           "log_G_drift": drift32},
+                   "f64": {"step": run64.step,
+                           "log_post": run64.log_posterior}},
+           "launches": launches}
+    log(f"bench.py's recipe: f32 {out['moves_per_s']['f32']:.1f} moves/s, "
+        f"f64 {out['moves_per_s']['f64']:.1f} moves/s (same call, in turns); "
+        f"f32 end: step {run32.step}, log_post {run32.log_posterior:.4f}, "
+        f"log_G drift {drift32:.3e} (bound 0.05); {run32.stats_line()} "
+        f"({card})")
+    # (e) the float32 run saved and resumed: bit-equal through a burst
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "f32.npz")
+        save_run(run32, snap)
+        twin = load_run(snap, device=device)
+    if twin.dtype != F32:
+        raise AssertionError(f"the f32 snapshot resumed as {twin.dtype}")
+    bursts = run32.burst_count
+    for run in (run32, twin):
+        run.do_mcmc_steps(n)
+    if not (twin.log_posterior == run32.log_posterior
+            and torch.equal(twin.ts.t, run32.ts.t)
+            and torch.equal(twin.ts.mut_t, run32.ts.mut_t)
+            and run32.burst_count > bursts):
+        raise AssertionError(f"the f32 snapshot did not resume bit-equal: "
+                             f"{twin.log_posterior!r} != "
+                             f"{run32.log_posterior!r}")
+    out["snapshot_resume"] = {"bit_equal": True,
+                              "log_post": run32.log_posterior}
+    log(f"f32 snapshot resumed bit-equal through a burst: log_post "
+        f"{run32.log_posterior!r}")
+    return out
+
+
+def large_f32(device, card, tips10k: dict) -> dict:
+    """Phase 12(c): phase 9c's 10,000-tip tree through the blocking driver
+    in float32, beside phase 9c's float64 figures."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import _cuda
+
+    tree = sim_tree(LARGE_TIPS, cache=True)
+    prev = os.environ.get("DELPHY_TPU_OVERLAP")
+    os.environ["DELPHY_TPU_OVERLAP"] = "0"
+    try:
+        run = run_mod.Run(tree, seed=SEED, num_cells=NUM_CELLS,
+                          device=device, dtype=F32)
+        lm = run.local_moves_per_global_move
+        B = tips10k["boundaries_per_cycle"]
+        cycles = 3
+        run.do_mcmc_steps(B * lm)                      # warm-up
+        _cuda.reset_launch_counts()
+        sync(device)
+        base = run.local_moves_attempted
+        t0 = time.perf_counter()
+        run.do_mcmc_steps(cycles * B * lm)
+        sync(device)
+        dt = time.perf_counter() - t0
+        counts = check_counts("on the 10,000-tip f32 path", F32_EXP_PATH)
+        if counts["hky_chain_f32"] != cycles * B:
+            raise AssertionError(f"10k f32: counts {counts}")
+        run.check_derived_quantities(f32_tol(run.ledger.log_G))
+        run.tree().check_integrity()
+        moves = run.local_moves_attempted - base
+        out = {"moves": moves, "s": dt, "moves_per_s": moves / dt,
+               "f64_moves_per_s": tips10k["blocking"]["moves_per_s"],
+               "shapes": {"f32": sweep_shapes(run),
+                          "f64": tips10k["shapes"]},
+               "kernel_full_width": {
+                   "f32": kernel_at_shape(run, device, half=False),
+                   "f64": tips10k["kernel_full_width"]},
+               "exp_pop_chain": {
+                   "f32": exp_pop_at_shape(run, device),
+                   "f32_padded": exp_pop_at_shape(run, device,
+                                                  pad_to=40_000),
+                   "f64": tips10k["exp_pop_chain"]},
+               "launch_counts": counts}
+        k32, k64 = (out["kernel_full_width"][k] for k in ("f32", "f64"))
+        log(f"10,000 tips, blocking, f32: {moves} moves in {dt:.3f} s = "
+            f"{moves / dt:.1f} moves/s against f64 "
+            f"{out['f64_moves_per_s']:.1f} (phase 9c, this call); sweep "
+            f"{k32['entry']} build {k32['build']}, {k32['smem_bytes_per_part']}"
+            f" shared bytes a part, uniforms {k32['uniform_bytes'] / 1e6:.1f}"
+            f" MB a boundary, {k32['kernel_ms']:.3f} ms a launch (f64: "
+            f"{k64['entry']} build {k64['build']}, "
+            f"{k64['smem_bytes_per_part']} B, "
+            f"{k64['uniform_bytes'] / 1e6:.1f} MB, {k64['kernel_ms']:.3f} ms)"
+            f"; {run.stats_line()} ({card})")
+        log(f"10,000 tips, exp_pop_chain f32: "
+            f"{json.dumps(out['exp_pop_chain']['f32'])}; padded to 40,000 "
+            f"nodes: {json.dumps(out['exp_pop_chain']['f32_padded'])}")
+        if out["exp_pop_chain"]["f32_padded"]["nodes_in_shared_memory"]:
+            raise AssertionError("exp_pop at N=40,000 kept its node rows in "
+                                 "shared memory in f32")
+        del run
+    finally:
+        if prev is None:
+            os.environ.pop("DELPHY_TPU_OVERLAP", None)
+        else:
+            os.environ["DELPHY_TPU_OVERLAP"] = prev
+    return out
+
+
+def f32_study(device, card) -> dict:
+    """Phase 12(d): scripts/torch_f32_study.py on the card at 200,000
+    steps.  Its drifts are checked (float64 rounding, float32 under the
+    scaled bound); the distances in standard errors are reported."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_f32_study
+    res = torch_f32_study.study(STUDY_CFG, device)
+    if not (res["f64_drift"] < 1e-8 and res["f32_drift"] < res["drift_bound"]):
+        raise AssertionError(f"f32 study drifts: f64 {res['f64_drift']}, "
+                             f"f32 {res['f32_drift']} (bound "
+                             f"{res['drift_bound']})")
+    sig = {k: v["sigma"] for k, v in res["f32_vs_f64"]["summaries"].items()}
+    null = {k: v["sigma"]
+            for k, v in res["null_f64_vs_f64"]["summaries"].items()}
+    log(f"f32 study {STUDY_CFG}: f32 vs f64 sigma {json.dumps(sig)}, null "
+        f"f64 vs f64 {json.dumps(null)}, bound {res['sigma_bound']:.2f}: "
+        f"{'agree' if res['ok'] else 'DISAGREE'}; drifts f32 "
+        f"{res['f32_drift']:.3e} (bound {res['drift_bound']:.3e}), f64 "
+        f"{res['f64_drift']:.3e}; seconds {json.dumps(res['seconds'])} "
+        f"({card})")
+    return res
+
+
+def f32_engine(device, card, f64_records, tips10k) -> list:
+    """Phase 12: the f32 engine.  Returns the float32 kernels' records;
+    writes the whole phase to chiprun_out/f32_engine.json."""
+    log("phase 12: the f32 engine")
+    records = f32_kernels(device, card, f64_records)
+    bench = bench_recipe(device, card)
+    for r in records:
+        if r["name"] in bench["launches"]:
+            r["launches"] = bench["launches"][r["name"]]
+        elif r["name"] == "sweep_chain_skygrid_f32":
+            # the skygrid Runs' boundaries of (a) are its path
+            r["launches"] = r["launches_one_boundary"]
+    large = large_f32(device, card, tips10k)
+    by_name = {r["name"]: r for r in records}
+    by_name["exp_pop_chain_f32"]["at_large_trees"] = {
+        k: large["exp_pop_chain"][k] for k in ("f32", "f32_padded")}
+    by_name["exp_pop_chain_f32"]["max_abs_err"] = max(
+        [by_name["exp_pop_chain_f32"]["max_abs_err"]]
+        + [large["exp_pop_chain"][k]["max_abs_err"]
+           for k in ("f32", "f32_padded")])
+    study = f32_study(device, card)
+    missing = [r["name"] for r in records if not r.get("launches")]
+    if missing:
+        raise AssertionError(f"float32 kernels never launched on a path: "
+                             f"{missing}")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "f32_engine.json"),
+              "w") as f:
+        json.dump({"card": card, "kernels": records, "bench_recipe": bench,
+                   "tips_10k": large, "study": study}, f, indent=1,
+                  default=str)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2050,6 +2564,8 @@ def main(argv=None) -> int:
                     help="phase 9d: also run a simulated tree of N tips "
                          "(the scale bench's is 100000)")
     opts = ap.parse_args(argv)
+    # phases 1-11 are the float64 engine; phase 12 sets the switch itself
+    f32_given = os.environ.pop(F32_ENV, None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -2061,6 +2577,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    if f32_given is not None:
+        log(f"{F32_ENV}={f32_given!r} given: phases 1-11 run in float64 "
+            f"all the same, phase 12 in float32")
 
     t0 = time.perf_counter()
     floor_so, base = build_all(opts.baseline)
@@ -2087,7 +2606,8 @@ def main(argv=None) -> int:
         if r["name"] == "sweep_chain_skygrid":
             r["launches"] = sky["staircase"]
             r["launches_log_linear"] = sky["log-linear"]
-    large, exp_pop_large = large_trees(device, card, base, opts.large_tips)
+    large, exp_pop_large, tips10k = large_trees(device, card, base,
+                                                opts.large_tips)
     for r in records:
         if r["name"] == "exp_pop_chain":
             r["at_large_trees"] = exp_pop_large
@@ -2100,6 +2620,7 @@ def main(argv=None) -> int:
         if r["name"] in ("hky_chain", "exp_pop_chain"):
             r["launches_unpartitioned"] = \
                 unpart["ebola"]["launch_counts"][r["name"]]
+    records += f32_engine(device, card, records, tips10k)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -9,7 +9,9 @@ of the same name, and ``skygrid_pop_to_torch`` converts a
 back: it returns a ``{field: numpy array}`` dict from which the JAX class is
 rebuilt with ``Cls(**d)``.  ``load_jax_snapshot`` carries a whole run across: it
 reads a snapshot file written by the JAX package's ``io.snapshot.save_run``
-into a port ``Run``.  This module imports no jax.
+into a port ``Run``.  Float leaves keep their precision (float32 from a JAX
+run under ``DELPHY_TPU_F32``, float64 otherwise) unless a ``dtype`` is
+given.  This module imports no jax.
 """
 
 from __future__ import annotations
@@ -17,55 +19,69 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import DEFAULT_DEVICE, DTYPE, resolve_device
+from . import DEFAULT_DEVICE, resolve_device
 from .evo import EvoParams
 from .parallel.partmaps import PartMaps
 from .pop import ExpPopParams, SkygridPopParams
 from .state import TreeState
 
 
-def _leaf_to_torch(x, device) -> torch.Tensor:
+def float_dtype_of(a) -> torch.dtype:
+    """The port's float dtype for a floating numpy array: float32 stays
+    float32, any other float becomes float64."""
+    return torch.float32 if np.asarray(a).dtype == np.float32 \
+        else torch.float64
+
+
+def leaf_to_torch(x, device, dtype=None) -> torch.Tensor:
     a = np.asarray(x)
     if np.issubdtype(a.dtype, np.floating):
-        return torch.as_tensor(a.astype(np.float64), dtype=DTYPE,
+        dtype = dtype or float_dtype_of(a)
+        # rounded on the host: no float64 copy reaches a float32 run
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+        return torch.as_tensor(a.astype(np.float64).astype(np_dtype),
                                device=device)
     return torch.as_tensor(a.copy(), device=device)
 
 
-def from_dict(cls, fields: dict, device=DEFAULT_DEVICE):
-    """Instance of the port's NamedTuple ``cls`` from ``{field: array}``."""
+def from_dict(cls, fields: dict, device=DEFAULT_DEVICE, dtype=None):
+    """Instance of the port's NamedTuple ``cls`` from ``{field: array}``;
+    float leaves in ``dtype``, by default their own precision."""
     device = resolve_device(device)
-    return cls(**{f: _leaf_to_torch(fields[f], device) for f in cls._fields})
+    return cls(**{f: leaf_to_torch(fields[f], device, dtype)
+                  for f in cls._fields})
 
 
-def from_numpy(cls, obj, device=DEFAULT_DEVICE):
+def from_numpy(cls, obj, device=DEFAULT_DEVICE, dtype=None):
     """Instance of the port's NamedTuple ``cls`` from an object with the
     same field names (numpy or jax leaves)."""
-    return from_dict(cls, {f: getattr(obj, f) for f in cls._fields}, device)
+    return from_dict(cls, {f: getattr(obj, f) for f in cls._fields}, device,
+                     dtype)
 
 
-def tree_state_to_torch(ts, device=DEFAULT_DEVICE) -> TreeState:
-    return from_numpy(TreeState, ts, device)
+def tree_state_to_torch(ts, device=DEFAULT_DEVICE, dtype=None) -> TreeState:
+    return from_numpy(TreeState, ts, device, dtype)
 
 
-def evo_params_to_torch(evo, device=DEFAULT_DEVICE) -> EvoParams:
-    return from_numpy(EvoParams, evo, device)
+def evo_params_to_torch(evo, device=DEFAULT_DEVICE, dtype=None) -> EvoParams:
+    return from_numpy(EvoParams, evo, device, dtype)
 
 
-def exp_pop_to_torch(pop, device=DEFAULT_DEVICE) -> ExpPopParams:
-    return from_numpy(ExpPopParams, pop, device)
+def exp_pop_to_torch(pop, device=DEFAULT_DEVICE, dtype=None) -> ExpPopParams:
+    return from_numpy(ExpPopParams, pop, device, dtype)
 
 
-def skygrid_pop_to_torch(pop, device=DEFAULT_DEVICE) -> SkygridPopParams:
+def skygrid_pop_to_torch(pop, device=DEFAULT_DEVICE,
+                         dtype=None) -> SkygridPopParams:
     device = resolve_device(device)
     return SkygridPopParams(
-        x=_leaf_to_torch(pop.x, device),
-        gamma=_leaf_to_torch(pop.gamma, device), type=int(pop.type),
-        tau=_leaf_to_torch(pop.tau, device))
+        x=leaf_to_torch(pop.x, device, dtype),
+        gamma=leaf_to_torch(pop.gamma, device, dtype), type=int(pop.type),
+        tau=leaf_to_torch(pop.tau, device, dtype))
 
 
-def part_maps_to_torch(pm, device=DEFAULT_DEVICE) -> PartMaps:
-    return from_numpy(PartMaps, pm, device)
+def part_maps_to_torch(pm, device=DEFAULT_DEVICE, dtype=None) -> PartMaps:
+    return from_numpy(PartMaps, pm, device, dtype)
 
 
 def to_numpy(obj) -> dict:
@@ -84,10 +100,12 @@ def load_jax_snapshot(path, gen_seed: int = 0, device=DEFAULT_DEVICE):
     """A port ``Run`` in the state of a snapshot written by the JAX package:
     tree state, partition maps, ``evo``, ``pop`` (exponential or skygrid),
     the host generator and the run's scalars, with the snapshot's prior
-    configuration (site-rate heterogeneity included) and mpox flag.  The JAX
-    PRNG key has no counterpart in a ``torch.Generator``, so the run's
-    generator is seeded with ``gen_seed``: the run continues from the same
-    state on a trajectory of its own."""
+    configuration (site-rate heterogeneity included) and mpox flag, in the
+    snapshot's precision (a run saved under ``DELPHY_TPU_F32`` holds float32
+    arrays and loads as a float32 run).  The JAX PRNG key has no
+    counterpart in a ``torch.Generator``, so the run's generator is seeded
+    with ``gen_seed``: the run continues from the same state on a
+    trajectory of its own."""
     from .io.snapshot import read_snapshot, restore_run   # it imports us
     meta, data = read_snapshot(path, JAX_SNAPSHOT_MAGIC, JAX_SNAPSHOT_VERSION)
     if "driver" not in meta:

@@ -71,10 +71,14 @@
 // order, and q is built by 16 lanes with hky_q's arithmetic, so where the
 // accept decisions agree the outputs are bit-equal to the per-entry chain's.
 
-#include <cuda_runtime.h>
-#include <math.h>
+// Precision: a template on `real` (real.cuh).  delphy_hky_chain is the
+// float64 build; delphy_hky_chain_f32 the float32 one, the TPU kernel's own
+// precision, with logf/log1pf and a correctly rounded float reciprocal.
+#include "real.cuh"
 
 namespace {
+
+using namespace delphy_real;
 
 // uniform lane assignment per round (hky_pallas.py _U_*)
 constexpr int U_D = 0, U_IA = 1, U_IB = 2, U_ACC_F = 3, U_SCALE = 4,
@@ -89,39 +93,46 @@ constexpr int LEVELS = 4, NODES = 15, F_NODES = 5;
 constexpr int HELP_A = NODES, HELP_B = NODES + F_NODES;
 
 // What a round needs that does not depend on the chain state.
+template <class real>
 struct Round {
-  double d, w_ia, w_ib, scale, lsc, lacc_f, lacc_k;
+  real d, w_ia, w_ib, scale, lsc, lacc_f, lacc_k;
   int ia, ib;
 };
 
+template <class real>
 struct Stats {
-  double mu, tt[4], M[16], rf[4];
-  double w[4], m_tot, m_ts;  // the folded weights
-  double kappa_m, kappa_s, inv_2s2;  // inv_2s2 = 1 / (2 kappa_s^2)
+  real mu, tt[4], M[16], rf[4];
+  real w[4], m_tot, m_ts;  // the folded weights
+  real kappa_m, kappa_s, inv_2s2;  // inv_2s2 = 1 / (2 kappa_s^2)
 };
 
-__device__ double pick(const double* v, int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : i == 3 ? v[3] : 0.0;
+template <class real>
+__device__ real pick(const real* v, int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : i == 3 ? v[3]
+                                                                : real(0);
 }
 
 // HKY85 rate matrix normalised as in evo.hky_q (core/evo_hky.cpp:7-50)
-__device__ double hky_r(double kappa, int a, int b) {
+template <class real>
+__device__ real hky_r(real kappa, int a, int b) {
   bool transition = (a != b) && (a % 2 == b % 2);
   bool transversion = (a % 2) != (b % 2);
-  return (transition ? kappa : 0.0) + (transversion ? 1.0 : 0.0);
+  return (transition ? kappa : real(0)) + (transversion ? real(1) : real(0));
 }
 
-__device__ double hky_R(double kappa, const double* pi) {
-  double R = 0.0;
+template <class real>
+__device__ real hky_R(real kappa, const real* pi) {
+  real R = real(0);
   for (int a = 0; a < 4; ++a)
     for (int b = 0; b < 4; ++b) R += pi[a] * hky_r(kappa, a, b) * pi[b];
   return R;
 }
 
-__device__ void hky_q(double kappa, const double* pi, double* q) {
-  const double R = hky_R(kappa, pi);
+template <class real>
+__device__ void hky_q(real kappa, const real* pi, real* q) {
+  const real R = hky_R(kappa, pi);
   for (int a = 0; a < 4; ++a) {
-    double rowsum = 0.0;
+    real rowsum = real(0);
     for (int b = 0; b < 4; ++b) {
       q[a * 4 + b] = hky_r(kappa, a, b) * pi[b] / R;
       rowsum += q[a * 4 + b];
@@ -132,17 +143,19 @@ __device__ void hky_q(double kappa, const double* pi, double* q) {
 
 // hky_q's entry (a, b) = (lane / 4, lane % 4) of lanes 0-15, in the same
 // arithmetic; every lane of the warp must call it.
-__device__ double hky_q_entry(double kappa, const double* pi, int lane) {
+template <class real>
+__device__ real hky_q_entry(real kappa, const real* pi, int lane) {
   const int a = (lane >> 2) & 3, b = lane & 3;
-  const double q = hky_r(kappa, a, b) * pick(pi, b) / hky_R(kappa, pi);
-  double rowsum = 0.0;
+  const real q = hky_r(kappa, a, b) * pick(pi, b) / hky_R(kappa, pi);
+  real rowsum = real(0);
   for (int c = 0; c < 4; ++c)
     rowsum += __shfl_sync(FULL, q, (lane & ~3) + c);
   return a == b ? q - rowsum : q;
 }
 
 // 1 / x to within an ulp or two, without the division's slow-path branch:
-// the hardware's approximate reciprocal and two Newton steps.
+// the hardware's approximate reciprocal and two Newton steps (float64); the
+// correctly rounded reciprocal (float32).
 __device__ double rcp(double x) {
   double y;
   asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(x));
@@ -150,26 +163,31 @@ __device__ double rcp(double x) {
   return fma(y, fma(-x, y, 1.0), y);
 }
 
+__device__ float rcp(float x) { return __frcp_rn(x); }
+
 // The frequency proposal's new pi, in the plain version's arithmetic.
-__device__ void propose_pi(const double* p, const Round& o, double* np) {
+template <class real>
+__device__ void propose_pi(const real* p, const Round<real>& o, real* np) {
 #pragma unroll
   for (int a = 0; a < 4; ++a)
-    np[a] = p[a] + (a == o.ia ? o.d : 0.0) - (a == o.ib ? o.d : 0.0);
+    np[a] = p[a] + (a == o.ia ? o.d : real(0)) - (a == o.ib ? o.d : real(0));
 }
 
 // ---------------------------------------------------------------------------
 // The folded chain (every q_ab > 0), speculated over the lanes
 // ---------------------------------------------------------------------------
 
+template <class real>
 struct Chain {
-  double kappa, logk, p[4];
+  real kappa, logk, p[4];
 };
 
 // R and D of (kappa, p)
-__device__ void r_and_d(double kappa, const double* p, const double* tt,
-                        double& R, double& D) {
-  const double y = p[0] + p[2], z = p[1] + p[3];
-  R = 2.0 * (kappa * (p[0] * p[2] + p[1] * p[3]) + y * z);
+template <class real>
+__device__ void r_and_d(real kappa, const real* p, const real* tt, real& R,
+                        real& D) {
+  const real y = p[0] + p[2], z = p[1] + p[3];
+  R = real(2) * (kappa * (p[0] * p[2] + p[1] * p[3]) + y * z);
   D = kappa * (tt[0] * p[2] + tt[2] * p[0] + tt[1] * p[3] + tt[3] * p[1]) +
       (tt[0] + tt[2]) * z + (tt[1] + tt[3]) * y;
 }
@@ -177,14 +195,15 @@ __device__ void r_and_d(double kappa, const double* p, const double* tt,
 // The state after the first `steps` steps of the batch from rounds[r0],
 // step i taken where bit i of `bits` is set.  No branch: every lane runs
 // the same instructions.
-__device__ Chain advance(Chain c, const Round* rounds, int r0, int steps,
-                         int bits) {
+template <class real>
+__device__ Chain<real> advance(Chain<real> c, const Round<real>* rounds,
+                               int r0, int steps, int bits) {
 #pragma unroll
   for (int i = 0; i < LEVELS; ++i) {
-    const Round& o = rounds[r0 + i / 2];
+    const Round<real>& o = rounds[r0 + i / 2];
     const bool take = i < steps && ((bits >> i) & 1);
     if (i % 2 == 0) {
-      double np[4];
+      real np[4];
       propose_pi(c.p, o, np);
 #pragma unroll
       for (int a = 0; a < 4; ++a) c.p[a] = take ? np[a] : c.p[a];
@@ -198,8 +217,9 @@ __device__ Chain advance(Chain c, const Round* rounds, int r0, int steps,
 
 // One batch of `levels` (2 or 4) steps from rounds[r0]: every lane ends
 // with the state after the steps taken.
-__device__ void folded_batch(Chain& c, const Round* rounds, int r0,
-                             int levels, const Stats& s) {
+template <class real>
+__device__ void folded_batch(Chain<real>& c, const Round<real>* rounds,
+                             int r0, int levels, const Stats<real>& s) {
   const int lane = threadIdx.x;
   const int nodes = (1 << levels) - 1;
   // this lane's node: its own for lanes 0-14, the frequency node whose
@@ -208,42 +228,41 @@ __device__ void folded_batch(Chain& c, const Round* rounds, int r0,
   const int node = lane < NODES ? lane : (fi == 0 ? 0 : fi + 2);
   const int level = 31 - __clz(node + 1);
   const int bits = node + 1 - (1 << level);
-  const Chain at = advance(c, rounds, r0, level, bits);
-  const Round& o = rounds[r0 + level / 2];
+  const Chain<real> at = advance(c, rounds, r0, level, bits);
+  const Round<real>& o = rounds[r0 + level / 2];
   const bool freq = level % 2 == 0;
 
-  double np[4];
+  real np[4];
   propose_pi(at.p, o, np);
-  const double pia = pick(np, o.ia), pib = pick(np, o.ib);
-  const bool ok = pia > 0.0 && pia < 1.0 && pib > 0.0 && pib < 1.0;
-  const double kappa = freq ? at.kappa : at.kappa * o.scale;
-  double R, D, R1, D1;
+  const real pia = pick(np, o.ia), pib = pick(np, o.ib);
+  const bool ok = pia > real(0) && pia < real(1) && pib > real(0) &&
+                  pib < real(1);
+  const real kappa = freq ? at.kappa : at.kappa * o.scale;
+  real R, D, R1, D1;
   r_and_d(at.kappa, at.p, s.tt, R, D);
   r_and_d(kappa, freq ? np : at.p, s.tt, R1, D1);
   // one division and one log1p a lane: (R' - R) / R on the node lanes,
   // +-d / pi_ia, pi_ib on the helper lanes
-  double num = (R1 - R) * R1, den = R * R1;
+  real num = (R1 - R) * R1, den = R * R1;
   if (lane >= HELP_A) {
     num = lane < HELP_B ? o.d : -o.d;
     den = lane < HELP_B ? pick(at.p, o.ia) : pick(at.p, o.ib);
   }
-  const double inv = rcp(den);
-  const double lg = log1p(num * inv);
-  const double diag = (D1 * R - D * R1) * inv;     // D'/R' - D/R
+  const real inv = rcp(den);
+  const real lg = r_log1p(num * inv);
+  const real diag = (D1 * R - D * R1) * inv;     // D'/R' - D/R
   const int src = node == 0 ? 0 : min(max(node - 2, 0), F_NODES - 1);
-  const double la = __shfl_sync(FULL, lg, HELP_A + src);
-  const double lb = __shfl_sync(FULL, lg, HELP_B + src);
+  const real la = __shfl_sync(FULL, lg, HELP_A + src);
+  const real lb = __shfl_sync(FULL, lg, HELP_B + src);
 
-  const double delta = o.w_ia * la + o.w_ib * lb - s.m_tot * lg -
-                       s.mu * diag;
-  const double lk_new = at.logk + o.lsc - s.kappa_m;
-  const double lk_old = at.logk - s.kappa_m;
-  const double lpr = (-lk_new * lk_new + lk_old * lk_old) * s.inv_2s2 -
-                     o.lsc;
-  const double log_mh = s.m_ts * o.lsc - s.m_tot * lg - s.mu * diag + lpr -
-                        o.lsc;
-  const bool acc_f = ok && (delta > 0.0 || o.lacc_f < delta);
-  const bool acc_k = log_mh > 0.0 || o.lacc_k < log_mh;
+  const real delta = o.w_ia * la + o.w_ib * lb - s.m_tot * lg - s.mu * diag;
+  const real lk_new = at.logk + o.lsc - s.kappa_m;
+  const real lk_old = at.logk - s.kappa_m;
+  const real lpr = (-lk_new * lk_new + lk_old * lk_old) * s.inv_2s2 - o.lsc;
+  const real log_mh = s.m_ts * o.lsc - s.m_tot * lg - s.mu * diag + lpr -
+                      o.lsc;
+  const bool acc_f = ok && (delta > real(0) || o.lacc_f < delta);
+  const bool acc_k = log_mh > real(0) || o.lacc_k < log_mh;
   const unsigned acc = __ballot_sync(FULL, lane < nodes && (freq ? acc_f
                                                                  : acc_k));
   // walk the tree: the decision of step i is that of node 2^i - 1 + bits
@@ -254,10 +273,10 @@ __device__ void folded_batch(Chain& c, const Round* rounds, int r0,
   // (kappa) step applied where it was taken
   const int half = 1 << (levels - 1);
   const int last = half - 1 + (taken & (half - 1));
-  const Round& ol = rounds[r0 + (levels - 1) / 2];
+  const Round<real>& ol = rounds[r0 + (levels - 1) / 2];
   const bool take = (taken >> (levels - 1)) & 1;
-  const double kappa_l = __shfl_sync(FULL, at.kappa, last);
-  const double logk_l = __shfl_sync(FULL, at.logk, last);
+  const real kappa_l = __shfl_sync(FULL, at.kappa, last);
+  const real logk_l = __shfl_sync(FULL, at.logk, last);
   c.kappa = take ? kappa_l * ol.scale : kappa_l;
   c.logk = take ? logk_l + ol.lsc : logk_l;
 #pragma unroll
@@ -268,56 +287,62 @@ __device__ void folded_batch(Chain& c, const Round* rounds, int r0,
 // The per-entry chain (kappa0 or an entry of pi0 not positive and finite)
 // ---------------------------------------------------------------------------
 
+template <class real>
 struct PerEntry {
-  double kappa, pi[4], q[16];
+  real kappa, pi[4], q[16];
 };
 
 // -mu sum_a (new_qa - old_qa) Ttwiddle_a + sum_{a!=b, M>0} M log(new_q/old_q)
-__device__ double delta_of(const double* new_q, const double* old_q,
-                           const Stats& s) {
-  double d = 0.0;
+template <class real>
+__device__ real delta_of(const real* new_q, const real* old_q,
+                         const Stats<real>& s) {
+  real d = real(0);
   for (int a = 0; a < 4; ++a)
     d += (-new_q[a * 5] + old_q[a * 5]) * s.tt[a];
   d = -s.mu * d;
-  double sum = 0.0;
+  real sum = real(0);
   for (int a = 0; a < 4; ++a)
     for (int b = 0; b < 4; ++b) {
       int k = a * 4 + b;
-      if (a == b || !(s.M[k] > 0.0)) continue;
-      double ratio = old_q[k] > 0.0 ? new_q[k] / old_q[k] : 1.0;
-      sum += s.M[k] * log(ratio);
+      if (a == b || !(s.M[k] > real(0))) continue;
+      real ratio = old_q[k] > real(0) ? new_q[k] / old_q[k] : real(1);
+      sum += s.M[k] * r_log(ratio);
     }
   return d + sum;
 }
 
-__device__ void per_entry_round(PerEntry& e, const Round& o, const Stats& s) {
-  double new_pi[4], safe_pi[4], new_q[16];
+template <class real>
+__device__ void per_entry_round(PerEntry<real>& e, const Round<real>& o,
+                                const Stats<real>& s) {
+  real new_pi[4], safe_pi[4], new_q[16];
   {  // frequency delta-exchange
     propose_pi(e.pi, o, new_pi);
-    const double pia = pick(new_pi, o.ia), pib = pick(new_pi, o.ib);
+    const real pia = pick(new_pi, o.ia), pib = pick(new_pi, o.ib);
     for (int a = 0; a < 4; ++a)
-      safe_pi[a] = new_pi[a] > 0.0 ? new_pi[a] : 1.0;
-    bool ok = pia > 0.0 && pia < 1.0 && pib > 0.0 && pib < 1.0;
+      safe_pi[a] = new_pi[a] > real(0) ? new_pi[a] : real(1);
+    bool ok = pia > real(0) && pia < real(1) && pib > real(0) &&
+              pib < real(1);
     hky_q(e.kappa, safe_pi, new_q);
-    double delta = delta_of(new_q, e.q, s);
-    double rsum = 0.0;
+    real delta = delta_of(new_q, e.q, s);
+    real rsum = real(0);
     for (int a = 0; a < 4; ++a)
-      if (s.rf[a] > 0.0) rsum += s.rf[a] * log(safe_pi[a] / e.pi[a]);
+      if (s.rf[a] > real(0)) rsum += s.rf[a] * r_log(safe_pi[a] / e.pi[a]);
     delta += rsum;
-    if (ok && (delta > 0.0 || o.lacc_f < delta)) {
+    if (ok && (delta > real(0) || o.lacc_f < delta)) {
       for (int a = 0; a < 4; ++a) e.pi[a] = new_pi[a];
       for (int k = 0; k < 16; ++k) e.q[k] = new_q[k];
     }
   }
   {  // kappa scale move, log-normal prior
-    double new_kappa = e.kappa * o.scale;
+    real new_kappa = e.kappa * o.scale;
     hky_q(new_kappa, e.pi, new_q);
-    double lk_new = log(new_kappa) - s.kappa_m;
-    double lk_old = log(e.kappa) - s.kappa_m;
-    double lpr = (-lk_new * lk_new + lk_old * lk_old) /
-                     (2.0 * s.kappa_s * s.kappa_s) + log(e.kappa / new_kappa);
-    double log_mh = delta_of(new_q, e.q, s) + lpr + log(e.kappa / new_kappa);
-    if (log_mh > 0.0 || o.lacc_k < log_mh) {
+    real lk_new = r_log(new_kappa) - s.kappa_m;
+    real lk_old = r_log(e.kappa) - s.kappa_m;
+    real lpr = (-lk_new * lk_new + lk_old * lk_old) /
+                   (real(2) * s.kappa_s * s.kappa_s) +
+               r_log(e.kappa / new_kappa);
+    real log_mh = delta_of(new_q, e.q, s) + lpr + r_log(e.kappa / new_kappa);
+    if (log_mh > real(0) || o.lacc_k < log_mh) {
       e.kappa = new_kappa;
       for (int k = 0; k < 16; ++k) e.q[k] = new_q[k];
     }
@@ -327,36 +352,39 @@ __device__ void per_entry_round(PerEntry& e, const Round& o, const Stats& s) {
 // ---------------------------------------------------------------------------
 
 // Lane r < n loads the uniforms of round base + r, n <= 32.
-__device__ void load_rows(const double* __restrict__ u, int u_stride,
-                          int base, int n, double* row) {
+template <class real>
+__device__ void load_rows(const real* __restrict__ u, int u_stride, int base,
+                          int n, real* row) {
   const int lane = threadIdx.x;
   for (int k = 0; k < 6; ++k)
-    row[k] = lane < n ? u[(long)(base + lane) * u_stride + k] : 0.5;
+    row[k] = lane < n ? u[(long)(base + lane) * u_stride + k] : real(0.5);
 }
 
 // The state-free values of the n rounds in `row` into `rounds`: lane r < n
 // its round's proposal, then the 3 n logs one lane a log.
-__device__ void prepare_rounds(const double* row, int n, const Stats& s,
-                               Round* rounds) {
+template <class real>
+__device__ void prepare_rounds(const real* row, int n, const Stats<real>& s,
+                               Round<real>* rounds) {
   const int lane = threadIdx.x;
+  const real sc_w = real(1.0 / 0.75 - 0.75);
   if (lane < n) {
-    Round& o = rounds[lane];
-    o.d = row[U_D] * 0.01;
-    o.ia = (int)floor(row[U_IA] * 4.0);
-    o.ib = (o.ia + 1 + (int)floor(row[U_IB] * 3.0)) % 4;
+    Round<real>& o = rounds[lane];
+    o.d = row[U_D] * real(0.01);
+    o.ia = (int)r_floor(row[U_IA] * real(4));
+    o.ib = (o.ia + 1 + (int)r_floor(row[U_IB] * real(3))) % 4;
     o.w_ia = pick(s.w, o.ia);
     o.w_ib = pick(s.w, o.ib);
-    o.scale = 0.75 + row[U_SCALE] * (1.0 / 0.75 - 0.75);
+    o.scale = real(0.75) + row[U_SCALE] * sc_w;
   }
   for (int t = lane; t - lane < 3 * n; t += WARP) {
     const int kind = t / n, r = t % n;
-    const double acc_f = __shfl_sync(FULL, row[U_ACC_F], r);
-    const double acc_k = __shfl_sync(FULL, row[U_ACC_K], r);
-    const double x = __shfl_sync(FULL, row[U_SCALE], r);
+    const real acc_f = __shfl_sync(FULL, row[U_ACC_F], r);
+    const real acc_k = __shfl_sync(FULL, row[U_ACC_K], r);
+    const real x = __shfl_sync(FULL, row[U_SCALE], r);
     if (t < 3 * n) {
-      const double l = log(kind == 0 ? fmax(acc_f, TINY)
-                           : kind == 1 ? fmax(acc_k, TINY)
-                                       : 0.75 + x * (1.0 / 0.75 - 0.75));
+      const real l = r_log(kind == 0 ? r_max(acc_f, real(TINY))
+                           : kind == 1 ? r_max(acc_k, real(TINY))
+                                       : real(0.75) + x * sc_w);
       if (kind == 0) rounds[r].lacc_f = l;
       else if (kind == 1) rounds[r].lacc_k = l;
       else rounds[r].lsc = l;
@@ -365,30 +393,28 @@ __device__ void prepare_rounds(const double* row, int n, const Stats& s,
   __syncwarp();
 }
 
+template <class real>
 __global__ void __launch_bounds__(WARP)
-hky_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
-                 const double* __restrict__ fsc,
-                 const double* __restrict__ pi0,
-                 const double* __restrict__ tt,
-                 const double* __restrict__ M,
-                 const double* __restrict__ rf, double kappa_m,
-                 double kappa_s, double* kappa_out, double* pi_out,
-                 double* q_out) {
-  __shared__ Round rounds[WARP];
+hky_chain_kernel(const real* __restrict__ u, int u_stride, int n_rounds,
+                 const real* __restrict__ fsc, const real* __restrict__ pi0,
+                 const real* __restrict__ tt, const real* __restrict__ M,
+                 const real* __restrict__ rf, real kappa_m, real kappa_s,
+                 real* kappa_out, real* pi_out, real* q_out) {
+  __shared__ Round<real> rounds[WARP];
   const int lane = threadIdx.x;
-  double row[6];
+  real row[6];
   load_rows(u, u_stride, 0, min(WARP, n_rounds), row);
 
   // The statistics, one value a lane: M (lanes 0-15), pi0 (16-19), tt
   // (20-23), rf (24-27), mu and kappa0 (28, 29).
-  double v = 0.0;
+  real v = real(0);
   if (lane < 16) v = M[lane];
   else if (lane < 20) v = pi0[lane - 16];
   else if (lane < 24) v = tt[lane - 20];
   else if (lane < 28) v = rf[lane - 24];
   else if (lane < 30) v = fsc[lane - 28];
-  Stats s;
-  double pi[4];
+  Stats<real> s;
+  real pi[4];
   for (int k = 0; k < 16; ++k) s.M[k] = __shfl_sync(FULL, v, k);
   for (int a = 0; a < 4; ++a) {
     pi[a] = __shfl_sync(FULL, v, 16 + a);
@@ -396,32 +422,34 @@ hky_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
     s.rf[a] = __shfl_sync(FULL, v, 24 + a);
   }
   s.mu = __shfl_sync(FULL, v, 28);
-  const double kappa0 = __shfl_sync(FULL, v, 29);
+  const real kappa0 = __shfl_sync(FULL, v, 29);
   s.kappa_m = kappa_m;
   s.kappa_s = kappa_s;
-  s.inv_2s2 = 1.0 / (2.0 * kappa_s * kappa_s);
+  s.inv_2s2 = real(1) / (real(2) * kappa_s * kappa_s);
 
   // The folded weights: lane 4a + b < 16 holds M_ab where it counts.
   const int a = (lane >> 2) & 3, b = lane & 3;
-  const double m = (lane < 16 && a != b && v > 0.0) ? v : 0.0;
-  double col = m, ts = (a % 2 == b % 2) ? m : 0.0;
+  const real m = (lane < 16 && a != b && v > real(0)) ? v : real(0);
+  real col = m, ts = (a % 2 == b % 2) ? m : real(0);
   for (int off = 4; off < 16; off <<= 1)
     col += __shfl_xor_sync(FULL, col, off);   // lane b: column sum of b
-  double tot = col;
+  real tot = col;
   for (int off = 1; off < 4; off <<= 1)
     tot += __shfl_xor_sync(FULL, tot, off);
   for (int off = 1; off < 16; off <<= 1)
     ts += __shfl_xor_sync(FULL, ts, off);
   for (int c = 0; c < 4; ++c)
-    s.w[c] = __shfl_sync(FULL, col, c) + (s.rf[c] > 0.0 ? s.rf[c] : 0.0);
+    s.w[c] = __shfl_sync(FULL, col, c) +
+             (s.rf[c] > real(0) ? s.rf[c] : real(0));
   s.m_tot = __shfl_sync(FULL, tot, 0);
   s.m_ts = __shfl_sync(FULL, ts, 0);
 
-  bool fold = isfinite(kappa0) && kappa0 > 0.0;
-  for (int c = 0; c < 4; ++c) fold = fold && isfinite(pi[c]) && pi[c] > 0.0;
+  bool fold = r_isfinite(kappa0) && kappa0 > real(0);
+  for (int c = 0; c < 4; ++c)
+    fold = fold && r_isfinite(pi[c]) && pi[c] > real(0);
 
   if (fold) {
-    Chain c{kappa0, log(kappa0), {pi[0], pi[1], pi[2], pi[3]}};
+    Chain<real> c{kappa0, r_log(kappa0), {pi[0], pi[1], pi[2], pi[3]}};
     for (int base = 0; base < n_rounds; base += WARP) {
       const int n = min(WARP, n_rounds - base);
       if (base > 0) load_rows(u, u_stride, base, n, row);
@@ -430,14 +458,14 @@ hky_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
         folded_batch(c, rounds, r0, min(n - r0, 2) * 2, s);
       __syncwarp();
     }
-    const double q = hky_q_entry(c.kappa, c.p, lane);
+    const real q = hky_q_entry(c.kappa, c.p, lane);
     if (lane < 16) q_out[lane] = q;
     if (lane == 0) {
       kappa_out[0] = c.kappa;
       for (int k = 0; k < 4; ++k) pi_out[k] = c.p[k];
     }
   } else {
-    PerEntry e;
+    PerEntry<real> e;
     e.kappa = kappa0;
     for (int c = 0; c < 4; ++c) e.pi[c] = pi[c];
     hky_q(kappa0, pi, e.q);
@@ -457,6 +485,17 @@ hky_chain_kernel(const double* __restrict__ u, int u_stride, int n_rounds,
   }
 }
 
+template <class real>
+int launch(const real* u, int u_stride, int n_rounds, const real* fsc,
+           const real* pi0, const real* tt, const real* M, const real* rf,
+           double kappa_m, double kappa_s, real* kappa_out, real* pi_out,
+           real* q_out, void* stream) {
+  hky_chain_kernel<real><<<1, WARP, 0, (cudaStream_t)stream>>>(
+      u, u_stride, n_rounds, fsc, pi0, tt, M, rf, (real)kappa_m,
+      (real)kappa_s, kappa_out, pi_out, q_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int delphy_hky_chain(const double* u, int u_stride, int n_rounds,
@@ -466,10 +505,21 @@ extern "C" int delphy_hky_chain(const double* u, int u_stride, int n_rounds,
                                 double kappa_s, double* kappa_out,
                                 double* pi_out, double* q_out,
                                 void* stream) {
-  hky_chain_kernel<<<1, WARP, 0, (cudaStream_t)stream>>>(
-      u, u_stride, n_rounds, fsc, pi0, tt, M, rf, kappa_m, kappa_s, kappa_out,
-      pi_out, q_out);
-  return (int)cudaGetLastError();
+  return launch(u, u_stride, n_rounds, fsc, pi0, tt, M, rf, kappa_m, kappa_s,
+                kappa_out, pi_out, q_out, stream);
+}
+
+// the float32 build: every pointer float, kappa_m and kappa_s rounded to
+// float
+extern "C" int delphy_hky_chain_f32(const float* u, int u_stride,
+                                    int n_rounds, const float* fsc,
+                                    const float* pi0, const float* tt,
+                                    const float* M, const float* rf,
+                                    double kappa_m, double kappa_s,
+                                    float* kappa_out, float* pi_out,
+                                    float* q_out, void* stream) {
+  return launch(u, u_stride, n_rounds, fsc, pi0, tt, M, rf, kappa_m, kappa_s,
+                kappa_out, pi_out, q_out, stream);
 }
 
 extern "C" const char* delphy_cuda_error_string(int code) {

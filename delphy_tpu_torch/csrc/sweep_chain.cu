@@ -67,8 +67,8 @@
 //   and reduced once at the end (warp shuffles, then one shared stage), so
 //   no reduction sits inside the chain.
 // Summation order differs from the plain version (warp-tree dq, per-thread
-// partial sums of dG and dC); accept decisions match.  f64 throughout, with
-// expm1/log1p and +-inf.
+// partial sums of dG and dC); accept decisions match.  One precision
+// throughout, with expm1/log1p and +-inf.
 //
 // Rows beyond shared memory (the global build): where even one uniform stage
 // does not fit in the 227 KB a block can use (a part of ~1,000 nodes or
@@ -101,10 +101,31 @@
 // skygrid run with its XLA part_sweep instead (the Pallas chain hard-codes
 // the exponential model); both routes make the same moves.
 
-#include <cuda_runtime.h>
-#include <math.h>
+// Precision: the kernel is also a template on `real` (real.cuh).  The four
+// entries above are the float64 builds; each has a float32 build, the TPU
+// kernel's own precision, behind the same name with the suffix _f32
+// (expf/expm1f/log1pf/logf, no fast-math intrinsic).  What changes with the
+// type:
+// - shared memory is counted in sizeof(real) (smem_bytes, stages_for,
+//   global_smem_bytes, workspace_stride), so a float32 part keeps its rows
+//   in shared memory up to about twice the size;
+// - the uniform prefetch copies one value per cp.async (8 or 4 bytes), so
+//   no copy straddles two values whatever the stage's offset;
+// - the colour-block priority maximum takes the atomicMax of the uniform's
+//   bit pattern in an integer of the type's width (__double_as_longlong or
+//   __float_as_uint; for values >= 0 either order is the numeric order),
+//   and the selection is still pri == best, the plain version's ties;
+// - the k_p scatter's race-freedom (MARGIN) holds in float32 as in float64:
+//   cell_of of a window edge is at most one cell out while one ulp of the
+//   times is far below a cell (at Ebola times, ~-2000 days, a float32 ulp is
+//   ~1.2e-4 days against cells of days);
+// - the per-thread move counts (cntm) are sums of integers below 2^24 a
+//   part, exact in float32.
+#include "real.cuh"
 
 namespace {
+
+using namespace delphy_real;
 
 constexpr int MAX_THREADS = 512;
 constexpr int MARGIN = 2;  // cells beyond a node's old/new cells where dk == 0
@@ -115,33 +136,52 @@ constexpr int SMEM_LIMIT = 227 * 1024;
 constexpr int SC_SEL = 0, SC_NODE_I = 1, SC_NODE_T = 2, SC_PROP = 3,
               SC_ACC = 4, SC_OFF = 5, SC_LANES = 6;
 
+template <class real>
 struct Shared {
-  double t_lo, t_step, t_max_tip, log_n0, g, t0, log_min_pop;
+  real t_lo, t_step, t_max_tip, log_n0, g, t0, log_min_pop;
 };
 
+template <class real>
 struct Uniforms {
-  const double *pri, *prop, *acc, *ref_acc, *ref_u, *sc, *norm;
+  const real *pri, *prop, *acc, *ref_acc, *ref_u, *sc, *norm;
   int S, Z;
 };
 
-__device__ __forceinline__ double clip(double x, double lo, double hi) {
-  return fmin(fmax(x, lo), hi);
+// the integer of a real's width, for the priority maximum's bit patterns
+template <class real> struct Bits;
+template <> struct Bits<double> {
+  using type = unsigned long long;
+  __device__ static type of(double x) { return (type)__double_as_longlong(x); }
+  __device__ static double back(type b) {
+    return __longlong_as_double((long long)b);
+  }
+};
+template <> struct Bits<float> {
+  using type = unsigned int;
+  __device__ static type of(float x) { return __float_as_uint(x); }
+  __device__ static float back(type b) { return __uint_as_float(b); }
+};
+
+template <class real>
+__device__ __forceinline__ real clip(real x, real lo, real hi) {
+  return r_min(r_max(x, lo), hi);
 }
 
 constexpr int POP_EXP = 0, POP_STAIRCASE = 1, POP_LOG_LINEAR = 2;
 
 // skygrid knots in shared memory (M + 1 of each; unused by POP_EXP)
+template <class real>
 struct Knots {
-  const double* x;
-  const double* g;
+  const real* x;
+  const real* g;
   int M;
 };
 
-template <int POP>
-__device__ __forceinline__ double log_pop(double t, const Shared& s,
-                                          const Knots& kn) {
+template <int POP, class real>
+__device__ __forceinline__ real log_pop(real t, const Shared<real>& s,
+                                        const Knots<real>& kn) {
   if constexpr (POP == POP_EXP) {
-    return fmax(s.log_min_pop, s.log_n0 + s.g * (t - s.t0));
+    return r_max(s.log_min_pop, s.log_n0 + s.g * (t - s.t0));
   } else {
     // k = the number of knots below t
     int lo = 0, hi = kn.M + 1;
@@ -157,58 +197,66 @@ __device__ __forceinline__ double log_pop(double t, const Shared& s,
     if constexpr (POP == POP_STAIRCASE) {
       return kn.g[lo];
     } else {
-      double c = (t - kn.x[lo - 1]) / (kn.x[lo] - kn.x[lo - 1]);
-      return (1 - c) * kn.g[lo - 1] + c * kn.g[lo];
+      real c = (t - kn.x[lo - 1]) / (kn.x[lo] - kn.x[lo - 1]);
+      return (real(1) - c) * kn.g[lo - 1] + c * kn.g[lo];
     }
   }
 }
 
 // x ~ exp(lam x) on [a, b] from uniform u (distributions.h:38-68, inverse
-// CDF; asymptotic branches beyond |lam (b - a)| = 80)
-__device__ double bounded_exp_u(double u, double lam, double a, double b) {
-  u = fmax(u, 1e-30);
-  double ltr = lam * (b - a);
-  double safe_lam = lam == 0.0 ? 1.0 : lam;
-  double ltr_c = clip(ltr, -80.0, 80.0);
-  double x;
-  if (lam == 0.0)
+// CDF; asymptotic branches beyond |lam (b - a)| = 80); u is floored at
+// 1e-30 in either precision (block_pallas.py _bounded_exp_u), so a float32
+// uniform that is exactly 0 stays finite here
+template <class real>
+__device__ real bounded_exp_u(real u, real lam, real a, real b) {
+  u = r_max(u, real(1e-30));
+  real ltr = lam * (b - a);
+  real safe_lam = lam == real(0) ? real(1) : lam;
+  real ltr_c = clip(ltr, real(-80), real(80));
+  real x;
+  if (lam == real(0))
     x = a + u * (b - a);
-  else if (lam > 0.0 && ltr > 80.0)
-    x = b + log(u) / safe_lam;
-  else if (lam < 0.0 && ltr < -80.0)
-    x = a + log(u) / safe_lam;
+  else if (lam > real(0) && ltr > real(80))
+    x = b + r_log(u) / safe_lam;
+  else if (lam < real(0) && ltr < real(-80))
+    x = a + r_log(u) / safe_lam;
   else
-    x = a + log1p(u * expm1(ltr_c)) / safe_lam;
+    x = a + r_log1p(u * r_expm1(ltr_c)) / safe_lam;
   return clip(x, a, b);
 }
 
 // frac of cell c covered below t: clip((t - lb) / t_step, 0, 1), with the
 // division only inside the cell.  Exact: for x = t - lb, the rounded x / t_step
 // is >= 1 iff x >= t_step and > 0 iff x > 0 (and NaN clips to 0).
-__device__ __forceinline__ double frac(double t, double lb, double t_step) {
-  double x = t - lb;
-  return x >= t_step ? 1.0 : (x > 0.0 ? x / t_step : 0.0);
+template <class real>
+__device__ __forceinline__ real frac(real t, real lb, real t_step) {
+  real x = t - lb;
+  return x >= t_step ? real(1) : (x > real(0) ? x / t_step : real(0));
 }
 
-__device__ __forceinline__ int cell_of(double t, const Shared& s, int C) {
-  double c = floor((t - s.t_lo) / s.t_step);
-  return (int)clip(c, -MARGIN - 1.0, (double)(C + MARGIN + 1));
+template <class real>
+__device__ __forceinline__ int cell_of(real t, const Shared<real>& s, int C) {
+  real c = r_floor((t - s.t_lo) / s.t_step);
+  return (int)clip(c, real(-MARGIN - 1), real(C + MARGIN + 1));
 }
 
 // k_p change of one displacement from ot to nt in cell c
-__device__ __forceinline__ double dk_at(int c, double ot, double nt,
-                                        double sign, const Shared& s) {
-  double lb = s.t_lo + s.t_step * (double)c;
+template <class real>
+__device__ __forceinline__ real dk_at(int c, real ot, real nt, real sign,
+                                      const Shared<real>& s) {
+  real lb = s.t_lo + s.t_step * (real)c;
   return sign * (frac(nt, lb, s.t_step) - frac(ot, lb, s.t_step));
 }
 
 // quadratic-prior change of adding dk to cell c
-__device__ __forceinline__ double dq_at(double dkc, double k, double inv,
-                                        double A, double b) {
-  return inv * (0.5 * ((k + dkc) * (k + dkc) - k * k) * A - b * dkc);
+template <class real>
+__device__ __forceinline__ real dq_at(real dkc, real k, real inv, real A,
+                                      real b) {
+  return inv * (real(0.5) * ((k + dkc) * (k + dkc) - k * k) * A - b * dkc);
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <class real>
+__device__ __forceinline__ real warp_sum(real v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
@@ -223,27 +271,38 @@ __device__ __forceinline__ unsigned group_mask() {
   return ((1u << GROUP) - 1) << ((threadIdx.x & 31) & ~(GROUP - 1));
 }
 
-__device__ __forceinline__ double group_sum(double v) {
+template <class real>
+__device__ __forceinline__ real group_sum(real v) {
   for (int o = 1; o < GROUP; o <<= 1)
     v += __shfl_xor_sync(group_mask(), v, o);
   return v;
 }
 
-__device__ __forceinline__ double group_max(double v) {
+template <class real>
+__device__ __forceinline__ real group_max(real v) {
   for (int o = 1; o < GROUP; o <<= 1)
-    v = fmax(v, __shfl_xor_sync(group_mask(), v, o));
+    v = r_max(v, __shfl_xor_sync(group_mask(), v, o));
   return v;
 }
 
-__device__ __forceinline__ double group_min(double v) {
+template <class real>
+__device__ __forceinline__ real group_min(real v) {
   for (int o = 1; o < GROUP; o <<= 1)
-    v = fmin(v, __shfl_xor_sync(group_mask(), v, o));
+    v = r_min(v, __shfl_xor_sync(group_mask(), v, o));
   return v;
 }
 
-__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+// one value's asynchronous copy into shared memory
+__device__ __forceinline__ void cp_async1(double* dst, const double* src) {
   unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async1(float* dst, const float* src) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src)
                : "memory");
 }
@@ -252,81 +311,89 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// doubles of one block step's uniforms in shared memory:
+// values of one block step's uniforms in shared memory:
 // pri, prop, acc, ref_acc (NC each), ref_u (MC), sc lanes, norm lane 0
-__host__ __device__ __forceinline__ int stage_doubles(int NC, int MC) {
+__host__ __device__ __forceinline__ int stage_values(int NC, int MC) {
   return 4 * NC + MC + SC_LANES + 1;
 }
 
 // start copying block step ub's uniforms of this part into buf, with the
 // threads from `first` on
-__device__ void fetch_uniforms(double* buf, const Uniforms& u, long ub,
+template <class real>
+__device__ void fetch_uniforms(real* buf, const Uniforms<real>& u, long ub,
                                int NC, int MC, int first) {
   const int i = threadIdx.x - first, nt = blockDim.x - first;
   if (i < 0) return;
   for (int k = i; k < NC; k += nt) {
-    cp_async8(buf + k, u.pri + ub * NC + k);
-    cp_async8(buf + NC + k, u.prop + ub * NC + k);
-    cp_async8(buf + 2 * NC + k, u.acc + ub * NC + k);
-    cp_async8(buf + 3 * NC + k, u.ref_acc + ub * NC + k);
+    cp_async1(buf + k, u.pri + ub * NC + k);
+    cp_async1(buf + NC + k, u.prop + ub * NC + k);
+    cp_async1(buf + 2 * NC + k, u.acc + ub * NC + k);
+    cp_async1(buf + 3 * NC + k, u.ref_acc + ub * NC + k);
   }
   for (int k = i; k < MC; k += nt)
-    cp_async8(buf + 4 * NC + k, u.ref_u + ub * MC + k);
+    cp_async1(buf + 4 * NC + k, u.ref_u + ub * MC + k);
   for (int k = i; k <= SC_LANES; k += nt)
-    cp_async8(buf + 4 * NC + MC + k,
+    cp_async1(buf + 4 * NC + MC + k,
               k < SC_LANES ? u.sc + ub * u.S + k : u.norm + ub * u.Z);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // K: skygrid knots (0 for the exponential model)
+template <class real>
 __host__ __device__ size_t smem_bytes(int NC, int MC, int C_real, int cpb,
                                       int stages, int K) {
   int n_seg = C_real / cpb + 1;
-  size_t doubles = 11 * (size_t)NC + 2 * (size_t)MC + 4 * (size_t)C_real +
-                   (size_t)stages * stage_doubles(NC, MC) + 3 * 32 +
-                   2 * (size_t)K;
-  size_t u64s = n_seg;
+  size_t reals = 11 * (size_t)NC + 2 * (size_t)MC + 4 * (size_t)C_real +
+                 (size_t)stages * stage_values(NC, MC) + 3 * 32 +
+                 2 * (size_t)K;
+  size_t bits = n_seg;
   size_t ints = 9 * (size_t)NC + 1 + 3 * (size_t)MC + n_seg + 2;
-  return doubles * sizeof(double) + u64s * 8 + ints * sizeof(int);
+  return reals * sizeof(real) + bits * sizeof(real) + ints * sizeof(int);
 }
 
 // uniform stages in shared memory: 2 or 1, or 0 for the global build
+template <class real>
 int stages_for(int NC, int MC, int C_real, int cpb, int K) {
-  if (smem_bytes(NC, MC, C_real, cpb, 2, K) <= (size_t)SMEM_LIMIT) return 2;
-  if (smem_bytes(NC, MC, C_real, cpb, 1, K) <= (size_t)SMEM_LIMIT) return 1;
+  if (smem_bytes<real>(NC, MC, C_real, cpb, 2, K) <= (size_t)SMEM_LIMIT)
+    return 2;
+  if (smem_bytes<real>(NC, MC, C_real, cpb, 1, K) <= (size_t)SMEM_LIMIT)
+    return 1;
   return 0;
 }
 
 // the global build: shared bytes (reduction scratch, segment maxima, the
 // per-segment and scalar counters) and the bytes of one part's workspace
 // slice (the whole layout with no stage, rounded to 128)
+template <class real>
 __host__ __device__ size_t global_smem_bytes(int C_real, int cpb) {
   int n_seg = C_real / cpb + 1;
-  return 3 * 32 * sizeof(double) + (size_t)n_seg * 8 +
+  return 3 * 32 * sizeof(real) + (size_t)n_seg * sizeof(real) +
          ((size_t)n_seg + 2) * sizeof(int);
 }
 
+template <class real>
 __host__ __device__ size_t workspace_stride(int NC, int MC, int C_real,
                                             int cpb, int K) {
-  return (smem_bytes(NC, MC, C_real, cpb, 0, K) + 127) / 128 * 128;
+  return (smem_bytes<real>(NC, MC, C_real, cpb, 0, K) + 127) / 128 * 128;
 }
 
-template <int POP, bool GLOBAL>
+template <class real, int POP, bool GLOBAL>
 __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     int NC, int MC, int C, int C_real, int cpb, int n_blocks, int stages,
-    const double* __restrict__ t_in,
-    const double* __restrict__ mut_in, const double* __restrict__ kp_in,
+    const real* __restrict__ t_in,
+    const real* __restrict__ mut_in, const real* __restrict__ kp_in,
     const int* __restrict__ par_g, const int* __restrict__ c0_g,
-    const int* __restrict__ c1_g, const double* __restrict__ tmin_g,
-    const double* __restrict__ tmax_g, const double* __restrict__ lam_g,
-    const double* __restrict__ dlam_g, const int* __restrict__ mnode_g,
+    const int* __restrict__ c1_g, const real* __restrict__ tmin_g,
+    const real* __restrict__ tmax_g, const real* __restrict__ lam_g,
+    const real* __restrict__ dlam_g, const int* __restrict__ mnode_g,
     const int* __restrict__ mvalid_g, const int* __restrict__ msingle_g,
-    const double* __restrict__ slope_g, const double* __restrict__ b_g,
-    const double* __restrict__ A_g, const double* __restrict__ nbar_g,
-    const int* __restrict__ isc, const double* __restrict__ fsc, int NB,
-    Uniforms un, double* t_out, double* mut_out, double* kp_out,
-    double* acc_out, int K, const double* __restrict__ kx_g,
-    const double* __restrict__ kg_g, double* ws) {
+    const real* __restrict__ slope_g, const real* __restrict__ b_g,
+    const real* __restrict__ A_g, const real* __restrict__ nbar_g,
+    const int* __restrict__ isc, const real* __restrict__ fsc, int NB,
+    Uniforms<real> un, real* t_out, real* mut_out, real* kp_out,
+    real* acc_out, int K, const real* __restrict__ kx_g,
+    const real* __restrict__ kg_g, real* ws) {
+  using ubits = typename Bits<real>::type;
   const int p = blockIdx.x;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -336,38 +403,42 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   const int is_run_root = isc[p * 4 + 1];
   const int n_leaves = isc[p * 4 + 2];
   const int n_nodes = isc[p * 4 + 3];
-  const Shared sh{fsc[0], fsc[1], fsc[2], fsc[3], fsc[4], fsc[5], fsc[6]};
+  const Shared<real> sh{fsc[0], fsc[1], fsc[2], fsc[3], fsc[4], fsc[5],
+                        fsc[6]};
   const int n_seg = C_real / cpb + 1;
-  const int UB = stage_doubles(NC, MC);
+  const int UB = stage_values(NC, MC);
 
-  // ---- shared memory carve-up (doubles, then u64, then ints); the global
-  // build carves its part's workspace slice instead ----
-  extern __shared__ double smem[];
-  double* rows = smem;
+  // ---- shared memory carve-up (reals, then the priority bit patterns,
+  // then ints); the global build carves its part's workspace slice
+  // instead ----
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  real* smem = reinterpret_cast<real*>(smem_raw);
+  real* rows = smem;
   if constexpr (GLOBAL)
-    rows = ws + (long)p * (workspace_stride(NC, MC, C_real, cpb, K) / 8);
-  double* t = rows;                 // NC
-  double* t_min = t + NC;           // NC
-  double* t_max = t_min + NC;       // NC
-  double* lam = t_max + NC;         // NC
-  double* dlam = lam + NC;          // NC
-  double* own_max = dlam + NC;      // NC: latest mutation time on the branch
-  double* child_min = own_max + NC; // NC: earliest mutation time on it
-  double* win_lo = child_min + NC;  // NC
-  double* win_hi = win_lo + NC;     // NC
-  double* new_t = win_hi + NC;      // NC
-  double* t_old = new_t + NC;       // NC
-  double* mut_t = t_old + NC;       // MC
-  double* slope = mut_t + MC;       // MC
-  double* kp = slope + MC;          // C_real
-  double* bc = kp + C_real;         // C_real
-  double* Ac = bc + C_real;         // C_real
-  double* inv = Ac + C_real;        // C_real: t_step / nbar
-  double* ubuf = inv + C_real;      // stages x UB
-  double* red = ubuf + stages * UB; // 3 x 32
-  double* kx = red + 3 * 32;        // K: skygrid knot times
-  double* kg = kx + K;              // K: skygrid log N at the knots
-  unsigned long long* best = (unsigned long long*)(kg + K);  // n_seg
+    rows = ws + (long)p * (workspace_stride<real>(NC, MC, C_real, cpb, K) /
+                           sizeof(real));
+  real* t = rows;                 // NC
+  real* t_min = t + NC;           // NC
+  real* t_max = t_min + NC;       // NC
+  real* lam = t_max + NC;         // NC
+  real* dlam = lam + NC;          // NC
+  real* own_max = dlam + NC;      // NC: latest mutation time on the branch
+  real* child_min = own_max + NC; // NC: earliest mutation time on it
+  real* win_lo = child_min + NC;  // NC
+  real* win_hi = win_lo + NC;     // NC
+  real* new_t = win_hi + NC;      // NC
+  real* t_old = new_t + NC;       // NC
+  real* mut_t = t_old + NC;       // MC
+  real* slope = mut_t + MC;       // MC
+  real* kp = slope + MC;          // C_real
+  real* bc = kp + C_real;         // C_real
+  real* Ac = bc + C_real;         // C_real
+  real* inv = Ac + C_real;        // C_real: t_step / nbar
+  real* ubuf = inv + C_real;      // stages x UB
+  real* red = ubuf + stages * UB; // 3 x 32
+  real* kx = red + 3 * 32;        // K: skygrid knot times
+  real* kg = kx + K;              // K: skygrid log N at the knots
+  ubits* best = (ubits*)(kg + K); // n_seg
   int* par = (int*)(best + n_seg);  // NC
   int* c0 = par + NC;               // NC
   int* c1 = c0 + NC;                // NC
@@ -384,7 +455,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   int* iscal = seg_acc + n_seg;     // [0] tie flag, [1] reform batch size
   if constexpr (GLOBAL) {           // these four stay in shared memory
     red = smem;
-    best = (unsigned long long*)(red + 3 * 32);
+    best = (ubits*)(red + 3 * 32);
     seg_acc = (int*)(best + n_seg);
     iscal = seg_acc + n_seg;
   }
@@ -423,12 +494,12 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     kg[k] = kg_g[k];
   }
   for (int s = tid; s < n_seg; s += T) {
-    best[s] = 0ull;
+    best[s] = 0;
     seg_acc[s] = 0;
   }
   if (tid == 0) iscal[0] = 0;
   __syncthreads();
-  const Knots kn{kx, kg, K - 1};
+  const Knots<real> kn{kx, kg, K - 1};
 
   // ---- per-node slot lists (the pool is static within a sweep) ----
   for (int n = tid; n < NC; n += T) {
@@ -447,14 +518,15 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     iscal[1] = nb;  // nodes in the reform batch
   }
   __syncthreads();
+  const real kInf = r_inf<real>();
   for (int n = tid; n < NC; n += T) {
     int k = slot_start[n];
-    double mx = -INFINITY, mn = INFINITY;
+    real mx = -kInf, mn = kInf;
     for (int j = 0; j < MC; ++j)
       if ((sflag[j] & 1) && mnode[j] == n) {
         slot_list[k++] = j;
-        mx = fmax(mx, mut_t[j]);
-        mn = fmin(mn, mut_t[j]);
+        mx = r_max(mx, mut_t[j]);
+        mn = r_min(mn, mut_t[j]);
       }
     own_max[n] = mx;
     child_min[n] = mn;
@@ -462,16 +534,16 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   if constexpr (!GLOBAL) cp_async_wait_all();
   __syncthreads();
 
-  const double grid_lo = sh.t_lo + sh.t_step;
+  const real grid_lo = sh.t_lo + sh.t_step;
   const int nb_reform = iscal[1];
   const bool scatter_ok = cpb >= 2 * MARGIN + 2;
   // this thread's share of the part's dG, dC and move count
-  double dG = 0.0, dC = 0.0, cntm = 0.0;
+  real dG = real(0), dC = real(0), cntm = real(0);
 
   for (int blk_i = 0; blk_i < n_blocks; ++blk_i) {
     const long ub = (long)p * NB + blk_i;
-    const double *upri, *uprop, *uacc, *urefacc, *uref, *usc;
-    double unorm0;
+    const real *upri, *uprop, *uacc, *urefacc, *uref, *usc;
+    real unorm0;
     if constexpr (GLOBAL) {  // in place in the uniforms' global arrays
       upri = un.pri + ub * NC;
       uprop = un.prop + ub * NC;
@@ -481,7 +553,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       usc = un.sc + ub * un.S;
       unorm0 = un.norm[ub * un.Z];
     } else {
-      double* U = ubuf + (stages == 2 ? (blk_i & 1) * UB : 0);
+      real* U = ubuf + (stages == 2 ? (blk_i & 1) * UB : 0);
       if (stages == 1 && blk_i > 0) {
         fetch_uniforms(ubuf, un, ub, NC, MC, 0);
         cp_async_wait_all();
@@ -499,69 +571,72 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       usc = U + 4 * NC + MC;
       unorm0 = usc[SC_LANES];
     }
-    const int offset = (int)floor(usc[SC_OFF] * (double)cpb);
+    const int offset = (int)r_floor(usc[SC_OFF] * (real)cpb);
 
     // =========== single node / tip displacement (warp 0) ===========
     if (warp == 0) {
-      bool inner = usc[SC_SEL] < 0.5;
+      bool inner = usc[SC_SEL] < real(0.5);
       int n_inner = n_nodes - n_leaves;
       int node_i = n_leaves +
-          (int)floor(usc[SC_NODE_I] * (double)max(n_inner, 1));
-      int node_t = (int)floor(usc[SC_NODE_T] * (double)max(n_leaves, 1));
+          (int)r_floor(usc[SC_NODE_I] * (real)max(n_inner, 1));
+      int node_t = (int)r_floor(usc[SC_NODE_T] * (real)max(n_leaves, 1));
       int node = inner ? node_i : node_t;
       bool ok = node >= 0 && node < NC;
       int nd = ok ? node : 0;
       bool is_root_move = inner && node == part_root;
-      double tmin_n = ok ? t_min[nd] : 0.0, tmax_n = ok ? t_max[nd] : 0.0;
+      real tmin_n = ok ? t_min[nd] : real(0), tmax_n = ok ? t_max[nd] : real(0);
       bool valid = inner ? (!is_root_move || is_run_root != 0)
                          : (tmin_n < tmax_n);
-      double own = ok ? own_max[nd] : -INFINITY;
+      real own = ok ? own_max[nd] : -kInf;
       int par_n = ok ? par[nd] : 0;
       int safe_par = max(par_n, 0);
-      double t_par = is_root_move ? grid_lo : t[safe_par];
-      double t_lo_b = fmax(t_par, own);
-      if (!inner) t_lo_b = fmax(t_lo_b, tmin_n);
+      real t_par = is_root_move ? grid_lo : t[safe_par];
+      real t_lo_b = r_max(t_par, own);
+      if (!inner) t_lo_b = r_max(t_lo_b, tmin_n);
       int c0n = ok ? c0[nd] : 0, c1n = ok ? c1[nd] : 0;
-      double cb0 = c0n < 0 ? INFINITY : fmin(t[c0n], child_min[c0n]);
-      double cb1 = c1n < 0 ? INFINITY : fmin(t[c1n], child_min[c1n]);
-      double t_hi = inner ? fmin(cb0, cb1) : tmax_n;
-      double lam_n = ok ? lam[nd] : 0.0;
-      double lam_b0 = c0n >= 0 ? lam_n + dlam[max(c0n, 0)] : 0.0;
-      double lam_b1 = c1n >= 0 ? lam_n + dlam[max(c1n, 0)] : 0.0;
-      double d = inner ? ((is_root_move ? 0.0 : -lam_n) + lam_b0 + lam_b1)
-                       : -lam_n;
-      double old_t = ok ? t[nd] : 0.0;
-      double tree_span = fmax(sh.t_max_tip - t_hi, 0.0);
-      double delta_scale = fmin(0.5 / fmax(lam_n, 1e-30), tree_span);
-      double root_t = old_t + delta_scale * unorm0;
-      double a = t_lo_b > -INFINITY ? t_lo_b : old_t - 1.0;
-      double bnd = t_hi < INFINITY ? t_hi : old_t + 1.0;
-      double nt = is_root_move
+      real cb0 = c0n < 0 ? kInf : r_min(t[c0n], child_min[c0n]);
+      real cb1 = c1n < 0 ? kInf : r_min(t[c1n], child_min[c1n]);
+      real t_hi = inner ? r_min(cb0, cb1) : tmax_n;
+      real lam_n = ok ? lam[nd] : real(0);
+      real lam_b0 = c0n >= 0 ? lam_n + dlam[max(c0n, 0)] : real(0);
+      real lam_b1 = c1n >= 0 ? lam_n + dlam[max(c1n, 0)] : real(0);
+      real d = inner ? ((is_root_move ? real(0) : -lam_n) + lam_b0 + lam_b1)
+                     : -lam_n;
+      real old_t = ok ? t[nd] : real(0);
+      real tree_span = r_max(sh.t_max_tip - t_hi, real(0));
+      real delta_scale = r_min(real(0.5) / r_max(lam_n, real(1e-30)),
+                               tree_span);
+      real root_t = old_t + delta_scale * unorm0;
+      real a = t_lo_b > -kInf ? t_lo_b : old_t - real(1);
+      real bnd = t_hi < kInf ? t_hi : old_t + real(1);
+      real nt = is_root_move
           ? root_t
-          : bounded_exp_u(usc[SC_PROP], d, fmin(a, bnd), bnd);
+          : bounded_exp_u(usc[SC_PROP], d, r_min(a, bnd), bnd);
       bool in_bounds = valid && nt > t_lo_b && nt < t_hi && t_lo_b < t_hi;
-      double dlg = d * (nt - old_t);
-      double log_alpha = is_root_move ? 0.0 : dlg;
-      double dlogn = inner ? -(log_pop<POP>(nt, sh, kn) -
-                               log_pop<POP>(old_t, sh, kn))
-                           : 0.0;
-      double sign = inner ? -1.0 : 1.0;
-      int lo = max(cell_of(fmin(old_t, nt), sh, C_real) - MARGIN, 0);
-      int hi = min(cell_of(fmax(old_t, nt), sh, C_real) + MARGIN, C_real - 1);
-      double dq = 0.0;
+      real dlg = d * (nt - old_t);
+      real log_alpha = is_root_move ? real(0) : dlg;
+      real dlogn = inner ? -(log_pop<POP>(nt, sh, kn) -
+                             log_pop<POP>(old_t, sh, kn))
+                         : real(0);
+      real sign = inner ? real(-1) : real(1);
+      int lo = max(cell_of(r_min(old_t, nt), sh, C_real) - MARGIN, 0);
+      int hi = min(cell_of(r_max(old_t, nt), sh, C_real) + MARGIN,
+                   C_real - 1);
+      real dq = real(0);
       for (int c = lo + lane; c <= hi; c += 32) {
-        double dkc = dk_at(c, old_t, nt, sign, sh);
-        if (dkc != 0.0) dq += dq_at(dkc, kp[c], inv[c], Ac[c], bc[c]);
+        real dkc = dk_at(c, old_t, nt, sign, sh);
+        if (dkc != real(0)) dq += dq_at(dkc, kp[c], inv[c], Ac[c], bc[c]);
       }
       dq = warp_sum(dq);  // the same total in every lane
-      double dcoal = -dq + dlogn;
-      double log_mh = dlg + dcoal - log_alpha;
+      real dcoal = -dq + dlogn;
+      real log_mh = dlg + dcoal - log_alpha;
       bool accept = in_bounds &&
-                    (log_mh >= 0.0 || log(fmax(usc[SC_ACC], 1e-30)) < log_mh);
+                    (log_mh >= real(0) ||
+                     r_log(r_max(usc[SC_ACC], real(1e-30))) < log_mh);
       if (accept) {
         for (int c = lo + lane; c <= hi; c += 32) {
-          double dkc = dk_at(c, old_t, nt, sign, sh);
-          if (dkc != 0.0) kp[c] += dkc;
+          real dkc = dk_at(c, old_t, nt, sign, sh);
+          if (dkc != real(0)) kp[c] += dkc;
         }
         if (lane == 0) {
           if (ok) t[node] = nt;
@@ -569,7 +644,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
           dC += dcoal;
         }
       }
-      if (lane == 0 && n_nodes > 1) cntm += 1.0;
+      if (lane == 0 && n_nodes > 1) cntm += real(1);
     }
     __syncthreads();  // B1
 
@@ -577,29 +652,29 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     // windows, and the segment maximum of the priorities
     for (int n = tid; n < NC; n += T) {
       bool is_leaf = c0[n] < 0;
-      double t_par = par[n] >= 0 ? t[par[n]] : 0.0;
-      double cb0 = c0[n] >= 0 ? fmin(t[c0[n]], child_min[c0[n]]) : INFINITY;
-      double cb1 = c1[n] >= 0 ? fmin(t[c1[n]], child_min[c1[n]]) : INFINITY;
-      double tl = fmax(t_par, own_max[n]);
-      if (is_leaf) tl = fmax(tl, t_min[n]);
-      double th = is_leaf ? t_max[n] : fmin(cb0, cb1);
+      real t_par = par[n] >= 0 ? t[par[n]] : real(0);
+      real cb0 = c0[n] >= 0 ? r_min(t[c0[n]], child_min[c0[n]]) : kInf;
+      real cb1 = c1[n] >= 0 ? r_min(t[c1[n]], child_min[c1[n]]) : kInf;
+      real tl = r_max(t_par, own_max[n]);
+      if (is_leaf) tl = r_max(tl, t_min[n]);
+      real th = is_leaf ? t_max[n] : r_min(cb0, cb1);
       bool movable = n < n_nodes && n != part_root && tl < th;
-      double cf = floor((t[n] - sh.t_lo) / sh.t_step);
-      bool in_grid = cf >= 0.0 && cf < (double)C_real;
-      int cell = (int)clip(cf, -1.0, (double)C_real);
+      real cf = r_floor((t[n] - sh.t_lo) / sh.t_step);
+      bool in_grid = cf >= real(0) && cf < (real)C_real;
+      int cell = (int)clip(cf, real(-1), (real)C_real);
       int q = cell + offset;
       int b = (q >= 0 ? q / cpb : -((-q + cpb - 1) / cpb));
       b = min(max(b, 0), n_seg - 1);
-      double blo = sh.t_lo + (double)(b * cpb - offset) * sh.t_step;
-      double bhi = blo + (double)cpb * sh.t_step;
-      double wl = fmax(tl, blo), wh = fmin(th, bhi);
+      real blo = sh.t_lo + (real)(b * cpb - offset) * sh.t_step;
+      real bhi = blo + (real)cpb * sh.t_step;
+      real wl = r_max(tl, blo), wh = r_min(th, bhi);
       bool f = movable && in_grid && wl < wh;
       blk[n] = b;
       win_lo[n] = wl;
       win_hi[n] = wh;
       fits[n] = f ? 1 : 0;
-      if (f && upri[n] >= 0.0)
-        atomicMax(&best[b], (unsigned long long)__double_as_longlong(upri[n]));
+      if (f && upri[n] >= real(0))
+        atomicMax(&best[b], Bits<real>::of(upri[n]));
     }
     __syncthreads();  // B2
 
@@ -607,36 +682,37 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     // the node's group), accept
     for (int n = grp; n < NC; n += NG) {
       int acc_n = 0;
-      bool sel0 = fits[n] && upri[n] >= 0.0 &&
-                  upri[n] == __longlong_as_double((long long)best[blk[n]]);
+      bool sel0 = fits[n] && upri[n] >= real(0) &&
+                  upri[n] == Bits<real>::back(best[blk[n]]);
       int pn = par[n];
-      bool psel0 = pn >= 0 && fits[pn] && upri[pn] >= 0.0 &&
-                   upri[pn] == __longlong_as_double((long long)best[blk[pn]]);
+      bool psel0 = pn >= 0 && fits[pn] && upri[pn] >= real(0) &&
+                   upri[pn] == Bits<real>::back(best[blk[pn]]);
       if (sel0 && !psel0) {
-        if (r == 0) cntm += 1.0;
+        if (r == 0) cntm += real(1);
         bool is_leaf = c0[n] < 0;
-        double lb0 = c0[n] >= 0 ? lam[n] + dlam[c0[n]] : 0.0;
-        double lb1 = c1[n] >= 0 ? lam[n] + dlam[c1[n]] : 0.0;
-        double d = -lam[n] + (lb0 + lb1);
-        double wl = win_lo[n], wh = win_hi[n];
-        double nt = bounded_exp_u(uprop[n], d, wl, wh > wl ? wh : wl + 1.0);
+        real lb0 = c0[n] >= 0 ? lam[n] + dlam[c0[n]] : real(0);
+        real lb1 = c1[n] >= 0 ? lam[n] + dlam[c1[n]] : real(0);
+        real d = -lam[n] + (lb0 + lb1);
+        real wl = win_lo[n], wh = win_hi[n];
+        real nt = bounded_exp_u(uprop[n], d, wl, wh > wl ? wh : wl + real(1));
         nt = clip(nt, wl, wh);
         if (nt > wl && nt < wh) {
-          double ot = t[n];
-          double sign = is_leaf ? 1.0 : -1.0;
-          int lo = max(cell_of(fmin(ot, nt), sh, C_real) - MARGIN, 0);
-          int hi = min(cell_of(fmax(ot, nt), sh, C_real) + MARGIN,
+          real ot = t[n];
+          real sign = is_leaf ? real(1) : real(-1);
+          int lo = max(cell_of(r_min(ot, nt), sh, C_real) - MARGIN, 0);
+          int hi = min(cell_of(r_max(ot, nt), sh, C_real) + MARGIN,
                        C_real - 1);
-          double dq = 0.0;
+          real dq = real(0);
           for (int c = lo + r; c <= hi; c += GROUP) {
-            double dkc = dk_at(c, ot, nt, sign, sh);
-            if (dkc != 0.0) dq += dq_at(dkc, kp[c], inv[c], Ac[c], bc[c]);
+            real dkc = dk_at(c, ot, nt, sign, sh);
+            if (dkc != real(0)) dq += dq_at(dkc, kp[c], inv[c], Ac[c], bc[c]);
           }
           dq = group_sum(dq);  // the same total in the group's lanes
-          double dcoal = -dq + (is_leaf ? 0.0
-                                        : -(log_pop<POP>(nt, sh, kn) -
-                                            log_pop<POP>(ot, sh, kn)));
-          if (dcoal >= 0.0 || log(fmax(uacc[n], 1e-30)) < dcoal) {
+          real dcoal = -dq + (is_leaf ? real(0)
+                                      : -(log_pop<POP>(nt, sh, kn) -
+                                          log_pop<POP>(ot, sh, kn)));
+          if (dcoal >= real(0) ||
+              r_log(r_max(uacc[n], real(1e-30))) < dcoal) {
             acc_n = 1;
             if (r == 0) {
               new_t[n] = nt;
@@ -659,10 +735,11 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
     if (serial) {
       // per-cell sum over all accepted nodes (ties, or cpb too small)
       for (int c = tid; c < C_real; c += T) {
-        double add = 0.0;
+        real add = real(0);
         for (int n = 0; n < NC; ++n) {
           if (!accn[n] || c < c_lo[n] || c > c_hi[n]) continue;
-          add += dk_at(c, t_old[n], new_t[n], c0[n] < 0 ? 1.0 : -1.0, sh);
+          add += dk_at(c, t_old[n], new_t[n], c0[n] < 0 ? real(1) : real(-1),
+                       sh);
         }
         kp[c] += add;
       }
@@ -672,11 +749,11 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       if (!serial) {
         int first = blk[n] * cpb - offset;
         int last = blk[n] == n_seg - 1 ? C_real - 1 : first + cpb - 1;
-        double sign = c0[n] < 0 ? 1.0 : -1.0;
+        real sign = c0[n] < 0 ? real(1) : real(-1);
         for (int c = max(c_lo[n], first) + r; c <= min(c_hi[n], last);
              c += GROUP) {
-          double dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
-          if (dkc != 0.0) kp[c] += dkc;
+          real dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
+          if (dkc != real(0)) kp[c] += dkc;
         }
       }
       if (r == 0) t[n] = new_t[n];
@@ -688,43 +765,44 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       if (!serial && accn[n]) {
         int first = blk[n] * cpb - offset;
         int last = blk[n] == n_seg - 1 ? C_real - 1 : first + cpb - 1;
-        double sign = c0[n] < 0 ? 1.0 : -1.0;
+        real sign = c0[n] < 0 ? real(1) : real(-1);
         for (int c = c_lo[n] + r; c <= min(c_hi[n], first - 1); c += GROUP) {
-          double dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
-          if (dkc != 0.0) kp[c] += dkc;
+          real dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
+          if (dkc != real(0)) kp[c] += dkc;
         }
         for (int c = max(c_lo[n], last + 1) + r; c <= c_hi[n]; c += GROUP) {
-          double dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
-          if (dkc != 0.0) kp[c] += dkc;
+          real dkc = dk_at(c, t_old[n], new_t[n], sign, sh);
+          if (dkc != real(0)) kp[c] += dkc;
         }
       }
       // reform: node n's group proposes for its own slots and decides
       bool in_batch = n < n_nodes && n != part_root;
       const int k0 = slot_start[n], k1 = slot_start[n + 1];
-      double tX = t[n];
-      double tP = par[n] >= 0 ? t[par[n]] : 0.0;
-      double delta = 0.0;
+      real tX = t[n];
+      real tP = par[n] >= 0 ? t[par[n]] : real(0);
+      real delta = real(0);
       if (in_batch)
         for (int k = k0 + r; k < k1; k += GROUP) {
           int j = slot_list[k];
           if (!(sflag[j] & 2)) continue;
-          double nm = tP + fmax(uref[j], 1e-16) * (tX - tP);
+          real nm = tP + r_max(uref[j], real(1e-16)) * (tX - tP);
           delta += -slope[j] * (nm - mut_t[j]);
         }
       delta = group_sum(delta);  // the same total in the group's lanes
       bool acc = in_batch &&
-                 (delta >= 0.0 || log(fmax(urefacc[n], 1e-30)) < delta);
+                 (delta >= real(0) ||
+                  r_log(r_max(urefacc[n], real(1e-30))) < delta);
       if (acc && r == 0) dG += delta;
-      double mx = -INFINITY, mn = INFINITY;
+      real mx = -kInf, mn = kInf;
       for (int k = k0 + r; k < k1; k += GROUP) {
         int j = slot_list[k];
-        double v = mut_t[j];
+        real v = mut_t[j];
         if (acc && (sflag[j] & 2)) {
-          v = tP + fmax(uref[j], 1e-16) * (tX - tP);
+          v = tP + r_max(uref[j], real(1e-16)) * (tX - tP);
           mut_t[j] = v;
         }
-        mx = fmax(mx, v);
-        mn = fmin(mn, v);
+        mx = r_max(mx, v);
+        mn = r_min(mn, v);
       }
       mx = group_max(mx);
       mn = group_min(mn);
@@ -734,12 +812,12 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
       }
     }
     for (int s = tid; s < n_seg; s += T) {
-      best[s] = 0ull;
+      best[s] = 0;
       seg_acc[s] = 0;
     }
     if (tid == 0) {
       iscal[0] = 0;
-      cntm += (double)nb_reform;
+      cntm += (real)nb_reform;
     }
     if constexpr (!GLOBAL)
       if (stages == 2) cp_async_wait_all();
@@ -757,7 +835,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sweep_chain_kernel(
   }
   __syncthreads();
   if (tid == 0) {
-    double s0 = 0.0, s1 = 0.0, s2 = 0.0;
+    real s0 = real(0), s1 = real(0), s2 = real(0);
     for (int w = 0; w < T / 32; ++w) {
       s0 += red[w * 3 + 0];
       s1 += red[w * 3 + 1];
@@ -780,177 +858,209 @@ int threads_for(int NC) {
   return t < 64 ? 64 : (t > MAX_THREADS ? MAX_THREADS : t);
 }
 
+// the arguments every entry takes, in the float type `real`
+#define SWEEP_PARAMS(real)                                                    \
+  int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,            \
+      const real *t_in, const real *mut_in, const real *kp_in,                \
+      const int *par, const int *c0, const int *c1, const real *t_min,        \
+      const real *t_max, const real *lam, const real *dlam,                   \
+      const int *mnode, const int *mvalid, const int *msingle,                \
+      const real *slope, const real *b, const real *A, const real *nbar,      \
+      const int *isc, const real *fsc, int NB, const real *u_pri,             \
+      const real *u_prop, const real *u_acc, const real *u_refu,              \
+      const real *u_refacc, const real *u_sc, const real *u_norm, int S,      \
+      int Z, real *t_out, real *mut_out, real *kp_out, real *acc_out
+#define SWEEP_ROWS                                                            \
+  t_in, mut_in, kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode, mvalid,   \
+      msingle, slope, b, A, nbar, isc, fsc, NB
 
-template <int POP>
+template <class real, int POP>
 int launch(int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
-           const double* t_in, const double* mut_in, const double* kp_in,
-           const int* par, const int* c0, const int* c1, const double* t_min,
-           const double* t_max, const double* lam, const double* dlam,
+           const real* t_in, const real* mut_in, const real* kp_in,
+           const int* par, const int* c0, const int* c1, const real* t_min,
+           const real* t_max, const real* lam, const real* dlam,
            const int* mnode, const int* mvalid, const int* msingle,
-           const double* slope, const double* b, const double* A,
-           const double* nbar, const int* isc, const double* fsc, int NB,
-           const Uniforms& un, double* t_out, double* mut_out, double* kp_out,
-           double* acc_out, int K, const double* kx, const double* kg,
-           double* ws, void* stream) {
-  int stages = stages_for(NC, MC, C_real, cpb, K);
+           const real* slope, const real* b, const real* A,
+           const real* nbar, const int* isc, const real* fsc, int NB,
+           const Uniforms<real>& un, real* t_out, real* mut_out,
+           real* kp_out, real* acc_out, int K, const real* kx,
+           const real* kg, real* ws, void* stream) {
+  int stages = stages_for<real>(NC, MC, C_real, cpb, K);
   if ((stages == 0) != (ws != nullptr)) return (int)cudaErrorInvalidValue;
   if (stages == 0) {
-    auto kern = sweep_chain_kernel<POP, true>;
+    auto kern = sweep_chain_kernel<real, POP, true>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributePreferredSharedMemoryCarveout, 0);
     if (e != cudaSuccess) return (int)e;
-    kern<<<P, threads_for(NC), global_smem_bytes(C_real, cpb),
+    kern<<<P, threads_for(NC), global_smem_bytes<real>(C_real, cpb),
            (cudaStream_t)stream>>>(
-        NC, MC, C, C_real, cpb, n_blocks, 0, t_in, mut_in, kp_in, par, c0,
-        c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
-        nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, kx, kg,
-        ws);
+        NC, MC, C, C_real, cpb, n_blocks, 0, SWEEP_ROWS, un, t_out, mut_out,
+        kp_out, acc_out, K, kx, kg, ws);
     return (int)cudaGetLastError();
   }
-  size_t smem = smem_bytes(NC, MC, C_real, cpb, stages, K);
+  size_t smem = smem_bytes<real>(NC, MC, C_real, cpb, stages, K);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sweep_chain_kernel<POP, false>,
+        sweep_chain_kernel<real, POP, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sweep_chain_kernel<POP, false>
+  sweep_chain_kernel<real, POP, false>
       <<<P, threads_for(NC), smem, (cudaStream_t)stream>>>(
-          NC, MC, C, C_real, cpb, n_blocks, stages, t_in, mut_in, kp_in, par,
-          c0, c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b,
-          A, nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, kx,
-          kg, nullptr);
+          NC, MC, C, C_real, cpb, n_blocks, stages, SWEEP_ROWS, un, t_out,
+          mut_out, kp_out, acc_out, K, kx, kg, nullptr);
   return (int)cudaGetLastError();
+}
+
+// the exponential model (ws: the global build's workspace, else null)
+template <class real>
+int exp_entry(SWEEP_PARAMS(real), real* ws, void* stream) {
+  Uniforms<real> un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm,
+                    S, Z};
+  return launch<real, POP_EXP>(P, NC, MC, C, C_real, cpb, n_blocks,
+                               SWEEP_ROWS, un, t_out, mut_out, kp_out,
+                               acc_out, 0, nullptr, nullptr, ws, stream);
+}
+
+// the skygrid of `type` with K knots
+template <class real>
+int skygrid_entry(SWEEP_PARAMS(real), int type, int K, const real* x,
+                  const real* gamma, real* ws, void* stream) {
+  if (K < 2 || (type != POP_STAIRCASE && type != POP_LOG_LINEAR))
+    return (int)cudaErrorInvalidValue;
+  Uniforms<real> un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm,
+                    S, Z};
+  auto go = type == POP_STAIRCASE ? launch<real, POP_STAIRCASE>
+                                  : launch<real, POP_LOG_LINEAR>;
+  return go(P, NC, MC, C, C_real, cpb, n_blocks, SWEEP_ROWS, un, t_out,
+            mut_out, kp_out, acc_out, K, x, gamma, ws, stream);
+}
+
+template <class real>
+unsigned long long smem_of(int NC, int MC, int C_real, int cpb, int K) {
+  int stages = stages_for<real>(NC, MC, C_real, cpb, K);
+  return (unsigned long long)(stages == 0
+                                  ? global_smem_bytes<real>(C_real, cpb)
+                                  : smem_bytes<real>(NC, MC, C_real, cpb,
+                                                     stages, K));
 }
 
 }  // namespace
 
+#define SWEEP_ARGS                                                            \
+  P, NC, MC, C, C_real, cpb, n_blocks, SWEEP_ROWS, u_pri, u_prop, u_acc,      \
+      u_refu, u_refacc, u_sc, u_norm, S, Z, t_out, mut_out, kp_out, acc_out
+
 // the exponential population model; fsc = (t_lo, t_step, t_max_tip, log n0,
 // g, t0, log min_pop).  The shared-memory builds: a shape that needs the
 // global build is refused (cudaErrorInvalidValue).
-extern "C" int delphy_sweep_chain(
-    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
-    const double* t_in, const double* mut_in,
-    const double* kp_in, const int* par, const int* c0, const int* c1,
-    const double* t_min, const double* t_max, const double* lam,
-    const double* dlam, const int* mnode, const int* mvalid,
-    const int* msingle, const double* slope, const double* b,
-    const double* A, const double* nbar, const int* isc, const double* fsc,
-    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
-    const double* u_refu, const double* u_refacc, const double* u_sc,
-    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
-    double* kp_out, double* acc_out, void* stream) {
-  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
-  return launch<POP_EXP>(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in,
-                         kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode,
-                         mvalid, msingle, slope, b, A, nbar, isc, fsc, NB, un,
-                         t_out, mut_out, kp_out, acc_out, 0, nullptr, nullptr,
-                         nullptr, stream);
+extern "C" int delphy_sweep_chain(SWEEP_PARAMS(double), void* stream) {
+  return exp_entry<double>(SWEEP_ARGS, nullptr, stream);
 }
 
 // the skygrid of `type` (1 staircase, 2 log-linear) with K knots x and
 // log-population values gamma; fsc as above, its last four entries unused
-extern "C" int delphy_sweep_chain_skygrid(
-    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
-    const double* t_in, const double* mut_in,
-    const double* kp_in, const int* par, const int* c0, const int* c1,
-    const double* t_min, const double* t_max, const double* lam,
-    const double* dlam, const int* mnode, const int* mvalid,
-    const int* msingle, const double* slope, const double* b,
-    const double* A, const double* nbar, const int* isc, const double* fsc,
-    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
-    const double* u_refu, const double* u_refacc, const double* u_sc,
-    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
-    double* kp_out, double* acc_out, int type, int K, const double* x,
-    const double* gamma, void* stream) {
-  if (K < 2 || (type != POP_STAIRCASE && type != POP_LOG_LINEAR))
-    return (int)cudaErrorInvalidValue;
-  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
-  auto go = type == POP_STAIRCASE ? launch<POP_STAIRCASE>
-                                  : launch<POP_LOG_LINEAR>;
-  return go(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in, kp_in, par, c0,
-            c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
-            nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, x,
-            gamma, nullptr, stream);
+extern "C" int delphy_sweep_chain_skygrid(SWEEP_PARAMS(double), int type,
+                                          int K, const double* x,
+                                          const double* gamma,
+                                          void* stream) {
+  return skygrid_entry<double>(SWEEP_ARGS, type, K, x, gamma, nullptr,
+                               stream);
 }
 
 // the global builds of the two entries above: the same arguments and a
 // workspace of P x delphy_sweep_chain_workspace_bytes bytes (ws); a shape
 // that fits a shared-memory build is refused (cudaErrorInvalidValue)
-extern "C" int delphy_sweep_chain_global(
-    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
-    const double* t_in, const double* mut_in,
-    const double* kp_in, const int* par, const int* c0, const int* c1,
-    const double* t_min, const double* t_max, const double* lam,
-    const double* dlam, const int* mnode, const int* mvalid,
-    const int* msingle, const double* slope, const double* b,
-    const double* A, const double* nbar, const int* isc, const double* fsc,
-    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
-    const double* u_refu, const double* u_refacc, const double* u_sc,
-    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
-    double* kp_out, double* acc_out, double* ws, void* stream) {
+extern "C" int delphy_sweep_chain_global(SWEEP_PARAMS(double), double* ws,
+                                         void* stream) {
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
-  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
-  return launch<POP_EXP>(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in,
-                         kp_in, par, c0, c1, t_min, t_max, lam, dlam, mnode,
-                         mvalid, msingle, slope, b, A, nbar, isc, fsc, NB, un,
-                         t_out, mut_out, kp_out, acc_out, 0, nullptr, nullptr,
-                         ws, stream);
+  return exp_entry<double>(SWEEP_ARGS, ws, stream);
 }
 
-extern "C" int delphy_sweep_chain_skygrid_global(
-    int P, int NC, int MC, int C, int C_real, int cpb, int n_blocks,
-    const double* t_in, const double* mut_in,
-    const double* kp_in, const int* par, const int* c0, const int* c1,
-    const double* t_min, const double* t_max, const double* lam,
-    const double* dlam, const int* mnode, const int* mvalid,
-    const int* msingle, const double* slope, const double* b,
-    const double* A, const double* nbar, const int* isc, const double* fsc,
-    int NB, const double* u_pri, const double* u_prop, const double* u_acc,
-    const double* u_refu, const double* u_refacc, const double* u_sc,
-    const double* u_norm, int S, int Z, double* t_out, double* mut_out,
-    double* kp_out, double* acc_out, int type, int K, const double* x,
-    const double* gamma, double* ws, void* stream) {
-  if (K < 2 || (type != POP_STAIRCASE && type != POP_LOG_LINEAR) ||
-      ws == nullptr)
-    return (int)cudaErrorInvalidValue;
-  Uniforms un{u_pri, u_prop, u_acc, u_refacc, u_refu, u_sc, u_norm, S, Z};
-  auto go = type == POP_STAIRCASE ? launch<POP_STAIRCASE>
-                                  : launch<POP_LOG_LINEAR>;
-  return go(P, NC, MC, C, C_real, cpb, n_blocks, t_in, mut_in, kp_in, par, c0,
-            c1, t_min, t_max, lam, dlam, mnode, mvalid, msingle, slope, b, A,
-            nbar, isc, fsc, NB, un, t_out, mut_out, kp_out, acc_out, K, x,
-            gamma, ws, stream);
+extern "C" int delphy_sweep_chain_skygrid_global(SWEEP_PARAMS(double),
+                                                 int type, int K,
+                                                 const double* x,
+                                                 const double* gamma,
+                                                 double* ws, void* stream) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  return skygrid_entry<double>(SWEEP_ARGS, type, K, x, gamma, ws, stream);
+}
+
+// the float32 builds of the four entries: the same arguments with every
+// float row, scalar and uniform a float, and the workspace of
+// delphy_sweep_chain_workspace_bytes_f32 bytes a part
+extern "C" int delphy_sweep_chain_f32(SWEEP_PARAMS(float), void* stream) {
+  return exp_entry<float>(SWEEP_ARGS, nullptr, stream);
+}
+
+extern "C" int delphy_sweep_chain_skygrid_f32(SWEEP_PARAMS(float), int type,
+                                              int K, const float* x,
+                                              const float* gamma,
+                                              void* stream) {
+  return skygrid_entry<float>(SWEEP_ARGS, type, K, x, gamma, nullptr,
+                              stream);
+}
+
+extern "C" int delphy_sweep_chain_global_f32(SWEEP_PARAMS(float), float* ws,
+                                             void* stream) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  return exp_entry<float>(SWEEP_ARGS, ws, stream);
+}
+
+extern "C" int delphy_sweep_chain_skygrid_global_f32(SWEEP_PARAMS(float),
+                                                     int type, int K,
+                                                     const float* x,
+                                                     const float* gamma,
+                                                     float* ws,
+                                                     void* stream) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  return skygrid_entry<float>(SWEEP_ARGS, type, K, x, gamma, ws, stream);
 }
 
 // the build for these shapes (K: skygrid knots, 0 for the exponential
 // model): 2 or 1 uniform stages in shared memory, 0 for the global build
 extern "C" int delphy_sweep_chain_stages(int NC, int MC, int C_real, int cpb,
                                          int K) {
-  return stages_for(NC, MC, C_real, cpb, K);
+  return stages_for<double>(NC, MC, C_real, cpb, K);
+}
+
+extern "C" int delphy_sweep_chain_stages_f32(int NC, int MC, int C_real,
+                                             int cpb, int K) {
+  return stages_for<float>(NC, MC, C_real, cpb, K);
 }
 
 // bytes of one part's workspace slice of the global build
 extern "C" unsigned long long delphy_sweep_chain_workspace_bytes(
     int NC, int MC, int C_real, int cpb, int K) {
-  return (unsigned long long)workspace_stride(NC, MC, C_real, cpb, K);
+  return (unsigned long long)workspace_stride<double>(NC, MC, C_real, cpb,
+                                                      K);
 }
 
-static unsigned long long smem_of(int NC, int MC, int C_real, int cpb, int K) {
-  int stages = stages_for(NC, MC, C_real, cpb, K);
-  return (unsigned long long)(stages == 0
-                                  ? global_smem_bytes(C_real, cpb)
-                                  : smem_bytes(NC, MC, C_real, cpb, stages, K));
+extern "C" unsigned long long delphy_sweep_chain_workspace_bytes_f32(
+    int NC, int MC, int C_real, int cpb, int K) {
+  return (unsigned long long)workspace_stride<float>(NC, MC, C_real, cpb, K);
 }
 
 // shared-memory bytes per part of the build that runs these shapes
 extern "C" unsigned long long delphy_sweep_chain_smem_bytes(int NC, int MC,
                                                             int C_real,
                                                             int cpb) {
-  return smem_of(NC, MC, C_real, cpb, 0);
+  return smem_of<double>(NC, MC, C_real, cpb, 0);
 }
 
 extern "C" unsigned long long delphy_sweep_chain_skygrid_smem_bytes(
     int NC, int MC, int C_real, int cpb, int K) {
-  return smem_of(NC, MC, C_real, cpb, K);
+  return smem_of<double>(NC, MC, C_real, cpb, K);
+}
+
+extern "C" unsigned long long delphy_sweep_chain_smem_bytes_f32(int NC,
+                                                                int MC,
+                                                                int C_real,
+                                                                int cpb) {
+  return smem_of<float>(NC, MC, C_real, cpb, 0);
+}
+
+extern "C" unsigned long long delphy_sweep_chain_skygrid_smem_bytes_f32(
+    int NC, int MC, int C_real, int cpb, int K) {
+  return smem_of<float>(NC, MC, C_real, cpb, K);
 }

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import DEFAULT_DEVICE, DTYPE, ITYPE, resolve_device
+from . import DEFAULT_DEVICE, ITYPE, float_dtype, resolve_device, resolve_dtype
 
 # transition (A<->G, C<->T) and transversion indicator matrices
 _TRANSITION = [[0.0, 0.0, 1.0, 0.0],
@@ -28,11 +28,13 @@ _TRANSVERSION = [[0.0, 1.0, 0.0, 1.0],
 
 def hky_q(kappa, pi):
     """HKY85 rate matrix normalised as in the reference (evo_hky.cpp:7-50):
-    q[a,b] = r[a,b] pi[b] / R with R = pi^T r pi, diagonal = -row sum."""
-    pi = torch.as_tensor(pi, dtype=DTYPE)
-    kappa = torch.as_tensor(kappa, dtype=DTYPE, device=pi.device)
-    r = (torch.tensor(_TRANSVERSION, dtype=DTYPE, device=pi.device)
-         + kappa * torch.tensor(_TRANSITION, dtype=DTYPE, device=pi.device))
+    q[a,b] = r[a,b] pi[b] / R with R = pi^T r pi, diagonal = -row sum;
+    in the float dtype of ``pi`` (else of ``kappa``)."""
+    dt = float_dtype(pi, kappa)
+    pi = torch.as_tensor(pi, dtype=dt)
+    kappa = torch.as_tensor(kappa, dtype=dt, device=pi.device)
+    r = (torch.tensor(_TRANSVERSION, dtype=dt, device=pi.device)
+         + kappa * torch.tensor(_TRANSITION, dtype=dt, device=pi.device))
     R = pi @ r @ pi
     q = r * pi[None, :] / R
     return q - torch.diag(torch.sum(q, dim=1))
@@ -70,28 +72,29 @@ class EvoParams(NamedTuple):
     def with_mpox_rho(self, mu=None, rho=None) -> "EvoParams":
         """Refresh the two-partition APOBEC rate tables (reference
         derive_evo, run.cpp:400-433)."""
-        dev = self.q_tab.device
-        mu = self.mu if mu is None else torch.as_tensor(mu, dtype=DTYPE,
+        dev, dt = self.q_tab.device, self.q_tab.dtype
+        mu = self.mu if mu is None else torch.as_tensor(mu, dtype=dt,
                                                         device=dev)
         rho = self.mpox_rho if rho is None else torch.as_tensor(
-            rho, dtype=DTYPE, device=dev)
+            rho, dtype=dt, device=dev)
         return self._replace(mu=mu, mpox_rho=rho, q_tab=mpox_q_tab(rho))
 
 
 def make_evo_params(num_sites: int, mu=1e-3 / 365.0, kappa=1.0,
                     pi=(0.25, 0.25, 0.25, 0.25), alpha=10.0, part=None,
-                    device=DEFAULT_DEVICE) -> EvoParams:
-    """Parameters of a run's start; ``part`` (per-site partition indices)
-    defaults to one partition."""
+                    device=DEFAULT_DEVICE, dtype=None) -> EvoParams:
+    """Parameters of a run's start, floats in ``resolve_dtype(dtype)``;
+    ``part`` (per-site partition indices) defaults to one partition."""
     device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
 
     def f(x):
-        return torch.as_tensor(x, dtype=DTYPE, device=device)
+        return torch.as_tensor(x, dtype=dtype, device=device)
     pi = f(pi)
     q = hky_q(f(kappa), pi)
     return EvoParams(
         mu=f(mu), kappa=f(kappa), pi=pi, q=q, alpha=f(alpha),
-        nu=torch.ones(num_sites, dtype=DTYPE, device=device),
+        nu=torch.ones(num_sites, dtype=dtype, device=device),
         part=(torch.zeros(num_sites, dtype=ITYPE, device=device)
               if part is None else torch.as_tensor(
                   np.asarray(part), dtype=ITYPE, device=device)),
@@ -110,20 +113,21 @@ _APOBEC = [[0.0, 0.0, 0.0, 0.0],
            [0.0, 0.0, 0.0, 0.0]]
 
 
-def jc_q(device=None):
+def jc_q(device=None, dtype=None):
     """Jukes-Cantor rate matrix (diagonal -1, off-diagonal 1/3), computed as
     hky_q(1, uniform)."""
-    return hky_q(torch.ones((), dtype=DTYPE, device=device),
-                 torch.full((4,), 0.25, dtype=DTYPE, device=device))
+    dtype = resolve_dtype(dtype)
+    return hky_q(torch.ones((), dtype=dtype, device=device),
+                 torch.full((4,), 0.25, dtype=dtype, device=device))
 
 
 def mpox_q_tab(rho):
     """[Q_0, Q_1] with Q_0 = JC and Q_1 = Q_0 + APOBEC terms: C->T += 2 rho,
     G->A += 2 rho, diagonals balanced; rho = mu_star / mu.  The factors of 2
     follow the O'Toole et al convention (run.h:169-172)."""
-    rho = torch.as_tensor(rho, dtype=DTYPE)
-    q0 = jc_q(rho.device)
-    apo = torch.tensor(_APOBEC, dtype=DTYPE, device=rho.device)
+    rho = torch.as_tensor(rho, dtype=float_dtype(rho))
+    q0 = jc_q(rho.device, rho.dtype)
+    apo = torch.tensor(_APOBEC, dtype=rho.dtype, device=rho.device)
     return torch.stack([q0, q0 + rho * apo])
 
 

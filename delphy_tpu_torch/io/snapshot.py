@@ -11,7 +11,10 @@ plus a JSON metadata blob.
 
 The ``torch.Generator``'s state is a byte tensor whose layout differs
 between the CPU and the CUDA generator, so the snapshot records which device
-type wrote it, and ``load_run`` refuses to load one into the other.
+type wrote it, and ``load_run`` refuses to load one into the other.  The
+snapshot also records the run's float dtype (``meta["dtype"]``, and the
+arrays are stored in it), and a resume keeps it: a float32 run resumes as a
+float32 run whatever ``DELPHY_TPU_F32`` says.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE, resolve_device
+from ..convert import leaf_to_torch, float_dtype_of
 from .. import pop as popm
 from ..convert import from_dict, to_numpy
 from ..evo import EvoParams
@@ -65,6 +69,7 @@ def save_run(run, path):
         "t_max_tip": run.t_max_tip,
         "host_rng_state": _rng_state_to_json(run.host_rng),
         "gen_device_type": run.device.type,
+        "dtype": str(run.dtype).replace("torch.", ""),
         "driver": {
             "device_partitions": run.device_partitions,
             "topology_partitions": run.topology_partitions,
@@ -117,10 +122,12 @@ def _group(data: dict, prefix: str) -> dict:
 def restore_run(meta: dict, data: dict, device, gen_seed: int = 0,
                 mesh=None):
     """A Run in the state of a parsed snapshot, generators apart: tree,
-    partition maps, parameters, adaptive scalars and the host generator.  The
-    run's ``torch.Generator`` is seeded with ``gen_seed``.  With a mesh the
-    saved part axis must divide over its ranks, as a run under that mesh
-    would have padded it."""
+    partition maps, parameters, adaptive scalars and the host generator, in
+    the snapshot's float dtype (``meta["dtype"]``, else that of its node
+    times: a JAX snapshot has no such key).  The run's ``torch.Generator``
+    is seeded with ``gen_seed``.  With a mesh the saved part axis must
+    divide over its ranks, as a run under that mesh would have padded
+    it."""
     hyp = PriorConfig(**meta["hyp"])
     drv = meta["driver"]
     model = meta["pop"]["model"]
@@ -128,13 +135,15 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0,
             "skygrid_type": meta["pop"]["type"]} if model == "skygrid"
            else {})
     tree = unpack_state(TreeState(**_group(data, "ts_")), names=meta["names"])
+    dtype = (getattr(torch, meta["dtype"]) if "dtype" in meta
+             else float_dtype_of(data["ts_t"]))
     run = Run(tree, seed=gen_seed, hyp=hyp, num_cells=meta["num_cells"],
               local_moves_per_global_move=meta["local_moves_per_global_move"],
               topology_moves_enabled=meta["topology_moves_enabled"],
               topology_partitions=drv["topology_partitions"],
               device_partitions=drv["device_partitions"], device=device,
               pop_model=model, mpox_hack=drv.get("mpox_hack", False),
-              mesh=mesh, **sky)
+              mesh=mesh, dtype=dtype, **sky)
     # the exact adaptive state: the packed arrays, partition maps and
     # feedback scalars as of the save; bit-identical resume depends on every
     # one of these (they steer n_blocks, kernel shapes and the repartition
@@ -143,17 +152,18 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0,
     run.miss_capacity = drv["miss_capacity"]
     run.fs_capacity = drv["fs_capacity"]
     dev = run.device
-    run.ts = from_dict(TreeState, _group(data, "ts_"), dev)
-    run.pm = from_dict(PartMaps, _group(data, "pm_"), dev)
-    run.evo = from_dict(EvoParams, _group(data, "evo_"), dev)
+    run.ts = from_dict(TreeState, _group(data, "ts_"), dev, dtype)
+    run.pm = from_dict(PartMaps, _group(data, "pm_"), dev, dtype)
+    run.evo = from_dict(EvoParams, _group(data, "evo_"), dev, dtype)
     if model == "skygrid":
-        p = {k: torch.as_tensor(np.asarray(v, np.float64), device=dev)
+        p = {k: leaf_to_torch(v, dev, dtype)
              for k, v in _group(data, "pop_").items()}
         run.pop = popm.SkygridPopParams(x=p["x"], gamma=p["gamma"],
                                         type=meta["pop"]["type"],
                                         tau=p["tau"])
     else:
-        run.pop = from_dict(popm.ExpPopParams, _group(data, "pop_"), dev)
+        run.pop = from_dict(popm.ExpPopParams, _group(data, "pop_"), dev,
+                            dtype)
     run._fused_bundle = None   # ts/evo/pop replaced above
     run.topology_burst_chunks = drv["topology_burst_chunks"]
     run._n_cap_sticky = drv["n_cap_sticky"]

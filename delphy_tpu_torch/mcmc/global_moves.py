@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .. import DTYPE
+from .. import float_dtype
 from .. import pop as popm
 from ..evo import EvoParams
 from ..ops import likelihood as lk
@@ -112,7 +112,7 @@ def _barrier(gamma, hyp: PriorConfig):
 def calc_skygrid_gmrf_prior(p: popm.SkygridPopParams, hyp: PriorConfig):
     """GMRF prior + N_bar InvGamma + low-population barrier
     (run.cpp:564-608)."""
-    gamma, tau = p.gamma, torch.as_tensor(p.tau, dtype=DTYPE,
+    gamma, tau = p.gamma, torch.as_tensor(p.tau, dtype=p.gamma.dtype,
                                           device=p.gamma.device)
     gamma_bar = torch.mean(gamma)
     lp = (-hyp.skygrid_inv_nbar_prior_alpha * gamma_bar
@@ -126,22 +126,25 @@ def calc_skygrid_gmrf_prior(p: popm.SkygridPopParams, hyp: PriorConfig):
 
 
 def sample_gamma(gen: torch.Generator, shape, size=None, device=None,
-                 tries: int = 16):
+                 tries: int = 16, dtype=None):
     """Gamma(shape, 1) draws by Marsaglia-Tsang on the generator's normals
     and uniforms, over a fixed number of tries (each accepts with
     probability > 0.95), with no host synchronisation.  Shapes below 1 use
     the boost Gamma(shape + 1) U^(1/shape).  ``size`` is the shape of the
-    result (default: that of ``shape``, which broadcasts to it)."""
-    shape = torch.as_tensor(shape, dtype=DTYPE, device=device)
+    result (default: that of ``shape``, which broadcasts to it); the
+    draws are in ``dtype``, by default the float dtype of ``shape``."""
+    shape = torch.as_tensor(shape, dtype=dtype or float_dtype(shape),
+                            device=device)
+    dt = shape.dtype
     size = tuple(shape.shape) if size is None else tuple(size)
     dev = shape.device
     boost = shape < 1.0
     a = torch.where(boost, shape + 1.0, shape)
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
-    x = torch.randn((tries,) + size, generator=gen, dtype=DTYPE, device=dev)
-    u = torch.rand((tries,) + size, generator=gen, dtype=DTYPE, device=dev)
-    u_boost = torch.rand(size, generator=gen, dtype=DTYPE, device=dev)
+    x = torch.randn((tries,) + size, generator=gen, dtype=dt, device=dev)
+    u = torch.rand((tries,) + size, generator=gen, dtype=dt, device=dev)
+    u_boost = torch.rand(size, generator=gen, dtype=dt, device=dev)
     v = (1.0 + c * x) ** 3
     safe_v = torch.where(v > 0.0, v, torch.ones_like(v))
     ok = (v > 0.0) & (torch.log(u) < 0.5 * x * x + d - d * safe_v
@@ -152,9 +155,10 @@ def sample_gamma(gen: torch.Generator, shape, size=None, device=None,
     return torch.where(boost, val * u_boost ** (1.0 / shape), val)
 
 
-def _accept_u(gen: torch.Generator, size, device):
-    """Uniforms in [1e-300, 1) for MH acceptance tests."""
-    return torch.clamp(torch.rand(size, generator=gen, dtype=DTYPE,
+def _accept_u(gen: torch.Generator, size, device, dtype):
+    """Uniforms in [1e-300, 1) for MH acceptance tests (the floor rounds to
+    0 in float32, as the JAX package's does)."""
+    return torch.clamp(torch.rand(size, generator=gen, dtype=dtype,
                                   device=device), min=1e-300)
 
 
@@ -169,7 +173,7 @@ def mu_gibbs_move(gen: torch.Generator, evo: EvoParams, Ttwiddle_a, num_muts,
                   hyp: PriorConfig) -> EvoParams:
     """Gibbs sample mu ~ Gamma(M + a, Ttwiddle + b) (run.cpp:781-821)."""
     Ttwiddle = torch.sum(evo.q_a * Ttwiddle_a)
-    shape = num_muts.to(DTYPE) + hyp.mu_prior_alpha
+    shape = num_muts.to(evo.mu.dtype) + hyp.mu_prior_alpha
     rate = Ttwiddle + hyp.mu_prior_beta
     return evo._replace(mu=sample_gamma(gen, shape) / rate)
 
@@ -191,8 +195,9 @@ N_TRUNC_GAMMA = 64     # draws per truncated-gamma rejection
 
 
 def _mpox_stats(M_beta_ab, num_muts, Ttwiddle_beta_a):
-    M = num_muts.to(DTYPE)
-    M_star = (M_beta_ab[1, _C, _T] + M_beta_ab[1, _G, _A]).to(DTYPE)
+    dt = Ttwiddle_beta_a.dtype
+    M = num_muts.to(dt)
+    M_star = (M_beta_ab[1, _C, _T] + M_beta_ab[1, _G, _A]).to(dt)
     return (M, M_star, torch.sum(Ttwiddle_beta_a),
             Ttwiddle_beta_a[1, _C] + Ttwiddle_beta_a[1, _G])
 
@@ -240,7 +245,7 @@ def mpox_hack_moves(gen: torch.Generator, evo: EvoParams, M_beta_ab,
 def _log_p_alpha(alpha, mu, Ttwiddle_l, M_l):
     """log p(alpha) with nu_l integrated out (run.cpp:1157-1181)."""
     L = M_l.shape[0]
-    Mf = M_l.to(DTYPE)
+    Mf = M_l.to(mu.dtype)
     has = M_l > 0
     r = torch.sum(torch.where(has, torch.lgamma(Mf + alpha),
                               torch.zeros_like(Mf)))
@@ -277,13 +282,13 @@ def nu_core(evo: EvoParams, alpha, Ttwiddle_l, M_l, g) -> EvoParams:
 def alpha_and_nu_moves(gen: torch.Generator, evo: EvoParams, Ttwiddle_l,
                        M_l, hyp: PriorConfig) -> EvoParams:
     """10 MH scale moves on alpha, then a Gibbs draw of all nu_l."""
-    dev = evo.mu.device
+    dev, dt = evo.mu.device, evo.mu.dtype
     lo, hi = 0.90, 1.0 / 0.90
-    scale = lo + torch.rand(10, generator=gen, dtype=DTYPE,
+    scale = lo + torch.rand(10, generator=gen, dtype=dt,
                             device=dev) * (hi - lo)
     alpha = alpha_core(evo, Ttwiddle_l, M_l, hyp, scale,
-                       _accept_u(gen, 10, dev))
-    g = sample_gamma(gen, M_l.to(DTYPE) + alpha)
+                       _accept_u(gen, 10, dev, dt))
+    g = sample_gamma(gen, M_l.to(dt) + alpha)
     return nu_core(evo, alpha, Ttwiddle_l, M_l, g)
 
 
@@ -302,7 +307,8 @@ def skygrid_tau_move(gen: torch.Generator, p: popm.SkygridPopParams,
                      hyp: PriorConfig):
     shape = hyp.skygrid_tau_prior_alpha + 0.5 * (p.gamma.shape[0] - 1)
     return skygrid_tau_core(p, hyp, sample_gamma(gen, shape,
-                                                 device=p.gamma.device))
+                                                 device=p.gamma.device,
+                                                 dtype=p.gamma.dtype))
 
 
 def skygrid_zero_mode_core(p: popm.SkygridPopParams, grid, hyp: PriorConfig,
@@ -317,7 +323,7 @@ def skygrid_zero_mode_core(p: popm.SkygridPopParams, grid, hyp: PriorConfig,
                   / grid.popsize_bar) / I_bar
     new_I_bar = g / (B + hyp.skygrid_inv_nbar_prior_beta)
     new_gamma = p.gamma + torch.log(I_bar / new_I_bar)
-    log_mh = torch.zeros((), dtype=DTYPE, device=p.gamma.device)
+    log_mh = torch.zeros((), dtype=p.gamma.dtype, device=p.gamma.device)
     if hyp.skygrid_low_gamma_barrier_enabled:
         log_mh = _barrier(p.gamma, hyp) - _barrier(new_gamma, hyp)
     blew_up = torch.any(torch.isnan(new_gamma)) | torch.isnan(log_mh)
@@ -328,10 +334,11 @@ def skygrid_zero_mode_core(p: popm.SkygridPopParams, grid, hyp: PriorConfig,
 def skygrid_zero_mode_gibbs_move(gen: torch.Generator,
                                  p: popm.SkygridPopParams, grid, n_inner: int,
                                  hyp: PriorConfig):
-    dev = p.gamma.device
+    dev, dt = p.gamma.device, p.gamma.dtype
     g = sample_gamma(gen, n_inner + hyp.skygrid_inv_nbar_prior_alpha,
-                     device=dev)
-    return skygrid_zero_mode_core(p, grid, hyp, g, _accept_u(gen, (), dev))
+                     device=dev, dtype=dt)
+    return skygrid_zero_mode_core(p, grid, hyp, g,
+                                  _accept_u(gen, (), dev, dt))
 
 
 HMC_STEPS = 25
@@ -385,13 +392,13 @@ def skygrid_hmc_core(p: popm.SkygridPopParams, grid, t, is_tip,
     standard exponential, ``u`` the acceptance uniform.  Forces come from
     autograd of the potential."""
     M = p.gamma.shape[0] - 1
-    dev = p.gamma.device
-    tau = torch.as_tensor(p.tau, dtype=DTYPE, device=dev)
+    dev, dt = p.gamma.device, p.gamma.dtype
+    tau = torch.as_tensor(p.tau, dtype=dt, device=dev)
     kk = torch.searchsorted(p.x, t, right=False).clamp(0, M)
-    c_k = torch.zeros(M + 1, dtype=DTYPE, device=dev).index_add_(
-        0, kk, torch.where(is_tip, 0.0, 1.0).to(DTYPE))
+    c_k = torch.zeros(M + 1, dtype=dt, device=dev).index_add_(
+        0, kk, torch.where(is_tip, 0.0, 1.0).to(dt))
     k = torch.arange(M + 1, device=dev)
-    zero = torch.zeros((), dtype=DTYPE, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
     m_k = torch.clamp(torch.where(k > 0, tau, zero)
                       + torch.where(k < M, tau, zero) + c_k, min=1e-12)
     inv_m_k = 1.0 / m_k
@@ -418,9 +425,9 @@ def skygrid_hmc_core(p: popm.SkygridPopParams, grid, t, is_tip,
 
 def skygrid_hmc_move(gen: torch.Generator, p: popm.SkygridPopParams, grid,
                      t, is_tip, hyp: PriorConfig):
-    dev = p.gamma.device
+    dev, dt = p.gamma.device, p.gamma.dtype
     M = p.gamma.shape[0] - 1
-    z = torch.randn(M + 1, generator=gen, dtype=DTYPE, device=dev)
-    e = -torch.log1p(-torch.rand((), generator=gen, dtype=DTYPE, device=dev))
+    z = torch.randn(M + 1, generator=gen, dtype=dt, device=dev)
+    e = -torch.log1p(-torch.rand((), generator=gen, dtype=dt, device=dev))
     return skygrid_hmc_core(p, grid, t, is_tip, hyp, z, e,
-                            _accept_u(gen, (), dev))
+                            _accept_u(gen, (), dev, dt))

@@ -14,7 +14,6 @@ from typing import NamedTuple
 
 import torch
 
-from .. import DTYPE
 from .. import pop as popm
 from ..evo import EvoParams
 from ..ops import coalescent as coal
@@ -156,27 +155,28 @@ def draw_sweep(gen: torch.Generator, ts: TreeState, n_blocks: int,
                k_max: int, cells_per_block: int = 4) -> SweepDraws:
     """Every random number of a sweep, drawn from ``gen`` on the state's
     device in a dozen calls before the block loop."""
-    dev = ts.t.device
+    dev, dt = ts.t.device, ts.t.dtype
     T, N, M = ts.num_tips, ts.num_nodes, ts.mut_t.shape[0]
     shape = (n_blocks, SEQ_DISP_PER_BLOCK)
-    tip = torch.rand(shape, generator=gen, dtype=DTYPE, device=dev) >= 0.5
-    w = torch.rand(shape, generator=gen, dtype=DTYPE, device=dev)
+    tip = torch.rand(shape, generator=gen, dtype=dt, device=dev) >= 0.5
+    w = torch.rand(shape, generator=gen, dtype=dt, device=dev)
     node = torch.where(tip, torch.floor(w * T).clamp(max=T - 1),
                        T + torch.floor(w * (N - T)).clamp(max=N - T - 1))
-    u = moves.uniforms
+    def u(shape_, lo=1e-300):
+        return moves.uniforms(gen, shape_, dev, dt, lo=lo)
     return SweepDraws(
-        seq_tip=tip, seq_node=node.long(), seq_u=u(gen, shape, dev),
-        seq_z=torch.randn(shape, generator=gen, dtype=DTYPE, device=dev),
-        seq_u_acc=u(gen, shape, dev),
+        seq_tip=tip, seq_node=node.long(), seq_u=u(shape),
+        seq_z=torch.randn(shape, generator=gen, dtype=dt, device=dev),
+        seq_u_acc=u(shape),
         offset=torch.randint(0, cells_per_block, (n_blocks,), generator=gen,
                              device=dev),
-        pri=torch.rand((n_blocks, N), generator=gen, dtype=DTYPE,
-                       device=dev),
-        disp_u=u(gen, (n_blocks, k_max), dev),
-        disp_u_acc=u(gen, (n_blocks, k_max), dev),
-        chosen=moves.random_branches(gen, N, REFORM_BATCH, n_blocks, dev),
-        reform_u=u(gen, (n_blocks, M), dev, lo=1e-16),
-        reform_u_acc=u(gen, (n_blocks, N), dev))
+        pri=torch.rand((n_blocks, N), generator=gen, dtype=dt, device=dev),
+        disp_u=u((n_blocks, k_max)),
+        disp_u_acc=u((n_blocks, k_max)),
+        chosen=moves.random_branches(gen, N, REFORM_BATCH, n_blocks, dev,
+                                     dt),
+        reform_u=u((n_blocks, M), lo=1e-16),
+        reform_u_acc=u((n_blocks, N)))
 
 
 def local_sweep_core(ts: TreeState, caches: Caches, grid, ledger: Ledger,

@@ -29,7 +29,6 @@ from typing import NamedTuple
 
 import torch
 
-from .. import DTYPE
 from .. import pop as popm
 from ..evo import EvoParams
 from ..ops import coalescent as coal
@@ -37,6 +36,9 @@ from ..ops.likelihood import add_at
 from ..state import TreeState
 
 INF = math.inf
+# the group key of a slot outside every group (_matched_times): the keys
+# are integers, exact in either float precision
+_NO_GROUP = torch.iinfo(torch.int64).max
 
 
 class Ledger(NamedTuple):
@@ -58,10 +60,12 @@ class Caches(NamedTuple):
     root_freq: torch.Tensor   # f64[4]
 
 
-def uniforms(gen: torch.Generator, size, device, lo: float = 1e-300):
-    """Uniforms on [lo, 1) from ``gen`` (the floor keeps their logs
-    finite)."""
-    return torch.clamp(torch.rand(size, generator=gen, dtype=DTYPE,
+def uniforms(gen: torch.Generator, size, device, dtype,
+             lo: float = 1e-300):
+    """Uniforms on [lo, 1) in ``dtype`` from ``gen`` (the floor keeps their
+    logs finite; in float32 it rounds to 0, as the JAX package's
+    ``minval=1e-300`` does there)."""
+    return torch.clamp(torch.rand(size, generator=gen, dtype=dtype,
                                   device=device), min=lo)
 
 
@@ -104,7 +108,8 @@ def bounded_exp_sample(gen: torch.Generator, lam, a, b):
     """One draw of x ~ exp(lam x) on [a, b] per element of the broadcast of
     the (tensor) arguments."""
     lam, a, b = torch.broadcast_tensors(lam, a, b)
-    return bounded_exp_core(uniforms(gen, lam.shape, lam.device), lam, a, b)
+    return bounded_exp_core(uniforms(gen, lam.shape, lam.device, lam.dtype),
+                            lam, a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +233,10 @@ def inner_node_displace(carry, gen: torch.Generator, pop_params, t_max_tip):
     dev = ts.t.device
     T, N = ts.num_tips, ts.num_nodes
     node = torch.randint(T, N, (1,), generator=gen, device=dev)
-    z = torch.randn(1, generator=gen, dtype=DTYPE, device=dev)
-    return inner_node_displace_core(carry, node, uniforms(gen, 1, dev), z,
-                                    uniforms(gen, 1, dev), pop_params,
+    dt = ts.t.dtype
+    z = torch.randn(1, generator=gen, dtype=dt, device=dev)
+    return inner_node_displace_core(carry, node, uniforms(gen, 1, dev, dt), z,
+                                    uniforms(gen, 1, dev, dt), pop_params,
                                     t_max_tip)
 
 
@@ -239,8 +245,9 @@ def tip_displace(carry, gen: torch.Generator, pop_params, t_max_tip):
     ts = carry[0]
     dev = ts.t.device
     node = torch.randint(0, ts.num_tips, (1,), generator=gen, device=dev)
-    return tip_displace_core(carry, node, uniforms(gen, 1, dev),
-                             uniforms(gen, 1, dev), pop_params, t_max_tip)
+    dt = ts.t.dtype
+    return tip_displace_core(carry, node, uniforms(gen, 1, dev, dt),
+                             uniforms(gen, 1, dev, dt), pop_params, t_max_tip)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +291,7 @@ def branch_reform_core(carry, X, u, u_acc, evo: EvoParams):
     t_P, t_X = _pick(ts.t, P), _pick(ts.t, X)
     mask = (ts.mut_node == X) & valid
     raw = t_P + u * (t_X - t_P)
-    group = torch.where(mask, ts.mut_site.to(DTYPE), INF)
+    group = torch.where(mask, ts.mut_site.long(), _NO_GROUP)
     new_mut_t = torch.where(mask, _matched_times(ts.mut_t, raw, group),
                             ts.mut_t)
     delta_log_G = torch.sum(torch.where(
@@ -301,8 +308,9 @@ def branch_reform(carry, gen: torch.Generator, evo: EvoParams, pop_params,
     ts = carry[0]
     dev = ts.t.device
     X = torch.randint(0, ts.num_nodes, (1,), generator=gen, device=dev)
-    u = uniforms(gen, ts.mut_t.shape[0], dev, lo=1e-16)
-    return branch_reform_core(carry, X, u, uniforms(gen, 1, dev), evo)
+    dt = ts.t.dtype
+    u = uniforms(gen, ts.mut_t.shape[0], dev, dt, lo=1e-16)
+    return branch_reform_core(carry, X, u, uniforms(gen, 1, dev, dt), evo)
 
 
 # ---------------------------------------------------------------------------
@@ -316,10 +324,10 @@ def _segment_minmax_mut_times(ts: TreeState):
     N = ts.num_nodes
     node_safe = ts.mut_node.clamp(min=0).long()
     valid = (ts.mut_node >= 0) & (ts.mut_node != ts.root)
-    own_max = torch.full((N,), -INF, dtype=DTYPE, device=ts.t.device) \
+    own_max = torch.full((N,), -INF, dtype=ts.t.dtype, device=ts.t.device) \
         .scatter_reduce(0, node_safe, torch.where(valid, ts.mut_t, -INF),
                         "amax")
-    own_min = torch.full((N,), INF, dtype=DTYPE, device=ts.t.device) \
+    own_min = torch.full((N,), INF, dtype=ts.t.dtype, device=ts.t.device) \
         .scatter_reduce(0, node_safe, torch.where(valid, ts.mut_t, INF),
                         "amin")
     return own_max, own_min
@@ -385,7 +393,7 @@ def batched_node_displace_core(ts: TreeState, caches: Caches, grid,
 
     pri = torch.where(fits, pri, -1.0)
     blk = blk_lo.clamp(0, n_blocks - 1)
-    best = torch.full((n_blocks,), -1.0, dtype=DTYPE, device=dev) \
+    best = torch.full((n_blocks,), -1.0, dtype=pri.dtype, device=dev) \
         .scatter_reduce(0, blk, pri, "amax")
     selected = fits & (pri >= 0.0) & (pri == best[blk])
     # drop children whose parent is selected (tree adjacency)
@@ -414,7 +422,7 @@ def batched_node_displace_core(ts: TreeState, caches: Caches, grid,
 
     # per-slot coalescent delta over the whole cell axis (disjoint supports)
     node_is_tip = is_tip[si]
-    sign = torch.where(node_is_tip, 1.0, -1.0).to(DTYPE)
+    sign = torch.where(node_is_tip, 1.0, -1.0).to(ts.t.dtype)
     lbs = grid.cell_lbounds()[None, :]
     frac_old = torch.clamp((old_t[:, None] - lbs) / grid.t_step, 0.0, 1.0)
     frac_new = torch.clamp((new_t[:, None] - lbs) / grid.t_step, 0.0, 1.0)
@@ -454,10 +462,11 @@ def batched_node_displace(ts: TreeState, caches: Caches, grid,
     dev = ts.t.device
     offset = torch.randint(0, cells_per_block, (1,), generator=gen,
                            device=dev)
-    pri = torch.rand(ts.num_nodes, generator=gen, dtype=DTYPE, device=dev)
+    dt = ts.t.dtype
+    pri = torch.rand(ts.num_nodes, generator=gen, dtype=dt, device=dev)
     return batched_node_displace_core(
         ts, caches, grid, ledger, pop_params, offset, pri,
-        uniforms(gen, k_max, dev), uniforms(gen, k_max, dev), k_max,
+        uniforms(gen, k_max, dev, dt), uniforms(gen, k_max, dev, dt), k_max,
         cells_per_block)
 
 
@@ -484,14 +493,14 @@ def batched_branch_reform_core(ts: TreeState, ledger: Ledger,
     t_X = ts.t[node_safe]
     raw = t_P + u * (t_X - t_P)
     # groups are (branch, site): each keeps its time order
-    group = torch.where(mut_in, node_safe.to(DTYPE) * L
-                        + ts.mut_site.to(DTYPE), INF)
+    group = torch.where(mut_in, node_safe * L + ts.mut_site.long(),
+                        _NO_GROUP)
     new_mut_t = torch.where(mut_in, _matched_times(ts.mut_t, raw, group),
                             ts.mut_t)
 
     per_slot = torch.where(mut_in, -_mut_slopes(ts, evo)
                            * (new_mut_t - ts.mut_t), 0.0)
-    delta_per_node = add_at(torch.zeros(N, dtype=DTYPE, device=ts.t.device),
+    delta_per_node = add_at(torch.zeros(N, dtype=ts.t.dtype, device=ts.t.device),
                             node_safe, per_slot)
     accept_node = in_batch & ((delta_per_node >= 0.0)
                               | (torch.log(u_acc) < delta_per_node))
@@ -504,10 +513,10 @@ def batched_branch_reform_core(ts: TreeState, ledger: Ledger,
 
 
 def random_branches(gen: torch.Generator, n_nodes: int, batch_size: int,
-                    rows: int, device):
+                    rows: int, device, dtype):
     """[rows, min(batch_size, n_nodes)] distinct nodes per row: the head of
-    a uniform random permutation (argsort of uniforms)."""
-    keys = torch.rand((rows, n_nodes), generator=gen, dtype=DTYPE,
+    a uniform random permutation (argsort of uniforms in ``dtype``)."""
+    keys = torch.rand((rows, n_nodes), generator=gen, dtype=dtype,
                       device=device)
     return torch.argsort(keys, 1)[:, :batch_size]
 
@@ -517,8 +526,9 @@ def batched_branch_reform(ts: TreeState, ledger: Ledger, evo: EvoParams,
     """batched_branch_reform_core on ``batch_size`` distinct random
     branches."""
     dev = ts.t.device
-    chosen = random_branches(gen, ts.num_nodes, batch_size, 1, dev)[0]
+    dt = ts.t.dtype
+    chosen = random_branches(gen, ts.num_nodes, batch_size, 1, dev, dt)[0]
     return batched_branch_reform_core(
         ts, ledger, evo, chosen,
-        uniforms(gen, ts.mut_t.shape[0], dev, lo=1e-16),
-        uniforms(gen, ts.num_nodes, dev))
+        uniforms(gen, ts.mut_t.shape[0], dev, dt, lo=1e-16),
+        uniforms(gen, ts.num_nodes, dev, dt))

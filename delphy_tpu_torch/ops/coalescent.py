@@ -13,16 +13,15 @@ from typing import NamedTuple
 
 import torch
 
-from .. import DTYPE
 from .. import pop as popm
 from .likelihood import add_at
 
 
 class CoalGrid(NamedTuple):
-    t_lo: torch.Tensor         # f64 scalar: lower bound of cell 0
-    t_step: torch.Tensor       # f64 scalar
-    k_bar: torch.Tensor        # f64[C]
-    popsize_bar: torch.Tensor  # f64[C]
+    t_lo: torch.Tensor         # float scalar: lower bound of cell 0
+    t_step: torch.Tensor       # float scalar
+    k_bar: torch.Tensor        # float[C] (the run's float dtype)
+    popsize_bar: torch.Tensor  # float[C]
 
     @property
     def num_cells(self) -> int:
@@ -30,12 +29,12 @@ class CoalGrid(NamedTuple):
 
     def cell_lbounds(self):
         return self.t_lo + self.t_step * torch.arange(
-            self.num_cells, dtype=DTYPE, device=self.k_bar.device)
+            self.num_cells, dtype=self.k_bar.dtype, device=self.k_bar.device)
 
 
 def calc_popsize_bars(pop_params, t_lo, t_step, num_cells: int):
     """popsize_bar[c] = (1/dt) int_cell N dt, floored at 1e-100."""
-    lb = t_lo + t_step * torch.arange(num_cells, dtype=DTYPE,
+    lb = t_lo + t_step * torch.arange(num_cells, dtype=t_lo.dtype,
                                       device=t_lo.device)
     vals = popm.pop_integral(pop_params, lb, lb + t_step) / t_step
     return torch.clamp(vals, min=1e-100)
@@ -43,7 +42,7 @@ def calc_popsize_bars(pop_params, t_lo, t_step, num_cells: int):
 
 def calc_k_bar(t, is_tip, t_lo, t_step, num_cells: int):
     """Time-averaged lineage counts per cell, from scratch."""
-    sign = torch.where(is_tip, 1.0, -1.0).to(DTYPE)
+    sign = torch.where(is_tip, 1.0, -1.0).to(t.dtype)
     return k_bar_from_signs(t, sign, t_lo, t_step, num_cells)
 
 
@@ -55,14 +54,14 @@ def k_bar_from_signs(t, sign, t_lo, t_step, num_cells: int):
     cell = torch.floor(rel)
     in_grid = (cell >= 0) & (cell < num_cells)
     frac = rel - cell
-    zero = torch.zeros((), dtype=DTYPE, device=t.device)
+    zero = torch.zeros((), dtype=t.dtype, device=t.device)
     cl = cell.clamp(0, num_cells - 1).long()
     shape = t.shape[:-1] + (num_cells,)
     # cells of the flattened (..., num_cells) rows; add_at sums in a fixed
     # order on the card (scatter_add_'s atomics do not)
     row = torch.arange(cl.numel() // cl.shape[-1], device=t.device)
     flat = (row.reshape(cl.shape[:-1] + (1,)) * num_cells + cl).reshape(-1)
-    zeros = torch.zeros(math.prod(shape), dtype=DTYPE, device=t.device)
+    zeros = torch.zeros(math.prod(shape), dtype=t.dtype, device=t.device)
     k_frac = add_at(zeros, flat, torch.where(in_grid, sign * frac, zero)
                     .reshape(-1)).reshape(shape)
     counts = add_at(zeros, flat, torch.where(in_grid, sign, zero)
@@ -102,7 +101,7 @@ def displace_delta(grid: CoalGrid, pop_params, old_t, new_t, node_is_tip):
     dlogN = -(torch.log(popm.pop_at_time(pop_params, new_t))
               - torch.log(popm.pop_at_time(pop_params, old_t)))
     if isinstance(node_is_tip, torch.Tensor):
-        sign = torch.where(node_is_tip, 1.0, -1.0).to(DTYPE)
+        sign = torch.where(node_is_tip, 1.0, -1.0).to(lb.dtype)
         delta_logN = torch.where(node_is_tip, torch.zeros_like(dlogN), dlogN)
     else:
         sign = 1.0 if node_is_tip else -1.0

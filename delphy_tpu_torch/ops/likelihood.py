@@ -16,7 +16,6 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .. import DTYPE
 from ..evo import EvoParams
 from ..state import TreeState
 
@@ -73,15 +72,15 @@ def path_sums(parent, delta):
 def calc_ref_cum_Q(ts: TreeState, evo: EvoParams):
     """cum_Q[k] = sum_{l<k} mu nu_l q_a(ref_l); length L+1."""
     site_Q = evo.mu * evo.nu * evo.qa_tab[evo.part.long(), ts.ref_seq.long()]
-    return torch.cat([torch.zeros(1, dtype=DTYPE, device=site_Q.device),
+    return torch.cat([torch.zeros(1, dtype=site_Q.dtype, device=site_Q.device),
                       cumsum0(site_Q)])
 
 
 def calc_ref_state_prefix(ts: TreeState, evo: EvoParams):
     """cnt[a, k] = #{l < k : ref_l == a}; nucum[a, k] = sum of nu_l over the
-    same sites.  Both f64[4, L+1]."""
-    onehot = F.one_hot(ts.ref_seq.long(), 4).to(DTYPE).T
-    zeros = torch.zeros((4, 1), dtype=DTYPE, device=onehot.device)
+    same sites.  Both float[4, L+1] in the dtype of ``evo.nu``."""
+    onehot = F.one_hot(ts.ref_seq.long(), 4).to(evo.nu.dtype).T
+    zeros = torch.zeros((4, 1), dtype=onehot.dtype, device=onehot.device)
     cnt = torch.cat([zeros, torch.cumsum(onehot, 1)], 1)
     nucum = torch.cat([zeros, torch.cumsum(onehot * evo.nu[None, :], 1)], 1)
     return cnt, nucum
@@ -92,7 +91,7 @@ def calc_branch_delta_lambda(ts: TreeState, evo: EvoParams, ref_cum_Q):
     across each branch (phylo_tree_calc.h:140-155)."""
     N = ts.num_nodes
     qa_tab = evo.qa_tab
-    zero = torch.zeros((), dtype=DTYPE, device=ref_cum_Q.device)
+    zero = torch.zeros((), dtype=ref_cum_Q.dtype, device=ref_cum_Q.device)
 
     mpart = evo.part[_c0(ts.mut_site)].long()
     contrib = evo.mu * evo.nu[_c0(ts.mut_site)] * (
@@ -124,8 +123,8 @@ def calc_lambda_i(ts: TreeState, evo: EvoParams, ref_cum_Q):
 def calc_root_state_frequencies(ts: TreeState, evo: EvoParams, cnt_prefix):
     """State counts of the root sequence over its non-missing sites."""
     freq = cnt_prefix[:, -1]
-    zero = torch.zeros((), dtype=DTYPE, device=freq.device)
-    one = torch.ones((), dtype=DTYPE, device=freq.device)
+    zero = torch.zeros((), dtype=freq.dtype, device=freq.device)
+    one = torch.ones((), dtype=freq.dtype, device=freq.device)
     is_root_mut = ts.mut_node == ts.root
     d = _scatter_add(4, ts.mut_from, torch.where(is_root_mut, -one, zero))
     d = add_at(d, _c0(ts.mut_to), torch.where(is_root_mut, one, zero))
@@ -158,7 +157,7 @@ def calc_log_G(ts: TreeState, evo: EvoParams, lambda_i, root_freq):
     N = ts.num_nodes
     n = torch.arange(N, device=lambda_i.device)
     safe_parent = _c0(ts.parent)
-    zero = torch.zeros((), dtype=DTYPE, device=lambda_i.device)
+    zero = torch.zeros((), dtype=lambda_i.dtype, device=lambda_i.device)
     branch_terms = torch.where(n != ts.root,
                                -lambda_i * (ts.t - ts.t[safe_parent]), zero)
 
@@ -213,7 +212,7 @@ def calc_T_below(ts: TreeState, tin, tout):
     blen = torch.where(n != ts.root, ts.t - ts.t[_c0(ts.parent)],
                        torch.zeros_like(ts.t))
     tin = tin.long()
-    vals = torch.zeros(N, dtype=DTYPE, device=ts.t.device)
+    vals = torch.zeros(N, dtype=ts.t.dtype, device=ts.t.device)
     vals[tin] = blen
     pref = cumsum0(vals)
     return pref[(tout.long() - 1).clamp(min=0)] - pref[tin]
@@ -241,7 +240,7 @@ def calc_Ttwiddle_a(ts: TreeState, evo: EvoParams, tin, tout, nu_prefix):
     calc_ref_state_prefix()[1]."""
     T_below = calc_T_below(ts, tin, tout)
     tw = nu_prefix[:, -1] * T_below[ts.root.long()]
-    zero = torch.zeros((), dtype=DTYPE, device=tw.device)
+    zero = torch.zeros((), dtype=tw.dtype, device=tw.device)
 
     Tb_mut = _mut_T_below(ts, T_below)
     w = torch.where(ts.mut_node >= 0, evo.nu[_c0(ts.mut_site)] * Tb_mut, zero)
@@ -271,7 +270,7 @@ def calc_Ttwiddle_l(ts: TreeState, evo: EvoParams, tin, tout):
     qa_ref = qa_tab[evo.part.long(), ts.ref_seq.long()]            # [L]
     T_below = calc_T_below(ts, tin, tout)
     tl = qa_ref * T_below[ts.root.long()]
-    zero = torch.zeros((), dtype=DTYPE, device=tl.device)
+    zero = torch.zeros((), dtype=tl.dtype, device=tl.device)
 
     Tb_mut = _mut_T_below(ts, T_below)
     site = _c0(ts.mut_site)
@@ -300,11 +299,12 @@ def calc_Ttwiddle_l(ts: TreeState, evo: EvoParams, tin, tout):
 def calc_ref_state_prefix_beta(ts: TreeState, evo: EvoParams):
     """nu-weighted prefix sums of reference states per partition:
     nucum_pa[p, a, k] = sum of nu_l over l < k with part_l == p and
-    ref_l == a; f64[P, 4, L+1]."""
+    ref_l == a; float[P, 4, L+1]."""
     P = evo.q_tab.shape[0]
     comb = evo.part.long() * 4 + ts.ref_seq.long()
-    onehot = F.one_hot(comb, P * 4).to(DTYPE).T                    # [P*4, L]
-    zeros = torch.zeros((P * 4, 1), dtype=DTYPE, device=onehot.device)
+    onehot = F.one_hot(comb, P * 4).to(evo.nu.dtype).T             # [P*4, L]
+    zeros = torch.zeros((P * 4, 1), dtype=onehot.dtype,
+                        device=onehot.device)
     nucum = torch.cat([zeros, torch.cumsum(onehot * evo.nu[None, :], 1)], 1)
     return nucum.reshape(P, 4, -1)
 
@@ -317,7 +317,7 @@ def calc_Ttwiddle_beta_a(ts: TreeState, evo: EvoParams, tin, tout,
     P = evo.q_tab.shape[0]
     T_below = calc_T_below(ts, tin, tout)
     tw = (nu_prefix_pa[:, :, -1] * T_below[ts.root.long()]).reshape(-1)
-    zero = torch.zeros((), dtype=DTYPE, device=tw.device)
+    zero = torch.zeros((), dtype=tw.dtype, device=tw.device)
 
     Tb_mut = _mut_T_below(ts, T_below)
     site = _c0(ts.mut_site)

@@ -9,7 +9,13 @@ and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 Nothing here is touched when a module is imported, so the CPU tests never
 need ``nvcc``.
 
-``launch_counts`` holds one plain integer per kernel; each wrapper adds one
+Every kernel has a float64 build (C entry ``delphy_<name>``) and a float32
+build (``delphy_<name>_f32``), the same templated source (``csrc/real.cuh``);
+a wrapper picks the build by the dtype of its tensors (``suffix``) and
+never casts one precision to the other.
+
+``launch_counts`` holds one plain integer per C entry (without ``delphy_``:
+``sweep_chain``, ``sweep_chain_f32``, ...); each wrapper adds one
 (``count_launch``) where it launches its kernel and nowhere else.  The counts
 are per process, over every run and thread: the engine server steps runs on
 worker threads, so the increment takes a lock.  ``launch_blocks`` sums the
@@ -33,13 +39,17 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("hky_chain.cu", "exp_pop_chain.cu", "sweep_chain.cu")
+# headers the sources include (hashed with them)
+HEADERS = ("real.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-launch_counts = {"hky_chain": 0, "exp_pop_chain": 0, "sweep_chain": 0,
-                 "sweep_chain_skygrid": 0, "sweep_chain_global": 0,
-                 "sweep_chain_skygrid_global": 0}
+_KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain",
+            "sweep_chain_skygrid", "sweep_chain_global",
+            "sweep_chain_skygrid_global")
+launch_counts = dict.fromkeys(
+    list(_KERNELS) + [k + "_f32" for k in _KERNELS], 0)
 launch_blocks = dict.fromkeys(launch_counts, 0)
 
 _LIB = None
@@ -51,6 +61,8 @@ _SWEEP = [_I, _I, _I, _I, _I, _I, _I,
           _P, _P, _P, _P, _P, _P, _P, _P, _P,
           _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
           _P, _P, _P, _P]
+# the float32 builds take the same arguments (pointers to float; the
+# double scalars are rounded to float inside)
 _ARGTYPES = {
     "delphy_hky_chain": [_P, _I, _I, _P, _P, _P, _P, _P, _D, _D,
                          _P, _P, _P, _P],
@@ -61,11 +73,22 @@ _ARGTYPES = {
     "delphy_sweep_chain_global": _SWEEP + [_P, _P],
     "delphy_sweep_chain_skygrid_global": _SWEEP + [_I, _I, _P, _P, _P, _P],
 }
+_ARGTYPES.update({k + "_f32": v for k, v in _ARGTYPES.items()})
+# the shape queries: (argument count, result type)
+_QUERIES = {
+    "delphy_sweep_chain_smem_bytes": (4, ctypes.c_ulonglong),
+    "delphy_sweep_chain_skygrid_smem_bytes": (5, ctypes.c_ulonglong),
+    "delphy_exp_pop_chain_nodes_shared": (3, ctypes.c_int),
+    "delphy_sweep_chain_stages": (5, ctypes.c_int),
+    "delphy_sweep_chain_workspace_bytes": (5, ctypes.c_ulonglong),
+}
+_QUERIES.update({k + "_f32": v for k, v in _QUERIES.items()})
 # entry points a library may lack: another tree's kernel sources, built for
 # a kernel-only A/B, predate them
-_OPTIONAL = ("delphy_sweep_chain_skygrid",
-             "delphy_sweep_chain_skygrid_smem_bytes",
-             "delphy_sweep_chain_global", "delphy_sweep_chain_skygrid_global")
+_OPTIONAL = tuple(k for k in list(_ARGTYPES) + list(_QUERIES)
+                  if k not in ("delphy_hky_chain", "delphy_exp_pop_chain",
+                               "delphy_sweep_chain",
+                               "delphy_sweep_chain_smem_bytes"))
 
 
 class Packed(NamedTuple):
@@ -84,6 +107,16 @@ def reset_launch_counts() -> None:
         for k in launch_counts:
             launch_counts[k] = 0
             launch_blocks[k] = 0
+
+
+def suffix(dtype) -> str:
+    """The C entry suffix of a kernel's build for ``dtype``: "" (float64)
+    or "_f32" (float32)."""
+    if dtype == torch.float64:
+        return ""
+    if dtype == torch.float32:
+        return "_f32"
+    raise ValueError(f"no kernel build for {dtype}")
 
 
 def count_launch(name: str, blocks: int = 1) -> None:
@@ -112,8 +145,11 @@ def build(verbose: bool = False, csrc_dir: str = CSRC_DIR,
     their own."""
     flags = list(NVCC_FLAGS)
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in sources:
-        with open(os.path.join(csrc_dir, name), "rb") as f:
+    for name in tuple(sources) + HEADERS:
+        path = os.path.join(csrc_dir, name)
+        if name in HEADERS and not os.path.exists(path):
+            continue   # another tree's sources, from before the header
+        with open(path, "rb") as f:
             h.update(f.read())
     tag = h.hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"libdelphy_kernels_{tag}.so")
@@ -161,20 +197,12 @@ def load(path: str):
         fn.restype = ctypes.c_int
     handle.delphy_cuda_error_string.argtypes = [ctypes.c_int]
     handle.delphy_cuda_error_string.restype = ctypes.c_char_p
-    handle.delphy_sweep_chain_smem_bytes.argtypes = [_I] * 4
-    handle.delphy_sweep_chain_smem_bytes.restype = ctypes.c_ulonglong
-    if hasattr(handle, "delphy_sweep_chain_skygrid_smem_bytes"):
-        handle.delphy_sweep_chain_skygrid_smem_bytes.argtypes = [_I] * 5
-        handle.delphy_sweep_chain_skygrid_smem_bytes.restype = \
-            ctypes.c_ulonglong
-    if hasattr(handle, "delphy_exp_pop_chain_nodes_shared"):
-        handle.delphy_exp_pop_chain_nodes_shared.argtypes = [_I] * 3
-        handle.delphy_exp_pop_chain_nodes_shared.restype = ctypes.c_int
-    if hasattr(handle, "delphy_sweep_chain_stages"):
-        handle.delphy_sweep_chain_stages.argtypes = [_I] * 5
-        handle.delphy_sweep_chain_stages.restype = ctypes.c_int
-        handle.delphy_sweep_chain_workspace_bytes.argtypes = [_I] * 5
-        handle.delphy_sweep_chain_workspace_bytes.restype = ctypes.c_ulonglong
+    for name, (n_args, restype) in _QUERIES.items():
+        if name in _OPTIONAL and not hasattr(handle, name):
+            continue
+        fn = getattr(handle, name)
+        fn.argtypes = [_I] * n_args
+        fn.restype = restype
     return handle
 
 

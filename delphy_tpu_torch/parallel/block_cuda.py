@@ -18,6 +18,10 @@ device-memory workspace (entries ``*_global``, launch counts
 ``sweep_chain_global`` and ``sweep_chain_skygrid_global``).  The port packs
 rows unpadded (NC = n_cap, MC = m_cap, C = cells); both versions also
 accept the JAX package's 128-lane padded rows, whose padding is inert.
+The chain runs in the dtype of its uniforms: float64, or float32 (every
+entry's ``_f32`` build, e.g. ``delphy_sweep_chain_f32``), and every float
+row must be of that dtype.  The move counts are summed in it as well: at
+most n_blocks (1 + 2 NC) a part, exact in float32 below 2^24.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import DTYPE
+from .. import resolve_dtype
 from .. import pop as popm
 from . import _cuda
 
@@ -61,14 +65,18 @@ class ChainStatics(NamedTuple):
 
 
 def gen_block_uniforms(gen: torch.Generator, P: int, NB: int, NC: int,
-                       MC: int, device) -> BlockUniforms:
+                       MC: int, device, dtype=None) -> BlockUniforms:
+    """The uniforms of NB blocks of P parts in ``resolve_dtype(dtype)``, the
+    run's float dtype (the JAX ``gen_block_uniforms(dtype=)``)."""
+    dtype = resolve_dtype(dtype)
+
     def u(*shape):
-        return torch.rand((P, NB) + shape, generator=gen, dtype=DTYPE,
+        return torch.rand((P, NB) + shape, generator=gen, dtype=dtype,
                           device=device)
     return BlockUniforms(
         pri=u(NC), prop=u(NC), acc=u(NC), ref_u=u(MC), ref_acc=u(NC),
         sc=u(SC_LANES),
-        norm=torch.randn((P, NB, 1), generator=gen, dtype=DTYPE,
+        norm=torch.randn((P, NB, 1), generator=gen, dtype=dtype,
                          device=device))
 
 
@@ -100,11 +108,12 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     """Plain PyTorch chain over all P parts at once (index gathers, dense
     (P, NC, C) dk).  Returns (t (P,1,NC), mut_t (P,1,MC), k_p (P,1,C),
     dG (P,), dC (P,), cnt (P,)), the last three the columns of one (P, 3)
-    tensor."""
+    tensor.  In the dtype of the uniforms ``u``."""
     NC, MC, C = stat.NC, stat.MC, stat.C
-    t = _rows(ctx_arrs, "t").to(DTYPE)
-    mut_t = _rows(ctx_arrs, "mut_t").to(DTYPE)
-    k_p = _rows(ctx_arrs, "k_p").to(DTYPE)
+    dt = u.pri.dtype
+    t = _rows(ctx_arrs, "t").to(dt)
+    mut_t = _rows(ctx_arrs, "mut_t").to(dt)
+    k_p = _rows(ctx_arrs, "k_p").to(dt)
     P = t.shape[0]
     dev = t.device
     par = _rows(ctx_arrs, "par").long()
@@ -138,7 +147,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         def log_pop(tt):
             return popm.skygrid_log_N(sky, tt)
 
-    zero = torch.zeros((), dtype=DTYPE, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
     inf = zero + math.inf
     iota_n = torch.arange(NC, device=dev)[None, :]
     valid_node = iota_n < n_nodes[:, None]
@@ -151,7 +160,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     c0_c, c1_c = c0.clamp(min=0), c1.clamp(min=0)
     grid_lo = t_lo_g + t_step
     cells = torch.arange(C, device=dev)
-    lb = torch.where(cells < stat.C_real, t_lo_g + t_step * cells.to(DTYPE),
+    lb = torch.where(cells < stat.C_real, t_lo_g + t_step * cells.to(dt),
                      inf)[None, :]                                # (1, C)
     inv_nbar_dt = t_step / nbar                                   # (1, C)
     n_seg = stat.C_real // stat.cpb + 1
@@ -167,17 +176,17 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                                          - bb * dk), -1)
 
     def slot_minmax(mt):
-        own_max = torch.full((P, NC), -math.inf, dtype=DTYPE, device=dev)
+        own_max = torch.full((P, NC), -math.inf, dtype=dt, device=dev)
         own_max = own_max.scatter_reduce(
             1, mnode_c, torch.where(slot_ok, mt, -inf), "amax")
-        child_min = torch.full((P, NC), math.inf, dtype=DTYPE, device=dev)
+        child_min = torch.full((P, NC), math.inf, dtype=dt, device=dev)
         child_min = child_min.scatter_reduce(
             1, mnode_c, torch.where(slot_ok, mt, inf), "amin")
         return own_max, child_min
 
-    dG = torch.zeros(P, dtype=DTYPE, device=dev)
-    dC = torch.zeros(P, dtype=DTYPE, device=dev)
-    cnt = torch.zeros(P, dtype=DTYPE, device=dev)
+    dG = torch.zeros(P, dtype=dt, device=dev)
+    dC = torch.zeros(P, dtype=dt, device=dev)
+    cnt = torch.zeros(P, dtype=dt, device=dev)
 
     for i in range(n_blocks):
         sc = u.sc[:, i, :]
@@ -189,8 +198,8 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         inner = u_sel < 0.5
         n_inner = n_nodes - n_leaves
         node_i = n_leaves + torch.floor(
-            u_ni * n_inner.clamp(min=1).to(DTYPE)).long()
-        node_t = torch.floor(u_nt * n_leaves.clamp(min=1).to(DTYPE)).long()
+            u_ni * n_inner.clamp(min=1).to(dt)).long()
+        node_t = torch.floor(u_nt * n_leaves.clamp(min=1).to(dt)).long()
         node = torch.where(inner, node_i, node_t)
         node_ok = (node >= 0) & (node < NC)
         nd = node.clamp(0, NC - 1)[:, None]
@@ -241,7 +250,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
             & (t_lo_b < t_hi)
         delta_log_G = d * (new_t - old_t)
         log_alpha = torch.where(is_root_move, zero, delta_log_G)
-        sign = torch.where(inner, -1.0, 1.0).to(DTYPE)
+        sign = torch.where(inner, -1.0, 1.0).to(dt)
         dk = sign[:, None] * (frac(new_t[:, None]) - frac(old_t[:, None]))
         dquad = dquad_of(k_p, dk, b)
         dlogN = torch.where(inner, -(log_pop(new_t) - log_pop(old_t)),
@@ -255,7 +264,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         k_p = torch.where(accept[:, None], k_p + dk, k_p)
         dG = dG + torch.where(accept, delta_log_G, zero)
         dC = dC + torch.where(accept, dcoal, zero)
-        cnt = cnt + torch.where(n_nodes > 1, 1.0, 0.0).to(DTYPE)
+        cnt = cnt + torch.where(n_nodes > 1, 1.0, 0.0).to(dt)
 
         # ---- batched cell-block-coloured displacement ----
         offset = torch.floor(sc[:, _SC_OFF] * stat.cpb)[:, None]   # (P, 1)
@@ -279,7 +288,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         win_hi = torch.minimum(t_hi, blk_t_hi)
         fits = movable & in_grid & (win_lo < win_hi)
         pri = torch.where(fits, u.pri[:, i, :NC], zero - 1.0)
-        best = torch.full((P, n_seg), -1.0, dtype=DTYPE, device=dev)
+        best = torch.full((P, n_seg), -1.0, dtype=dt, device=dev)
         best = best.scatter_reduce(1, blk, pri, "amax")
         selected = fits & (pri >= 0.0) & (pri == gather(best, blk))
         selected = selected & ~(par_ok & gather(selected, par_c))
@@ -293,7 +302,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                                           win_lo + 1.0))
         new_t = torch.minimum(torch.maximum(new_t, win_lo), win_hi)
         in_bounds = selected & (new_t > win_lo) & (new_t < win_hi)
-        sign = torch.where(is_leaf, 1.0, -1.0).to(DTYPE)
+        sign = torch.where(is_leaf, 1.0, -1.0).to(dt)
         t_eff = torch.where(in_bounds, new_t, old_t)
         dk = sign[..., None] * (frac(t_eff[..., None]) - frac(old_t[..., None]))
         dquad = -torch.sum(inv_nbar_dt[:, None, :] * (
@@ -308,7 +317,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         k_p = k_p + torch.sum(torch.where(accept[..., None], dk, zero), 1)
         dG = dG + torch.sum(torch.where(accept, delta_log_G, zero), 1)
         dC = dC + torch.sum(torch.where(accept, dcoal, zero), 1)
-        cnt = cnt + torch.sum(selected.to(DTYPE), 1)
+        cnt = cnt + torch.sum(selected.to(dt), 1)
 
         # ---- batched branch reform ----
         t_par = torch.where(par_ok, gather(t, par_c), zero)
@@ -318,7 +327,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         uu = torch.clamp(u.ref_u[:, i, :MC], min=1e-16)
         new_mut_t = torch.where(mut_in, t_P + uu * (t_X - t_P), mut_t)
         per_slot = torch.where(mut_in, -slope * (new_mut_t - mut_t), zero)
-        delta_n = torch.zeros((P, NC), dtype=DTYPE, device=dev)
+        delta_n = torch.zeros((P, NC), dtype=dt, device=dev)
         delta_n = delta_n.scatter_add(
             1, mnode_c, torch.where(slot_ok, per_slot, zero))
         lu = torch.log(torch.clamp(u.ref_acc[:, i, :NC], min=1e-30))
@@ -326,7 +335,7 @@ def sweep_chain_torch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         accept_slot = slot_ok & gather(accept_n, mnode_c) & mut_in
         mut_t = torch.where(accept_slot, new_mut_t, mut_t)
         dG = dG + torch.sum(torch.where(accept_n, delta_n, zero), 1)
-        cnt = cnt + torch.sum(in_batch.to(DTYPE), 1)
+        cnt = cnt + torch.sum(in_batch.to(dt), 1)
 
     # the kernel's layout: the columns of one (P, 3) tensor, so that a sum
     # over P rounds alike on either
@@ -376,28 +385,47 @@ def sweep_chain_kernel(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     return _launch(stat, n_blocks, ctx_arrs, shared, u)
 
 
-def build(stat: ChainStatics, n_knots: int = 0) -> int:
+def build(stat: ChainStatics, n_knots: int = 0, dtype=None) -> int:
     """The kernel's build for ``stat``'s shapes (``n_knots``: the skygrid's
-    knots, 0 for the exponential model): 2 or 1 uniform stages in shared
-    memory, or 0 for the rows in a device-memory workspace."""
-    return int(_cuda.lib().delphy_sweep_chain_stages(
+    knots, 0 for the exponential model) in ``resolve_dtype(dtype)``: 2 or
+    1 uniform stages in shared memory, or 0 for the rows in a device-memory
+    workspace.  Shared memory is counted in the dtype's bytes, so a float32
+    part stays in shared memory up to about twice the rows."""
+    fn = "delphy_sweep_chain_stages" + _cuda.suffix(resolve_dtype(dtype))
+    return int(getattr(_cuda.lib(), fn)(stat.NC, stat.MC, stat.C_real,
+                                        stat.cpb, n_knots))
+
+
+def smem_bytes(stat: ChainStatics, n_knots: int = 0, dtype=None) -> int:
+    """Shared-memory bytes a part of ``build(stat, n_knots, dtype)``."""
+    sfx = _cuda.suffix(resolve_dtype(dtype))
+    lib = _cuda.lib()
+    if stat.pop == POP_EXP:
+        return int(getattr(lib, "delphy_sweep_chain_smem_bytes" + sfx)(
+            stat.NC, stat.MC, stat.C_real, stat.cpb))
+    return int(getattr(lib, "delphy_sweep_chain_skygrid_smem_bytes" + sfx)(
         stat.NC, stat.MC, stat.C_real, stat.cpb, n_knots))
 
 
-def entry(stat: ChainStatics, n_knots: int = 0) -> str:
+def entry(stat: ChainStatics, n_knots: int = 0, dtype=None) -> str:
     """The C entry point (and, without ``delphy_``, the launch-count name)
-    of ``stat``'s model and build."""
+    of ``stat``'s model and build in ``resolve_dtype(dtype)``."""
+    dtype = resolve_dtype(dtype)
     name = ("delphy_sweep_chain" if stat.pop == POP_EXP
             else "delphy_sweep_chain_skygrid")
-    return name + ("_global" if build(stat, n_knots) == 0 else "")
+    return (name + ("_global" if build(stat, n_knots, dtype) == 0 else "")
+            + _cuda.suffix(dtype))
 
 
 def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                 u: BlockUniforms) -> _cuda.Packed:
-    """Check and pack the chain's inputs for ``entry(stat, K)`` (K: the
-    skygrid's knots, else 0); outs are (t (P,1,NC), mut_t (P,1,MC), k_p
-    (P,1,C), acc (P,3)), and the global build's workspace is the scratch."""
+    """Check and pack the chain's inputs for ``entry(stat, K, dtype)`` (K:
+    the skygrid's knots, else 0; dtype: the uniforms', which every float
+    input must share); outs are (t (P,1,NC), mut_t (P,1,MC), k_p (P,1,C),
+    acc (P,3)), and the global build's workspace is the scratch."""
     dev = ctx_arrs["t"].device
+    dt = u.pri.dtype
+    _cuda.suffix(dt)
     P = ctx_arrs["t"].shape[0]
     NC, MC, C = stat.NC, stat.MC, stat.C
     width = {"NC": NC, "MC": MC, "C": C}
@@ -406,7 +434,7 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
         a = ctx_arrs[k].reshape(P, -1)
         a = a.to(torch.int32) if k in _INT_ROWS else a
         rows[k] = a.contiguous()
-        _cuda.require(rows[k], k, torch.int32 if k in _INT_ROWS else DTYPE,
+        _cuda.require(rows[k], k, torch.int32 if k in _INT_ROWS else dt,
                       (P, width[_WIDTH[k]]), dev)
     isc = torch.stack([ctx_arrs[k].reshape(P).to(torch.int32) for k in
                        ("part_root", "is_run_root", "n_leaves", "n_nodes")],
@@ -414,23 +442,24 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
     sky = stat.pop != POP_EXP
     scalars = ("t_lo", "t_step", "t_max_tip") + (
         () if sky else ("log_n0", "g", "t0", "log_min_pop"))
-    fsc = torch.stack([shared[k].to(DTYPE).reshape(()) for k in scalars])
+    fsc = torch.stack([shared[k].reshape(()) for k in scalars])
     if sky:   # the exponential model's four entries are unused
         fsc = torch.cat([fsc, fsc.new_zeros(4)])
     fsc = fsc.contiguous()
+    _cuda.require(fsc, "scalars", dt, (fsc.shape[0],), dev)
     A = shared["A"].reshape(C).contiguous()
     nbar = shared["nbar"].reshape(C).contiguous()
-    _cuda.require(A, "A", DTYPE, (C,), dev)
-    _cuda.require(nbar, "nbar", DTYPE, (C,), dev)
+    _cuda.require(A, "A", dt, (C,), dev)
+    _cuda.require(nbar, "nbar", dt, (C,), dev)
     NB = u.pri.shape[1]
     if not 0 <= n_blocks <= NB:
         raise ValueError(f"n_blocks {n_blocks} outside the {NB} pre-generated")
     for name, X in (("pri", NC), ("prop", NC), ("acc", NC), ("ref_u", MC),
                     ("ref_acc", NC)):
-        _cuda.require(getattr(u, name), name, DTYPE, (P, NB, X), dev)
+        _cuda.require(getattr(u, name), name, dt, (P, NB, X), dev)
     for name, X in (("sc", SC_LANES), ("norm", 1)):
         a = getattr(u, name)
-        _cuda.require(a, name, DTYPE, (P, NB, None), dev)
+        _cuda.require(a, name, dt, (P, NB, None), dev)
         if a.shape[2] < X:
             raise ValueError(f"{name}: last axis {a.shape[2]} < {X}")
     knots = ()
@@ -439,18 +468,21 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
                  shared["gamma"].reshape(-1).contiguous())
         K = knots[0].shape[0]
         for name, a in zip(("x", "gamma"), knots):
-            _cuda.require(a, name, DTYPE, (K,), dev)
+            _cuda.require(a, name, dt, (K,), dev)
         if K < 2:
             raise ValueError(f"a skygrid needs at least 2 knots, got {K}")
     scratch = ()
-    if build(stat, knots[0].shape[0] if sky else 0) == 0:
-        stride = _cuda.lib().delphy_sweep_chain_workspace_bytes(
-            NC, MC, stat.C_real, stat.cpb, knots[0].shape[0] if sky else 0)
-        scratch = (torch.empty(P * stride // 8, dtype=DTYPE, device=dev),)
-    t_o = torch.empty((P, 1, NC), dtype=DTYPE, device=dev)
-    mut_o = torch.empty((P, 1, MC), dtype=DTYPE, device=dev)
-    kp_o = torch.empty((P, 1, C), dtype=DTYPE, device=dev)
-    acc_o = torch.empty((P, 3), dtype=DTYPE, device=dev)
+    n_knots = knots[0].shape[0] if sky else 0
+    if build(stat, n_knots, dt) == 0:
+        stride = getattr(_cuda.lib(), "delphy_sweep_chain_workspace_bytes"
+                         + _cuda.suffix(dt))(NC, MC, stat.C_real, stat.cpb,
+                                             n_knots)
+        scratch = (torch.empty(P * stride // dt.itemsize, dtype=dt,
+                               device=dev),)
+    t_o = torch.empty((P, 1, NC), dtype=dt, device=dev)
+    mut_o = torch.empty((P, 1, MC), dtype=dt, device=dev)
+    kp_o = torch.empty((P, 1, C), dtype=dt, device=dev)
+    acc_o = torch.empty((P, 3), dtype=dt, device=dev)
     R = {k: _cuda.ptr(v) for k, v in rows.items()}
     P_ = _cuda.ptr
     args = (
@@ -472,7 +504,8 @@ def pack_launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
 def _launch(stat: ChainStatics, n_blocks: int, ctx_arrs, shared,
             u: BlockUniforms):
     pk = pack_launch(stat, n_blocks, ctx_arrs, shared, u)
-    name = entry(stat, shared["x"].numel() if stat.pop != POP_EXP else 0)
+    name = entry(stat, shared["x"].numel() if stat.pop != POP_EXP else 0,
+                 u.pri.dtype)
     _cuda.check(getattr(_cuda.lib(), name)(*pk.args), name)
     _cuda.count_launch(name[len("delphy_"):], pk.outs[0].shape[0])
     t_o, mut_o, kp_o, acc_o = pk.outs
@@ -486,6 +519,7 @@ def pack_chain_inputs(ctx, sh, pop_params, k_p, t_p, mut_t_p, cpb: int):
     P, n_cap = ctx.parent.shape
     m_cap = ctx.mut_node_loc.shape[1]
     C = k_p.shape[1]
+    dt = t_p.dtype
 
     def r3(a, dtype=None):
         a = a if dtype is None else a.to(dtype)
@@ -497,7 +531,7 @@ def pack_chain_inputs(ctx, sh, pop_params, k_p, t_p, mut_t_p, cpb: int):
         "par": r3(ctx.parent, i32),
         "c0": r3(ctx.children[:, :, 0], i32),
         "c1": r3(ctx.children[:, :, 1], i32),
-        "t_min": r3(ctx.t_min, DTYPE), "t_max": r3(ctx.t_max, DTYPE),
+        "t_min": r3(ctx.t_min, dt), "t_max": r3(ctx.t_max, dt),
         "lam": r3(ctx.lam), "dlam": r3(ctx.dlam_miss),
         "mnode": r3(ctx.mut_node_loc, i32),
         "mvalid": r3(ctx.mut_valid, i32),

@@ -4,14 +4,15 @@ version (port of ``delphy_tpu/parallel/hky_pallas.py``).
 
 Randomness comes in as a (n_rounds, S >= 6) tensor of uniforms with the
 lane layout of the JAX chain (``_U_*``), so the kernel, the plain version
-and the JAX twin ``hky_chain_jnp`` can be fed the same numbers.
+and the JAX twin ``hky_chain_jnp`` can be fed the same numbers.  The chain
+runs in the dtype of ``u``: float64, or float32 (the kernel's ``_f32``
+build).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import DTYPE
 from ..evo import hky_q
 from . import _cuda
 
@@ -26,17 +27,17 @@ def hky_chain_torch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
     """Plain PyTorch chain; ``hypf`` is the kappa prior (mean, sigma) of
     log kappa.  Returns (kappa, pi (1, 4), q (4, 4))."""
     kappa_m, kappa_s = hypf
-    dev = u.device
-    pi = pi0.reshape(4).to(DTYPE)
-    tt = Ttwiddle_a.reshape(4).to(DTYPE)
-    M = M_ab.reshape(4, 4).to(DTYPE)
-    rf = root_freq.reshape(4).to(DTYPE)
-    kappa = torch.as_tensor(kappa0, dtype=DTYPE, device=dev)
-    mu = torch.as_tensor(mu, dtype=DTYPE, device=dev)
+    dev, dt = u.device, u.dtype
+    pi = pi0.reshape(4).to(dt)
+    tt = Ttwiddle_a.reshape(4).to(dt)
+    M = M_ab.reshape(4, 4).to(dt)
+    rf = root_freq.reshape(4).to(dt)
+    kappa = torch.as_tensor(kappa0, dtype=dt, device=dev)
+    mu = torch.as_tensor(mu, dtype=dt, device=dev)
     lane4 = torch.arange(4, device=dev)
     eye = torch.eye(4, dtype=torch.bool, device=dev)
     Mpos = ~eye & (M > 0.0)
-    zero = torch.zeros((), dtype=DTYPE, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
     one = zero + 1.0
 
     def delta_of(new_q, q):
@@ -97,32 +98,38 @@ def kernel_path(kappa0, pi0) -> str:
     (a few logs per MH step; exact while kappa and every pi_b are positive)
     or "per-entry" (the plain version's 4x4 formula), by the kernel's own
     rule (csrc/hky_chain.cu)."""
-    start = torch.cat([torch.as_tensor(kappa0, dtype=DTYPE).reshape(1).cpu(),
-                       torch.as_tensor(pi0, dtype=DTYPE).reshape(4).cpu()])
+    f64 = torch.float64   # exact for either precision's values
+    start = torch.cat([torch.as_tensor(kappa0).to(f64).reshape(1).cpu(),
+                       torch.as_tensor(pi0).to(f64).reshape(4).cpu()])
     ok = bool((torch.isfinite(start) & (start > 0.0)).all())
     return "folded" if ok else "per-entry"
 
 
 def pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
                 n_rounds: int) -> _cuda.Packed:
-    """Check and pack the chain's inputs for ``delphy_hky_chain``; outs are
-    (kappa, pi (1, 4), q (4, 4))."""
+    """Check and pack the chain's inputs for ``delphy_hky_chain`` (float64
+    ``u``) or ``delphy_hky_chain_f32`` (float32): every float input must be
+    of ``u``'s dtype; outs are (kappa, pi (1, 4), q (4, 4))."""
     kappa_m, kappa_s = hypf
-    dev = u.device
-    _cuda.require(u, "u", DTYPE, (None, None), dev)
+    dev, dt = u.device, u.dtype
+    _cuda.suffix(dt)
+    _cuda.require(u, "u", dt, (None, None), dev)
     if u.shape[0] < n_rounds or u.shape[1] < N_LANES:
         raise ValueError(f"u: shape {tuple(u.shape)} too small for "
                          f"{n_rounds} rounds x {N_LANES} lanes")
-    fsc = torch.stack([torch.as_tensor(mu, dtype=DTYPE, device=dev),
-                       torch.as_tensor(kappa0, dtype=DTYPE, device=dev)])
+    for name, x in (("mu", mu), ("kappa0", kappa0)):
+        _cuda.require(torch.as_tensor(x).reshape(-1).contiguous(), name, dt,
+                      (1,), dev)
+    fsc = torch.stack([torch.as_tensor(mu).reshape(()),
+                       torch.as_tensor(kappa0).reshape(())])
     ins = [x.reshape(-1).contiguous() for x in (pi0, Ttwiddle_a, root_freq)]
     M = M_ab.reshape(16).contiguous()
     for name, x, n in (("pi0", ins[0], 4), ("Ttwiddle_a", ins[1], 4),
                        ("root_freq", ins[2], 4), ("M_ab", M, 16)):
-        _cuda.require(x, name, DTYPE, (n,), dev)
-    kappa = torch.empty((), dtype=DTYPE, device=dev)
-    pi = torch.empty((1, 4), dtype=DTYPE, device=dev)
-    q = torch.empty((4, 4), dtype=DTYPE, device=dev)
+        _cuda.require(x, name, dt, (n,), dev)
+    kappa = torch.empty((), dtype=dt, device=dev)
+    pi = torch.empty((1, 4), dtype=dt, device=dev)
+    q = torch.empty((4, 4), dtype=dt, device=dev)
     P = _cuda.ptr
     args = (P(u), u.shape[1], n_rounds, P(fsc), P(ins[0]), P(ins[1]), P(M),
             P(ins[2]), float(kappa_m), float(kappa_s), P(kappa), P(pi), P(q),
@@ -134,8 +141,9 @@ def _launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
             n_rounds: int):
     pk = pack_launch(u, mu, kappa0, pi0, Ttwiddle_a, M_ab, root_freq, hypf,
                      n_rounds)
-    _cuda.check(_cuda.lib().delphy_hky_chain(*pk.args), "hky_chain")
-    _cuda.count_launch("hky_chain")
+    name = "hky_chain" + _cuda.suffix(u.dtype)
+    _cuda.check(getattr(_cuda.lib(), "delphy_" + name)(*pk.args), name)
+    _cuda.count_launch(name)
     return pk.outs
 
 
@@ -143,12 +151,11 @@ def hky_chain(gen: torch.Generator, evo, Ttwiddle_a, M_ab, root_freq, hyp,
               n_rounds: int = 10):
     """The 10x HKY moves of a global boundary: evo with updated
     (kappa, pi, q, q_tab)."""
-    dev = evo.pi.device
-    u = torch.rand((n_rounds, N_LANES), generator=gen, dtype=DTYPE,
-                   device=dev)
+    dev, dt = evo.pi.device, evo.pi.dtype
+    u = torch.rand((n_rounds, N_LANES), generator=gen, dtype=dt, device=dev)
     hypf = (float(hyp.kappa_prior_mean_log), float(hyp.kappa_prior_sigma_log))
     kappa, pi, q = hky_chain_kernel(
-        u, evo.mu, evo.kappa, evo.pi.reshape(1, 4), Ttwiddle_a.to(DTYPE),
-        M_ab.to(DTYPE).reshape(4, 4), root_freq.reshape(1, 4), hypf,
+        u, evo.mu, evo.kappa, evo.pi.reshape(1, 4), Ttwiddle_a.to(dt),
+        M_ab.to(dt).reshape(4, 4), root_freq.reshape(1, 4), hypf,
         n_rounds)
     return evo._replace(kappa=kappa, pi=pi.reshape(4), q=q, q_tab=q[None])

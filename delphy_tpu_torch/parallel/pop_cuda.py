@@ -6,7 +6,9 @@ random-walk move) with k_bar fixed, as one CUDA kernel
 Randomness comes in as a (n_rounds, S >= 4) tensor of uniforms with the lane
 layout of the JAX chain (``_U_*``).  Rows are 1 x C cells and 1 x N nodes,
 unpadded; the kernel and the plain version also accept the JAX package's
-128-lane padded rows, whose padding is inert (k2 = 0, inner = False).
+128-lane padded rows, whose padding is inert (k2 = 0, inner = False).  The
+chain runs in the dtype of ``u``: float64, or float32 (the kernel's
+``_f32`` build).
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ import math
 
 import torch
 
-from .. import DTYPE
 from . import _cuda
 
 _TINY = 1e-30
@@ -38,7 +39,7 @@ def lp_rows(lbs, k2, t_row, inner, t_step, t0, min_pop, n0, g):
     min_pop floor per cell, plus -log N(t) at inner nodes)."""
     a = lbs
     b = lbs + t_step
-    zero = torch.zeros((), dtype=DTYPE, device=lbs.device)
+    zero = torch.zeros((), dtype=lbs.dtype, device=lbs.device)
     one = zero + 1.0
     log_min_pop = torch.where(min_pop > 0.0,
                               torch.log(torch.clamp(min_pop, min=_TINY)),
@@ -70,10 +71,10 @@ def exp_pop_chain_torch(u, lbs, k2, t_row, inner, t_step, t0, min_pop,
     """Plain PyTorch chain.  Returns (n0, g) as 0-d tensors."""
     (alpha, beta, g_min, g_max, g_mu, g_scale,
      size_enabled, growth_enabled) = hypf
-    dev = u.device
-    rows = (lbs.reshape(-1).to(DTYPE), k2.reshape(-1).to(DTYPE),
-            t_row.reshape(-1).to(DTYPE), inner.reshape(-1).bool())
-    f = lambda x: torch.as_tensor(x, dtype=DTYPE, device=dev)  # noqa: E731
+    dev, dt = u.device, u.dtype
+    rows = (lbs.reshape(-1).to(dt), k2.reshape(-1).to(dt),
+            t_row.reshape(-1).to(dt), inner.reshape(-1).bool())
+    f = lambda x: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
     t_step, t0, min_pop, n0, g = map(f, (t_step, t0, min_pop, n0_0, g_0))
 
     def lp_of(n0_, g_):
@@ -121,26 +122,32 @@ def exp_pop_chain_kernel(u, lbs, k2, t_row, inner, t_step, t0, min_pop,
 
 def pack_launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0,
                 hypf, n_rounds: int) -> _cuda.Packed:
-    """Check and pack the chain's inputs for ``delphy_exp_pop_chain``; outs
-    is (out,), with out = [n0, g, n0 proposals evaluated per cell (the others
-    were folded to scalars), g proposals evaluated]."""
+    """Check and pack the chain's inputs for ``delphy_exp_pop_chain``
+    (float64 ``u``) or ``delphy_exp_pop_chain_f32`` (float32): every float
+    input must be of ``u``'s dtype; outs is (out,), with out = [n0, g, n0
+    proposals evaluated per cell (the others were folded to scalars), g
+    proposals evaluated]."""
     (alpha, beta, g_min, g_max, g_mu, g_scale,
      size_enabled, growth_enabled) = hypf
-    dev = u.device
-    _cuda.require(u, "u", DTYPE, (None, None), dev)
+    dev, dt = u.device, u.dtype
+    _cuda.suffix(dt)
+    _cuda.require(u, "u", dt, (None, None), dev)
     if u.shape[0] < n_rounds or u.shape[1] < N_LANES:
         raise ValueError(f"u: shape {tuple(u.shape)} too small for "
                          f"{n_rounds} rounds x {N_LANES} lanes")
     lbs_, k2_, t_ = (x.reshape(-1).contiguous() for x in (lbs, k2, t_row))
     inner_ = inner.reshape(-1).to(torch.int32).contiguous()
     C, N = lbs_.shape[0], t_.shape[0]
-    _cuda.require(lbs_, "lbs", DTYPE, (C,), dev)
-    _cuda.require(k2_, "k2", DTYPE, (C,), dev)
-    _cuda.require(t_, "t_row", DTYPE, (N,), dev)
+    _cuda.require(lbs_, "lbs", dt, (C,), dev)
+    _cuda.require(k2_, "k2", dt, (C,), dev)
+    _cuda.require(t_, "t_row", dt, (N,), dev)
     _cuda.require(inner_, "inner", torch.int32, (N,), dev)
-    fsc = torch.stack([torch.as_tensor(x, dtype=DTYPE, device=dev).reshape(())
-                       for x in (t_step, t0, min_pop, n0_0, g_0)])
-    out = torch.empty(4, dtype=DTYPE, device=dev)
+    scalars = (t_step, t0, min_pop, n0_0, g_0)
+    for name, x in zip(("t_step", "t0", "min_pop", "n0", "g"), scalars):
+        _cuda.require(torch.as_tensor(x).reshape(-1).contiguous(), name, dt,
+                      (1,), dev)
+    fsc = torch.stack([torch.as_tensor(x).reshape(()) for x in scalars])
+    out = torch.empty(4, dtype=dt, device=dev)
     P = _cuda.ptr
     args = (P(u), u.shape[1], n_rounds, P(lbs_), P(k2_), C, P(t_), P(inner_),
             N, P(fsc), alpha, beta, g_min, g_max, g_mu, g_scale,
@@ -153,8 +160,9 @@ def _launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0, g_0, hypf,
             n_rounds: int):
     pk = pack_launch(u, lbs, k2, t_row, inner, t_step, t0, min_pop, n0_0,
                      g_0, hypf, n_rounds)
-    _cuda.check(_cuda.lib().delphy_exp_pop_chain(*pk.args), "exp_pop_chain")
-    _cuda.count_launch("exp_pop_chain")
+    name = "exp_pop_chain" + _cuda.suffix(u.dtype)
+    _cuda.check(getattr(_cuda.lib(), "delphy_" + name)(*pk.args), name)
+    _cuda.count_launch(name)
     out = pk.outs[0]
     return out[0], out[1]
 
@@ -171,7 +179,7 @@ def exp_pop_chain(gen: torch.Generator, pop_params, grid, t, is_tip, hyp,
                   n_rounds: int = 50):
     """The 50 exp-pop rounds of a global boundary: pop_params with updated
     (n0, g)."""
-    u = torch.rand((n_rounds, N_LANES), generator=gen, dtype=DTYPE,
+    u = torch.rand((n_rounds, N_LANES), generator=gen, dtype=t.dtype,
                    device=t.device)
     lbs, k2, t_row, inner = pack_rows(grid, t, is_tip)
     n0, g = exp_pop_chain_kernel(

@@ -20,7 +20,6 @@ from typing import NamedTuple
 
 import torch
 
-from .. import DTYPE
 from ..evo import EvoParams
 from ..mcmc.kernel import run_global_moves
 from ..mcmc.moves import Caches
@@ -49,25 +48,25 @@ class PartCtx(NamedTuple):
     is_run_root: torch.Tensor   # bool[P]
     n_leaves: torch.Tensor      # i32[P]
     n_nodes: torch.Tensor       # i32[P]
-    t_min: torch.Tensor         # f64[P, n_cap]
-    t_max: torch.Tensor         # f64[P, n_cap]
+    t_min: torch.Tensor         # float[P, n_cap] (the run's float dtype)
+    t_max: torch.Tensor         # float[P, n_cap]
     mut_node_loc: torch.Tensor  # i32[P, m_cap]
     mut_valid: torch.Tensor     # bool[P, m_cap]
     mut_site: torch.Tensor      # i32[P, m_cap]
     mut_single: torch.Tensor    # bool[P, m_cap] only occurrence of (node, site)
-    lam: torch.Tensor           # f64[P, n_cap] lambda_i at part nodes
-    dlam_miss: torch.Tensor     # f64[P, n_cap]
-    slope: torch.Tensor         # f64[P, m_cap] mu nu (qa[from] - qa[to])
-    b: torch.Tensor             # f64[P, C] frozen vsc linear coefficients
+    lam: torch.Tensor           # float[P, n_cap] lambda_i at part nodes
+    dlam_miss: torch.Tensor     # float[P, n_cap]
+    slope: torch.Tensor         # float[P, m_cap] mu nu (qa[from] - qa[to])
+    b: torch.Tensor             # float[P, C] frozen vsc linear coefficients
 
 
 class SweepShared(NamedTuple):
     """Part-independent sweep inputs."""
-    A: torch.Tensor             # f64[C]
-    popsize_bar: torch.Tensor   # f64[C]
-    t_lo: torch.Tensor          # f64 scalar (grid)
-    t_step: torch.Tensor        # f64 scalar
-    t_max_tip: torch.Tensor     # f64 scalar
+    A: torch.Tensor             # float[C]
+    popsize_bar: torch.Tensor   # float[C]
+    t_lo: torch.Tensor          # float scalar (grid)
+    t_step: torch.Tensor        # float scalar
+    t_max_tip: torch.Tensor     # float scalar
 
 
 def _mul32(x, c: int):
@@ -191,7 +190,8 @@ def prepare_sweep(ts: TreeState, evo, pop_params, grid, caches, pm,
                      # a fill, not a copy of a host float: a blocking
                      # host-to-device copy would synchronise the stream
                      # every boundary
-                     t_max_tip=torch.full((), float(t_max_tip), dtype=DTYPE,
+                     t_max_tip=torch.full((), float(t_max_tip),
+                                          dtype=ts.t.dtype,
                                           device=ts.t.device))
     stat, ctx_arrs, shared = bc.pack_chain_inputs(
         ctx, sh, pop_params, k_p, t_p, mut_t_p, cpb=CELLS_PER_BLOCK)
@@ -203,16 +203,18 @@ def mesh_reassemble(mesh, shard: slice, P: int, dt, dmut, dG_p, dC_p,
     """The reassembly collective of a rank's sweep of rows ``shard`` of a
     part axis of width P: its scattered ``dt`` [N] and ``dmut`` [M] and its
     per-part ``dG_p``, ``dC_p`` and ``cnt_p``, each written into its own
-    rows of a [P] vector, packed into one f64 buffer and summed over the
+    rows of a [P] vector, packed into one float buffer and summed over the
     ranks with one all-reduce (the JAX package psums instead,
     delphy_tpu/parallel/sweep.py:569-573).  Every entry has exactly one
     nonzero contributor, so the sum is exact in any order on any backend.
     Returns (dt, dmut, dG_p, dC_p, cnt_p) of the whole part axis, the
     per-part vectors the columns of one [P, 3] tensor as the sweep's own
     are (block_cuda.sweep_chain_kernel), so a sum over P rounds as the
-    single-process path's does."""
+    single-process path's does.  The buffer is in the run's float dtype:
+    8 (N + M + 3P) bytes in float64, 4 (N + M + 3P) in float32 (a part's
+    move count, below 2^24, is exact in either)."""
     N, M = dt.shape[0], dmut.shape[0]
-    full = torch.zeros((P, 3), dtype=DTYPE, device=dt.device)
+    full = torch.zeros((P, 3), dtype=dt.dtype, device=dt.device)
     full[shard] = torch.stack([dG_p, dC_p, cnt_p], 1)
     buf = mesh.all_reduce_sum(torch.cat([dt, dmut, full.reshape(-1)]))
     parts = buf[N + M:].view(P, 3).clone().unbind(1)
@@ -248,7 +250,8 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
         rows)
     # all P rows are drawn on every rank: a smaller draw is not a slice of
     # the larger one
-    u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, ts.t.device)
+    u = bc.gen_block_uniforms(gen, P, nb, stat.NC, stat.MC, ts.t.device,
+                              ts.t.dtype)
     if mesh is not None:
         u = select_parts(u, shard)
     t_new, mut_new, _kp, dG_p, dC_p, cnt_p = bc.sweep_chain_kernel(
@@ -266,8 +269,10 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
     # log_coal is refreshed from the plain prior at the next boundary
     ledger = ledger._replace(log_G=ledger.log_G + torch.sum(dG_p),
                              log_coal=ledger.log_coal + torch.sum(dC_p))
-    stats = dict(stats, local_moves_attempted=torch.sum(cnt_p)
-                 .to(torch.int64))
+    # summed as integers: a boundary's count passes 2^24 at ~100k tips,
+    # beyond float32's exact integers (each part's stays below it)
+    stats = dict(stats, local_moves_attempted=torch.sum(
+        cnt_p.to(torch.int64)))
     return ts, evo, pop_params, ledger, stats
 
 

@@ -18,14 +18,13 @@ from typing import NamedTuple
 
 import torch
 
-from .. import DTYPE
 from ..ops.coalescent import k_bar_from_signs
 
 
 class VscFields(NamedTuple):
-    A: torch.Tensor    # f64[C] number of active parts per cell (>= 1)
-    b: torch.Tensor    # f64[P, C] ktp A - kt + 0.5 (0 at inactive cells)
-    k_p: torch.Tensor  # f64[P, C] per-part lineage-count staircases
+    A: torch.Tensor    # float[C] number of active parts per cell (>= 1)
+    b: torch.Tensor    # float[P, C] ktp A - kt + 0.5 (0 at inactive cells)
+    k_p: torch.Tensor  # float[P, C] per-part lineage-count staircases
 
 
 def calc_k_bar_signed(t, sign, t_lo, t_step, num_cells: int):
@@ -33,12 +32,12 @@ def calc_k_bar_signed(t, sign, t_lo, t_step, num_cells: int):
     partition signs of PartMaps.sign (part leaves +1, inner non-root -1,
     part root -2, or -1 for the run-root part, pads 0).  ``t`` and ``sign``
     may carry a leading part axis."""
-    return k_bar_from_signs(t, sign.to(DTYPE), t_lo, t_step, num_cells)
+    return k_bar_from_signs(t, sign.to(t.dtype), t_lo, t_step, num_cells)
 
 
 def active_cells(part_t_lo, part_t_hi, t_lo, t_step, num_cells: int):
     """bool[P, C]: cells overlapping each part's reachable time range."""
-    lb = t_lo + t_step * torch.arange(num_cells, dtype=DTYPE,
+    lb = t_lo + t_step * torch.arange(num_cells, dtype=t_lo.dtype,
                                       device=part_t_lo.device)
     return ((lb[None, :] <= part_t_hi[:, None])
             & (lb[None, :] + t_step > part_t_lo[:, None]))
@@ -47,11 +46,11 @@ def active_cells(part_t_lo, part_t_hi, t_lo, t_step, num_cells: int):
 def fields_from_normals(z, k_p, active, popsize_bar, t_step) -> VscFields:
     """Freeze the linear coefficients from standard normals ``z`` [P, C]:
     ktp ~ N(k_p - k/A, sqrt(Nbar / (A dt))) at active cells, 0 elsewhere."""
-    A = torch.clamp(torch.sum(active, 0).to(DTYPE), min=1.0)
+    A = torch.clamp(torch.sum(active, 0).to(k_p.dtype), min=1.0)
     k = torch.sum(k_p, 0)
     mu = k_p - (k / A)[None, :]
     sigma = torch.sqrt(popsize_bar / (A * t_step))[None, :]
-    zero = torch.zeros((), dtype=DTYPE, device=k_p.device)
+    zero = torch.zeros((), dtype=k_p.dtype, device=k_p.device)
     ktp = torch.where(active, mu + sigma * z, zero)
     kt = torch.sum(ktp, 0)
     b = torch.where(active, ktp * A[None, :] - kt[None, :] + 0.5, zero)
@@ -62,7 +61,8 @@ def sample_fields(gen: torch.Generator, k_p, active, popsize_bar,
                   t_step) -> VscFields:
     """Sample the auxiliary Gaussians (very_scalable_coalescent.cpp:198-219)
     from the run's generator and freeze the linear coefficients."""
-    z = torch.randn(k_p.shape, generator=gen, dtype=DTYPE, device=k_p.device)
+    z = torch.randn(k_p.shape, generator=gen, dtype=k_p.dtype,
+                    device=k_p.device)
     return fields_from_normals(z, k_p, active, popsize_bar, t_step)
 
 

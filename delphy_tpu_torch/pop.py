@@ -20,7 +20,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import DTYPE
 
 STAIRCASE = 1
 LOG_LINEAR = 2
@@ -120,7 +119,7 @@ def skygrid_log_N(p: SkygridPopParams, t):
     """log N(t) (pop_model.cpp:181-200): k = searchsorted(x, t, left) picks
     the interval; gamma[0] before x_0 and gamma[M] after x_M."""
     x, gamma = p.x, p.gamma
-    t = torch.as_tensor(t, dtype=DTYPE, device=x.device)
+    t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
     M = x.shape[0] - 1
     k = torch.searchsorted(x, t.reshape(-1), right=False).reshape(t.shape)
     if p.type == STAIRCASE:
@@ -142,10 +141,10 @@ def _skygrid_log_int_core(x, gamma_eff, type_, a, b):
     integral over its intersection with [a, b], combined with logsumexp.
     ``a`` and ``b`` broadcast; the interval axis is appended last."""
     dev = x.device
-    a = torch.as_tensor(a, dtype=DTYPE, device=dev)[..., None]
-    b = torch.as_tensor(b, dtype=DTYPE, device=dev)[..., None]
+    a = torch.as_tensor(a, dtype=x.dtype, device=dev)[..., None]
+    b = torch.as_tensor(b, dtype=x.dtype, device=dev)[..., None]
     M = x.shape[0] - 1
-    inf = torch.full((1,), math.inf, dtype=DTYPE, device=dev)
+    inf = torch.full((1,), math.inf, dtype=x.dtype, device=dev)
     # interval k spans (edge_lo[k], edge_hi[k]], k = 0..M+1
     edge_lo = torch.cat([-inf, x])
     edge_hi = torch.cat([x, inf])

@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import DEFAULT_DEVICE, DTYPE, resolve_device
+from . import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from . import pop as popm
 from .convert import part_maps_to_torch
 from .evo import EvoParams, apobec_context_partition, make_evo_params
@@ -134,7 +134,7 @@ class Run:
                  skygrid_tau: float | None = None,
                  skygrid_double_half_time_days: float | None = None,
                  skygrid_init_nbar_days: float = 3.0 * 365.0,
-                 mpox_hack: bool = False, mesh=None):
+                 mpox_hack: bool = False, mesh=None, dtype=None):
         # with a mesh the run lives on the rank's device
         self.mesh = mesh
         if mesh is not None:
@@ -143,6 +143,8 @@ class Run:
                                  f"type ({mesh.device})")
             device = mesh.device
         self.device = resolve_device(device)
+        # float32 or float64: ``dtype``, else DELPHY_TPU_F32 (resolve_dtype)
+        self.dtype = resolve_dtype(dtype)
         if topology_moves_enabled:
             # the port has no Python topology mixer to fall back to
             if not native_available():
@@ -159,7 +161,7 @@ class Run:
         self.fs_capacity = _round_cap(4 * n_fs + 128)
         self.ts: TreeState = pack_state(tree, self.mut_capacity,
                                         self.miss_capacity, self.fs_capacity,
-                                        device=self.device)
+                                        device=self.device, dtype=self.dtype)
         # fused (ints, floats) copy of (ts, evo, pop) from the last dispatch;
         # None whenever host code has since replaced any of the three
         self._fused_bundle = None
@@ -193,7 +195,7 @@ class Run:
                 tree.num_sites, mu=1e-3 / 365.0, kappa=1.0,
                 pi=np.full(4, 0.25), alpha=10.0,
                 part=apobec_context_partition(tree.sequence_at(0)),
-                device=self.device).with_mpox_rho(rho=0.0)
+                device=self.device, dtype=self.dtype).with_mpox_rho(rho=0.0)
         else:
             # initial HKY pi from ref-sequence state frequencies
             # (run.cpp:61-80)
@@ -204,12 +206,12 @@ class Run:
                 est_pi = np.full(4, 0.25)
             self.evo = make_evo_params(tree.num_sites, mu=1e-3 / 365.0,
                                        kappa=1.0, pi=est_pi, alpha=10.0,
-                                       device=self.device)
+                                       device=self.device, dtype=self.dtype)
         t_max_tip = float(np.max(tree.t_max[:tree.num_tips]))
         self.t_max_tip = t_max_tip
 
         def f(x):
-            return torch.tensor(x, dtype=DTYPE, device=self.device)
+            return torch.tensor(x, dtype=self.dtype, device=self.device)
         if pop_model == "exp":
             # Exp(t0 = max tip time, n0 = 1000, g = 0, min_pop = 1)
             # (run.cpp:21)
@@ -330,7 +332,7 @@ class Run:
             self._m_cap_sticky = _round16(int(1.5 * pm.m_cap))
         pm = pad_part_maps(pm, P, self._n_cap_sticky, self._m_cap_sticky,
                            tree.num_nodes, self.mut_capacity)
-        self.pm = part_maps_to_torch(pm, self.device)
+        self.pm = part_maps_to_torch(pm, self.device, self.dtype)
         n_cap = self._n_cap_sticky
         if not hasattr(self, "_per_block_rate") or self._per_block_rate <= 1.0:
             self._per_block_rate = float(self.device_partitions
@@ -339,7 +341,7 @@ class Run:
     # -- parameter setters (subset of the reference's Run API) --------------
 
     def _scalar(self, x) -> torch.Tensor:
-        return torch.tensor(float(x), dtype=DTYPE, device=self.device)
+        return torch.tensor(float(x), dtype=self.dtype, device=self.device)
 
     def set_mu(self, mu: float):
         self.evo = self.evo._replace(mu=self._scalar(mu))
@@ -584,7 +586,8 @@ class Run:
             self.ledger = ledger_l._replace(
                 log_G=ledger_l.log_G + dlg + dlg_chains,
                 log_coal=torch.as_tensor(hg.log_prior(tree_m.t),
-                                         dtype=DTYPE, device=self.device))
+                                         dtype=self.dtype,
+                                         device=self.device))
             self.ts, self.evo, self.pop = ts_l, evo_l, pop_l
             self.last_stats = stats_l
             att = int(stats_l["local_moves_attempted"])
@@ -648,7 +651,8 @@ class Run:
                 self.ledger = self.ledger._replace(
                     log_G=self.ledger.log_G + dlg,
                     log_coal=torch.as_tensor(hg.log_prior(tree.t),
-                                             dtype=DTYPE, device=self.device))
+                                             dtype=self.dtype,
+                                             device=self.device))
         else:
             res = run_burst_native(
                 tree, n_moves, mu, nu, q, pi, host_pop,
@@ -692,7 +696,8 @@ class Run:
         while n_fs > self.fs_capacity - 8:
             self.fs_capacity = _round_cap(2 * self.fs_capacity)
         self.ts = pack_state(tree, self.mut_capacity, self.miss_capacity,
-                             self.fs_capacity, device=self.device)
+                             self.fs_capacity, device=self.device,
+                             dtype=self.dtype)
         self._fused_bundle = None
         self._set_euler(tree)
         self._host_tree = tree
@@ -711,7 +716,7 @@ class Run:
         """Full from-scratch recompute of the ledger under the current
         parameters (run.cpp:316-338)."""
         return calc_ledger(self.ts, self.evo, self.pop,
-                           torch.tensor(self.t_max_tip, dtype=DTYPE,
+                           torch.tensor(self.t_max_tip, dtype=self.dtype,
                                         device=self.device),
                            self.num_cells, self.hyp)
 

@@ -5,7 +5,8 @@ Same layout and conventions as the reference: tips at nodes 0..T-1,
 ``mut_node == -1`` marks a free mutation slot, root-sequence deltas sit on
 the root with time ``ROOT_MUT_T``, and missation intervals and from-state
 exceptions are flat tables with ``-1`` marking free slots.  Integer leaves
-are int32 and float leaves float64, as in the reference.
+are int32 and float leaves of the run's float dtype (float64, or float32
+under ``DELPHY_TPU_F32``), as in the reference.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import DEFAULT_DEVICE, DTYPE, ITYPE, resolve_device
+from . import DEFAULT_DEVICE, ITYPE, resolve_device, resolve_dtype
 from .phylo import FlatTree, Mutation, NO_NODE
 
 ROOT_MUT_T = -1.0e30  # sentinel time for root-sequence deltas
@@ -24,16 +25,16 @@ ROOT_MUT_T = -1.0e30  # sentinel time for root-sequence deltas
 class TreeState(NamedTuple):
     parent: torch.Tensor     # i32[N]
     children: torch.Tensor   # i32[N,2]
-    t: torch.Tensor          # f64[N]
-    t_min: torch.Tensor      # f64[N]
-    t_max: torch.Tensor      # f64[N]
+    t: torch.Tensor          # f[N] (float64 or float32)
+    t_min: torch.Tensor      # f[N]
+    t_max: torch.Tensor      # f[N]
     root: torch.Tensor       # i32 scalar
     ref_seq: torch.Tensor    # i32[L]
     mut_node: torch.Tensor   # i32[M]
     mut_site: torch.Tensor   # i32[M]
     mut_from: torch.Tensor   # i32[M]
     mut_to: torch.Tensor     # i32[M]
-    mut_t: torch.Tensor      # f64[M]
+    mut_t: torch.Tensor      # f[M]
     miss_node: torch.Tensor  # i32[K]
     miss_start: torch.Tensor  # i32[K]
     miss_end: torch.Tensor   # i32[K]
@@ -76,8 +77,11 @@ def _pad(rows, cap: int, dtypes):
 def pack_state(tree: FlatTree, mut_capacity: int | None = None,
                miss_capacity: int | None = None,
                fs_capacity: int | None = None,
-               device=DEFAULT_DEVICE) -> TreeState:
+               device=DEFAULT_DEVICE, dtype=None) -> TreeState:
+    """The device state of ``tree``; floats in ``resolve_dtype(dtype)``
+    (the host's float64 times round to float32 in an f32 run)."""
     device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
     N = tree.num_nodes
     T = tree.num_tips
     for i in range(T):
@@ -107,8 +111,9 @@ def pack_state(tree: FlatTree, mut_capacity: int | None = None,
                                device=device)
 
     def tf(a):
-        return torch.as_tensor(np.asarray(a, np.float64), dtype=DTYPE,
-                               device=device)
+        # rounded on the host, so no float64 copy reaches a float32 run
+        return torch.as_tensor(np.asarray(a, np.float64).astype(
+            _NP_DTYPE[dtype]), device=device)
 
     return TreeState(
         parent=ti(tree.parent), children=ti(tree.children), t=tf(tree.t),
@@ -201,16 +206,21 @@ def _is_int(x) -> bool:
 
 
 def fuse_for_host(pytree):
-    """(ints_i32, floats_f64) concatenated over the leaves, on the leaves'
-    device."""
+    """(ints_i32, floats) concatenated over the leaves, on the leaves'
+    device; the floats in the leaves' promoted float dtype (the run's)."""
     leaves = [torch.as_tensor(leaf) for leaf in _leaves(pytree)]
     dev = leaves[0].device if leaves else torch.device("cpu")
     ints = [leaf.reshape(-1).to(torch.int32) for leaf in leaves
             if _is_int(leaf)]
-    flts = [leaf.reshape(-1).to(DTYPE) for leaf in leaves if not _is_int(leaf)]
+    fls = [leaf for leaf in leaves if not _is_int(leaf)]
+    fdt = torch.float32
+    for leaf in fls:
+        if leaf.is_floating_point():
+            fdt = torch.promote_types(fdt, leaf.dtype)
+    flts = [leaf.reshape(-1).to(fdt) for leaf in fls]
     return (torch.cat(ints) if ints else torch.zeros(0, dtype=torch.int32,
                                                      device=dev),
-            torch.cat(flts) if flts else torch.zeros(0, dtype=DTYPE,
+            torch.cat(flts) if flts else torch.zeros(0, dtype=fdt,
                                                      device=dev))
 
 
@@ -249,13 +259,17 @@ def fetch_fused(pytree):
     return split_for_host(pytree, ints.cpu(), flts.cpu())
 
 
+# fetch_one's carrier: holds an int32 or a float32 exactly
+_WIRE = torch.float64
+
+
 def fetch_one(pytree):
     """The whole structure on the host in ONE copy, for small structures
     read by host code between dispatches: every leaf rides in one float64
-    vector (exact for the int32 leaves) and gets its dtype back on the
-    host."""
+    vector (exact for the int32 and float32 leaves) and gets its dtype back
+    on the host."""
     leaves = [torch.as_tensor(leaf) for leaf in _leaves(pytree)]
-    flat = _np(torch.cat([leaf.reshape(-1).to(DTYPE) for leaf in leaves]))
+    flat = _np(torch.cat([leaf.reshape(-1).to(_WIRE) for leaf in leaves]))
     return _unflatten(pytree, leaves, flat)
 
 
@@ -266,10 +280,10 @@ def fetch_later(pytree):
     delay it (the overlapped driver reads a boundary's parameters while the
     next dispatch runs)."""
     leaves = [torch.as_tensor(leaf) for leaf in _leaves(pytree)]
-    flat = torch.cat([leaf.reshape(-1).to(DTYPE) for leaf in leaves])
+    flat = torch.cat([leaf.reshape(-1).to(_WIRE) for leaf in leaves])
     done = None
     if flat.is_cuda:
-        host = torch.empty(flat.shape, dtype=DTYPE, pin_memory=True)
+        host = torch.empty(flat.shape, dtype=_WIRE, pin_memory=True)
         host.copy_(flat, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(flat.device))

@@ -846,3 +846,177 @@ def test_unpartitioned_step_on_card(device):
             torch.cuda.set_sync_debug_mode("default")
     assert not [w for w in caught if "called a synchronizing CUDA operation"
                 in str(w.message)]
+
+
+# ---------------------------------------------------------------------------
+# The float32 builds (the f32 engine: DELPHY_TPU_F32=1, Run(dtype=...))
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+# the JAX package's own f32 tolerances (tests/test_block_pallas.py,
+# test_pop_pallas.py, test_hky_pallas.py); t and mut_t with a relative
+# term of 4 float32 ulps (Ebola times lie near -2,000 days)
+F32_CHAIN = dict(rtol=1e-4, atol=1e-7)
+F32_SWEEP = {"t": (5e-7, 5e-5), "mut_t": (5e-7, 5e-5), "k_p": (0.0, 1e-3),
+             "dG": (1e-3, 1e-3), "dC": (1e-3, 1e-3), "cnt": (0.0, 0.0)}
+
+
+def _close_sweep32(got, want, msg=None):
+    for (n, (rtol, atol)), g, w in zip(F32_SWEEP.items(), got, want):
+        assert g.dtype == w.dtype == F32, n
+        torch.testing.assert_close(g.reshape(-1), w.reshape(-1), rtol=rtol,
+                                   atol=atol, msg=f"{msg} {n}")
+
+
+@pytest.fixture(scope="module")
+def run32(device):
+    return make_run(device, n_tips=40, dtype=F32)
+
+
+@pytest.fixture(scope="module")
+def boundary32(run32):
+    from delphy_tpu_torch.mcmc.kernel import run_global_moves
+    return run_global_moves(run32.ts, run32.evo, run32.pop, run32.gen,
+                            run32.tin, run32.tout, run32.t_max_tip,
+                            run32.hyp, run32.num_cells)
+
+
+def test_f32_kernels_match_plain(run32, boundary32, device):
+    """Each kernel's float32 build against its float32 plain version on a
+    float32 boundary; only the *_f32 entries launch."""
+    from delphy_tpu_torch.parallel import _cuda, hky_cuda, pop_cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.parallel.sweep import prepare_sweep
+    ts, evo, pop, grid, caches, ledger, stats = boundary32
+    assert ts.t.dtype == evo.mu.dtype == pop.n0.dtype == F32
+    _cuda.reset_launch_counts()
+    u = torch.rand((10, 6), generator=run32.gen, dtype=F32, device=device)
+    args = (u, evo.mu, evo.kappa, evo.pi.reshape(1, 4), stats["Ttwiddle_a"],
+            stats["M_ab"].to(F32), caches.root_freq.reshape(1, 4),
+            (1.0, 1.25), 10)
+    _close(hky_cuda.hky_chain_kernel(*args), hky_cuda.hky_chain_torch(*args),
+           **F32_CHAIN)
+    u = torch.rand((50, 4), generator=run32.gen, dtype=F32, device=device)
+    args = (u, *pop_cuda.pack_rows(grid, ts.t, ts.is_tip), grid.t_step,
+            pop.t0, pop.min_pop, pop.n0, pop.g,
+            pop_cuda.hyp_floats(run32.hyp), 50)
+    _close(pop_cuda.exp_pop_chain_kernel(*args),
+           pop_cuda.exp_pop_chain_torch(*args), **F32_CHAIN)
+    stat, ctx, shared, t_p, _ = prepare_sweep(
+        ts, evo, pop, grid, caches, run32.pm, run32.gen, run32.t_max_tip,
+        run32.num_cells)
+    u = bc.gen_block_uniforms(run32.gen, t_p.shape[0], 32, stat.NC, stat.MC,
+                              device, F32)
+    got = bc.sweep_chain_kernel(stat, 32, ctx, shared, u)
+    _close_sweep32(got, bc.sweep_chain_torch(stat, 32, ctx, shared, u))
+    assert float(got[5].sum()) > 0
+    launched = {k for k, v in _cuda.launch_counts.items() if v}
+    assert launched == {"hky_chain_f32", "exp_pop_chain_f32",
+                        "sweep_chain_f32"}, launched
+
+
+def test_f32_build_selection_by_shape(device):
+    """Shared memory counted in float32's bytes: the sweep kernel keeps a
+    part in shared memory up to about twice the rows (NC=1152, MC=3200 is
+    the global build in float64, two shared stages in float32), and the
+    exp-pop kernel its node rows up to ~27.7k nodes (~18k in float64)."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    f64 = torch.float64
+    for pop, K in ((bc.POP_EXP, 0), (1, 50)):
+        for NC, MC, b64, b32 in ((768, 1600, 2, 2), (768, 2400, 1, 2),
+                                 (1152, 3200, 0, 2), (2304, 6400, 0, 0)):
+            stat = bc.ChainStatics(NC=NC, MC=MC, C=400, C_real=400, cpb=16,
+                                   pop=pop)
+            assert (bc.build(stat, K, f64), bc.build(stat, K, F32)) \
+                == (b64, b32), (NC, MC, pop)
+            assert bc.entry(stat, K, F32).endswith("_f32")
+            assert bc.entry(stat, K, F32).endswith("_global_f32") == (b32 == 0)
+            assert bc.smem_bytes(stat, K, F32) <= 227 * 1024
+    lib = _cuda.lib()
+    for N, s64, s32 in ((19_999, 0, 1), (27_000, 0, 1), (40_000, 0, 0)):
+        assert (lib.delphy_exp_pop_chain_nodes_shared(400, 50, N),
+                lib.delphy_exp_pop_chain_nodes_shared_f32(400, 50, N)) \
+            == (s64, s32), N
+
+
+def test_f32_global_build_and_node_rows_in_place_match_plain(run32,
+                                                            boundary32,
+                                                            device):
+    """The float32 global build (rows padded to NC=2304, MC=6400) and the
+    float32 exp-pop kernel with its node rows read in place (padded to
+    40,000 inert nodes) against their plain versions."""
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.parallel import pop_cuda
+    from delphy_tpu_torch.parallel.sweep import prepare_sweep
+    ts, evo, pop, grid, caches, ledger, stats = boundary32
+    stat, ctx, shared, t_p, _ = prepare_sweep(
+        ts, evo, pop, grid, caches, run32.pm, run32.gen, run32.t_max_tip,
+        run32.num_cells)
+    stat, ctx, shared = pad_chain(stat, ctx, shared, NC=2304, MC=6400)
+    assert bc.entry(stat, 0, F32) == "delphy_sweep_chain_global_f32"
+    u = bc.gen_block_uniforms(run32.gen, ctx["t"].shape[0], 16, stat.NC,
+                              stat.MC, device, F32)
+    got = bc.sweep_chain_kernel(stat, 16, ctx, shared, u)
+    _close_sweep32(got, bc.sweep_chain_torch(stat, 16, ctx, shared, u))
+    lbs, k2, t_row, inner = pop_cuda.pack_rows(grid, ts.t, ts.is_tip)
+    n_pad = 40_000 - t_row.numel()
+    t_row = torch.cat([t_row, t_row[:, -1:].expand(1, n_pad)], 1)
+    inner = torch.cat([inner, inner.new_zeros(1, n_pad)], 1)
+    u = torch.rand((50, 4), generator=run32.gen, dtype=F32, device=device)
+    args = (u, lbs, k2, t_row, inner, grid.t_step, pop.t0, pop.min_pop,
+            pop.n0, pop.g, pop_cuda.hyp_floats(run32.hyp), 50)
+    _close(pop_cuda.exp_pop_chain_kernel(*args),
+           pop_cuda.exp_pop_chain_torch(*args), **F32_CHAIN)
+
+
+def test_f32_wrappers_refuse_mixed_precision(run32, boundary32, device):
+    """A float32 launch takes float32 inputs only: no cast, no fallback."""
+    from delphy_tpu_torch.parallel import block_cuda as bc
+    from delphy_tpu_torch.parallel import pop_cuda
+    from delphy_tpu_torch.parallel.sweep import prepare_sweep
+    ts, evo, pop, grid, caches, ledger, stats = boundary32
+    u = torch.rand((50, 4), dtype=F32, device=device)
+    rows = pop_cuda.pack_rows(grid, ts.t.double(), ts.is_tip)
+    with pytest.raises(ValueError):
+        pop_cuda.exp_pop_chain_kernel(
+            u, *rows, grid.t_step, pop.t0, pop.min_pop, pop.n0, pop.g,
+            pop_cuda.hyp_floats(run32.hyp), 50)
+    stat, ctx, shared, t_p, _ = prepare_sweep(
+        ts, evo, pop, grid, caches, run32.pm, run32.gen, run32.t_max_tip,
+        run32.num_cells)
+    u = bc.gen_block_uniforms(run32.gen, t_p.shape[0], 4, stat.NC, stat.MC,
+                              device, torch.float64)
+    with pytest.raises(ValueError):
+        bc.sweep_chain_kernel(stat, 4, ctx, shared, u)
+
+
+def test_f32_run_repeats_itself_bit_for_bit(device):
+    """A float32 2-boundary dispatch on 1,000 tips x 29,903 sites from the
+    same state and generator state gives the same bits every time, and a
+    float32 Run keeps its ledger at the scaled f32 tolerance launching only
+    the *_f32 entries."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
+    from delphy_tpu_torch.run import Run
+    run = Run(sim_tree(1000), seed=4, num_cells=400, device=device,
+              dtype=F32)
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(2 * run.local_moves_per_global_move)
+    launched = {k for k, v in _cuda.launch_counts.items() if v}
+    assert launched and all(k.endswith("_f32") for k in launched), launched
+    run.check_derived_quantities(
+        max(0.05 * abs(float(run.ledger.log_G)) / 4.5e4, 1e-3))
+    run.tree().check_integrity()
+    state = run.gen.get_state()
+    outs = []
+    for _ in range(4):
+        run.gen.set_state(state)
+        ts, evo, pop, led, _stats, _fused = parts_multi_super_step(
+            run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.pm, 24,
+            run.t_max_tip, run.hyp, run.num_cells, 2)
+        outs.append((ts.t.clone(), ts.mut_t.clone(), evo.kappa.clone(),
+                     pop.n0.clone(), led.log_G.clone()))
+    assert outs[0][0].dtype == F32
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))

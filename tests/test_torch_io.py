@@ -32,10 +32,13 @@ from delphy_tpu.io import snapshot as jsnapshot
 from delphy_tpu.phylo import build_random_tree
 from delphy_tpu.run import Run as JRun
 
-from delphy_tpu_torch import DTYPE, convert, ess, mcc, probers, sim, tools
+from delphy_tpu_torch import convert, ess, mcc, probers, sim, tools
 from delphy_tpu_torch.io import beast_out, beast_xml, dphy, newick, snapshot
 from delphy_tpu_torch.mcmc.moves import Ledger
 from delphy_tpu_torch.version import __version__
+
+# these tests run in float64, the port's default precision
+DTYPE = torch.float64
 
 
 def _jax_run(seed=59, T=8, L=100, **kw):

@@ -55,7 +55,10 @@ def test_no_jax_import_in_port_sources():
             from .pop import x
     """)) == ["delphy_tpu", "jax.numpy"]
     offenders = []
-    files = list(_py_files()) + [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py and the port's script it runs on the card
+    files = list(_py_files()) + [
+        os.path.join(REPO, "chip_smoke.py"),
+        os.path.join(REPO, "scripts", "torch_f32_study.py")]
     rel = {os.path.relpath(f, PKG) for f in files}
     assert {"cli.py", "server.py", "ui.py", "tools.py", "probers.py",
             "sim.py", "mcc.py", "ess.py", "version.py",

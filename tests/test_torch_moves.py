@@ -45,7 +45,7 @@ from delphy_tpu.run import Run as JRun
 from delphy_tpu.sim import simulate_dataset as j_simulate
 from delphy_tpu.state import pack_state as j_pack_state
 
-from delphy_tpu_torch import DTYPE, convert
+from delphy_tpu_torch import convert
 from delphy_tpu_torch.mcmc import global_moves as gm
 from delphy_tpu_torch.mcmc import kernel, moves
 from delphy_tpu_torch.mcmc.global_moves import PriorConfig
@@ -55,6 +55,9 @@ from delphy_tpu_torch.ops.exact_coalescent import exact_coalescent_log_prior
 from delphy_tpu_torch.phylo import build_random_tree
 from delphy_tpu_torch.run import Run
 from delphy_tpu_torch.sim import simulate_dataset
+
+# these tests run in float64, the port's default precision
+DTYPE = torch.float64
 
 C = 128
 K_MAX = max(8, C // 2)
