@@ -122,8 +122,27 @@ Phases, each of which raises (exit code != 0) on failure:
      uniform MB a boundary of each precision; (d)
      scripts/torch_f32_study.py at 200,000 steps (f32, f64 and a second
      f64 seed, 40 tips x 1,200 sites).  The f32 records join the kernels'
-     JSON line.
-Phases 1-11 run in float64 whatever DELPHY_TPU_F32 says (the script
+     JSON line;
+ 13. the Python topology mixer fallback and the device SPR (no kernel of
+     its own: the kernels' line is unchanged): (a) in a child process
+     started with DELPHY_TPU_NATIVE=0 on this process's trees, the main
+     path's Run (phase 4's tree) for a dispatch and the Python burst that
+     follows (P=8 parts on the spawn pool): the ledger at 1e-6, the tree's
+     integrity, the three kernels launched, the burst's seconds and ms per
+     topology move beside phase 4's native burst; (a2) in the same child,
+     run_partitioned_bursts on phase 9a's 1,000-tip tree (P=4, 2,000
+     moves) through the pool, log_G recomputed on the card equal to the
+     start plus the returned delta to 1e-6; no pool worker initialised
+     CUDA; (b) ops/spr_move.py at scripts/topo_dev_bench.py's part size
+     without missing data (54 tips x 29,903 sites, greedy tree, seed 3)
+     and at 300 tips: 64 spr1_sweep moves on one lane and on 8 lanes and
+     64 slide moves on the card, each replayed on the CPU from the card's
+     draws (trees equal, times and delta_log_G 1e-12), log_G recomputed
+     from each final tree equal to the start plus the summed deltas (1e-9
+     of |log_G|), integrity, moves accepted; ms per move on the card and
+     the CPU, host syncs per move; one float32 single-lane sweep held to
+     the float32 ledger scale.  Record in chiprun_out/device_spr.json.
+Phases 1-11 and 13 run in float64 whatever DELPHY_TPU_F32 says (the script
 clears it and sets it only for phase 12, as bench.py sets it itself), so
 `python3 chip_smoke.py` and `DELPHY_TPU_F32=1 python3 chip_smoke.py` run
 the same checks.
@@ -638,6 +657,7 @@ def main_path(device, card: str):
     log(f"Run: P={run.device_partitions} parts, n_cap={run.pm.n_cap}, "
         f"m_cap={run.pm.m_cap}, {lm} local moves per boundary, "
         f"{run.topology_burst_chunks} boundaries per burst")
+    bursts = timed_bursts(run)
     _cuda.reset_launch_counts()
     run.do_mcmc_steps(2 * lm)            # short call: 1 dispatch + burst
     sync(device)
@@ -664,7 +684,12 @@ def main_path(device, card: str):
     log(f"main path: {total} local moves in {dt:.3f} s = "
         f"{total / dt:.1f} moves/s, {dt * 1e3 / n_b:.3f} ms per boundary "
         f"({n_b} boundaries and a burst; f64, {card})")
-    return counts, dt * 1e3 / n_b
+    b = bursts[0]
+    native_burst = {"s": b["s"], "moves": b["moves"],
+                    "ms_per_topology_move": b["s"] * 1e3 / b["moves"],
+                    "all_s": [x["s"] for x in bursts]}
+    log(f"native topology bursts: {json.dumps(native_burst)}")
+    return counts, dt * 1e3 / n_b, native_burst
 
 
 def have_flatbuffers() -> bool:
@@ -2554,6 +2579,390 @@ def f32_engine(device, card, f64_records, tips10k) -> list:
     return records
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the Python topology mixer fallback and the device SPR
+# ---------------------------------------------------------------------------
+
+SCALE_MU = 1e-3 / 365
+# (b): scripts/topo_dev_bench.py's simulated part without its missing data
+# (54 tips, 700 sampling days, seed 3, greedy tree), and 300 tips, the
+# ~600-node end of the production part sizes that script names
+SPR_TIPS = (54, 300)
+SPR_SEED = 3
+SPR_MOVES = 64
+SPR_LANES = 8
+# (a2): phase 9a's tree, P=4 parts, 2,000 moves
+FALLBACK_PARTS = 4
+FALLBACK_MOVES = 2000
+CHILD_TIMEOUT = 900
+
+
+def timed_bursts(run) -> list:
+    """Record each topology burst of ``run`` (seconds with the device
+    synchronised first, topology moves proposed)."""
+    rec = []
+    burst = run._topology_burst
+
+    def timed(n_moves):
+        sync(run.device)
+        p0 = run.topology_proposed
+        t0 = time.perf_counter()
+        burst(n_moves)
+        rec.append({"s": time.perf_counter() - t0,
+                    "moves": run.topology_proposed - p0})
+    run._topology_burst = timed
+    return rec
+
+
+def card_log_G(tree, device, dtype=torch.float64) -> float:
+    """log_G of a host tree recomputed on the card (the port's likelihood,
+    exp model at SCALE_MU, kappa 2)."""
+    from delphy_tpu_torch.evo import make_evo_params
+    from delphy_tpu_torch.mcmc.global_moves import compute_caches
+    from delphy_tpu_torch.ops.likelihood import calc_log_G
+    from delphy_tpu_torch.state import pack_state
+    evo = make_evo_params(tree.num_sites, mu=SCALE_MU, kappa=2.0,
+                          device=device, dtype=dtype)
+    ts = pack_state(tree, device=device, dtype=dtype)
+    c = compute_caches(ts, evo)
+    return float(calc_log_G(ts, evo, c.lambda_i, c.root_freq))
+
+
+def _worker_state(_):
+    """In a pool worker: its pid and whether it initialised CUDA."""
+    time.sleep(0.2)
+    return os.getpid(), torch.cuda.is_initialized()
+
+
+def pool_workers_cuda(pool) -> dict:
+    """{pid: torch.cuda.is_initialized()} of every worker of ``pool``."""
+    want = {p.pid for p in pool._pool}
+    seen = {}
+    for _ in range(10):
+        for pid, ini in pool.map(_worker_state, range(4 * len(want)),
+                                 chunksize=1):
+            seen[pid] = ini
+        if want <= set(seen):
+            return {pid: seen[pid] for pid in want}
+    raise AssertionError(f"phase 13(a): reached {sorted(seen)} of the pool's "
+                         f"workers {sorted(want)}")
+
+
+def mixer_child(trees_path: str, out_path: str,
+                device=torch.device("cuda", 0)) -> int:
+    """Phase 13(a) and (a2), in a process started with DELPHY_TPU_NATIVE=0
+    on the parent's trees: the main path's Run for a dispatch and the
+    Python burst that follows, then run_partitioned_bursts through the
+    spawn pool; no pool worker may initialise CUDA."""
+    import pickle
+
+    from delphy_tpu_torch.native import native_available
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+    from delphy_tpu_torch.topo import parallel as tpar
+    from delphy_tpu_torch.topo.mixer import HostExpPop
+    if native_available():
+        raise AssertionError("phase 13(a): the native topology kernel is on "
+                             "with DELPHY_TPU_NATIVE=0")
+    with open(trees_path, "rb") as f:
+        trees = pickle.load(f)
+    out = {}
+
+    run = Run(trees["ebola"], seed=SEED, num_cells=NUM_CELLS, device=device)
+    bursts = timed_bursts(run)
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(2 * run.local_moves_per_global_move)
+    sync(device)
+    counts = check_counts("on the Python-mixer path")
+    if run.burst_count < 1 or not bursts or run.topology_proposed <= 0:
+        raise AssertionError("phase 13(a): no Python topology burst ran")
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+    b = bursts[0]
+    out["a"] = {"topology_parts": run._topology_num_parts(),
+                "device_partitions": run.device_partitions,
+                "dispatches": run.dispatch_count, "bursts": run.burst_count,
+                "proposed": run.topology_proposed,
+                "accepted": run.topology_accepted, "burst_s": b["s"],
+                "burst_moves": b["moves"],
+                "ms_per_topology_move": b["s"] * 1e3 / b["moves"],
+                "launch_counts": counts, "log_post": run.log_posterior}
+    log(f"phase 13(a): {json.dumps(out['a'])}")
+
+    tree = trees["sim1000"]
+    from delphy_tpu_torch.evo import make_evo_params
+    evo = make_evo_params(tree.num_sites, mu=SCALE_MU, kappa=2.0,
+                          device="cpu")
+    mu, nu, q, pi, part, q_tab = (float(evo.mu), evo.nu.numpy(),
+                                  evo.q.numpy(), evo.pi.numpy(),
+                                  evo.part.numpy(), evo.q_tab.numpy())
+    t_max_tip = float(np.max(tree.t_max[:tree.num_tips]))
+    start = card_log_G(tree, device)
+    t0 = time.perf_counter()
+    dlg, acc, prop = tpar.run_partitioned_bursts(
+        tree, FALLBACK_MOVES, FALLBACK_PARTS,
+        HostExpPop(t_max_tip, 1000.0, 0.002, 1.0), mu, nu, q, pi,
+        np.random.default_rng(SEED), num_cells=NUM_CELLS, parallel=True,
+        part=part, q_tab=q_tab)
+    dt = time.perf_counter() - t0
+    tree.check_integrity()
+    end = card_log_G(tree, device)
+    if tpar._POOL is None:
+        raise AssertionError("phase 13(a2): the burst did not use the pool")
+    if abs(end - (start + dlg)) > 1e-6:
+        raise AssertionError(f"phase 13(a2): log_G {end!r} != start "
+                             f"{start!r} + delta {dlg!r}")
+    out["a2"] = {"tips": tree.num_tips, "parts": FALLBACK_PARTS,
+                 "moves": FALLBACK_MOVES, "proposed": prop, "accepted": acc,
+                 "s": dt, "ms_per_move": dt * 1e3 / max(prop, 1),
+                 "log_G_start": start, "delta_log_G": dlg,
+                 "log_G_end": end, "err": abs(end - (start + dlg))}
+    log(f"phase 13(a2): {json.dumps(out['a2'])}")
+    workers = pool_workers_cuda(tpar._POOL)
+    out["workers_cuda_initialized"] = {str(k): v for k, v in workers.items()}
+    if any(workers.values()):
+        raise AssertionError(f"phase 13(a): a pool worker initialised CUDA: "
+                             f"{workers}")
+    log(f"phase 13(a): {len(workers)} pool workers, none initialised CUDA")
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return 0
+
+
+def spr_tree(n_tips: int):
+    """(b)'s tree: the simulated part, missation-free, greedy, rereferenced
+    to its root sequence."""
+    from delphy_tpu_torch.phylo import (build_greedy_tree,
+                                        rereference_to_root_sequence)
+    from delphy_tpu_torch.sim import simulate_dataset
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        n_tips, SCALE_SITES, mu=SCALE_MU, sample_window_days=700.0,
+        missing_fraction=0.0, seed=SPR_SEED)
+    tree = build_greedy_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(SPR_SEED))
+    rereference_to_root_sequence(tree)
+    return tree
+
+
+def spr_args(tree, device, dtype):
+    """The move arguments (ref_seq, L, mu, nu, qtab, qatab, part,
+    lambda_ref, t_max_tip) at SCALE_MU, kappa 2, on ``device``."""
+    from delphy_tpu_torch.evo import make_evo_params
+    evo = make_evo_params(tree.num_sites, mu=SCALE_MU, kappa=2.0,
+                          device="cpu")
+    q3 = evo.q_tab.numpy().reshape(-1, 4, 4)
+    qa = np.stack([-np.diag(q) for q in q3])
+    nu, part = evo.nu.numpy(), evo.part.numpy()
+    lam_ref = float(np.sum(SCALE_MU * nu * qa[part, tree.ref_seq]))
+
+    def F(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(device, dtype)
+
+    def I(a):
+        return torch.as_tensor(np.asarray(a, np.int64)).to(device)
+    return (I(tree.ref_seq), tree.num_sites, F([SCALE_MU]), F(nu),
+            F(q3.reshape(-1)), F(qa.reshape(-1)), I(part), F([lam_ref]),
+            float(np.max(tree.t_max[:tree.num_tips])))
+
+
+def to_device(x, device):
+    """Tensors of nested tuples, lists and dicts moved to ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_device(v, device) for v in x]
+    if isinstance(x, tuple):
+        return type(x)(*[to_device(v, device) for v in x]) \
+            if hasattr(x, "_fields") else tuple(to_device(v, device)
+                                                for v in x)
+    return x
+
+
+def same_spr_result(what, got, want) -> float:
+    """Card result == CPU result: tree ints equal, times and delta_log_G
+    within 1e-12; returns the largest float difference."""
+    from delphy_tpu_torch.ops import spr_move as sm
+    err = 0.0
+    for k in sm.TREE_KEYS:
+        g, w = got.p[k].cpu(), want.p[k]
+        if g.is_floating_point():
+            err = max(err, assert_close(f"{what} {k}", g.masked_fill(
+                torch.isinf(g), 0), w.masked_fill(torch.isinf(w), 0),
+                1e-12, 1e-12))
+            if not torch.equal(torch.isinf(g), torch.isinf(w)):
+                raise AssertionError(f"{what} {k}: padding differs")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what} {k}: card and CPU trees differ")
+    for k in ("n_accepted", "n_eligible"):
+        if int(getattr(got, k)) != int(getattr(want, k)):
+            raise AssertionError(f"{what}: {k} differs")
+    return max(err, assert_close(f"{what} delta_log_G",
+                                 got.delta_log_G.cpu(), want.delta_log_G,
+                                 1e-12, 1e-12))
+
+
+def spr_ledger(what, tree, res, device, rtol=1e-9, dtype=torch.float64,
+               start_tree=None) -> float:
+    """log_G of the final tree recomputed on the card == start + the summed
+    accepted delta_log_G, to ``rtol`` of |log_G| (or the float32 ledger
+    scale); the tree's integrity.  Returns the difference."""
+    from delphy_tpu_torch.ops import spr_move as sm
+    out = sm.unpack_tree(res.p, tree)
+    out.check_integrity()
+    start = card_log_G(start_tree or tree, device)
+    end = card_log_G(out, device)
+    err = abs(end - (start + float(res.delta_log_G)))
+    tol = f32_tol(start) if dtype == F32 else rtol * abs(start)
+    if err > tol:
+        raise AssertionError(f"{what}: log_G {end!r} != start {start!r} + "
+                             f"{float(res.delta_log_G)!r} (tol {tol})")
+    if int(res.n_accepted) < 1:
+        raise AssertionError(f"{what}: no move accepted")
+    return err
+
+
+def spr_sweeps(tree, device, card: str) -> dict:
+    """Phase 13(b) at one shape: SPR1 sweeps on one lane and on 8 lanes,
+    a slide sweep, each on the card from a card generator and replayed on
+    the CPU from the same draws; then the single lane in float32."""
+    from delphy_tpu_torch.ops import spr_move as sm
+    cpu = torch.device("cpu")
+    p = sm.pack_tree(tree, device=device)
+    p_cpu = sm.pack_tree(tree, device=cpu)
+    args = spr_args(tree, device, torch.float64)
+    args_cpu = spr_args(tree, cpu, torch.float64)
+    out = {"tips": tree.num_tips, "nodes": tree.num_nodes,
+           "sites": tree.num_sites, "W": int(p["msite"].shape[1]),
+           "regions": int(p["msite"].numel() + tree.num_nodes + 1),
+           "mutations": tree.num_mutations()}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    sm.spr1_sweep(gen, p, args[0], args[1], 4, *args[2:])   # warm-up
+    sync(device)
+
+    sources = {}
+
+    def on_card(fn):
+        box = []
+        t0 = time.perf_counter()
+        where = syncs_in(lambda: box.append(fn()))
+        sync(device)
+        for k, v in where.items():
+            sources[k] = sources.get(k, 0) + v
+        return box[0], time.perf_counter() - t0, sum(where.values())
+
+    def on_cpu(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return r, time.perf_counter() - t0
+
+    cases = (
+        ("spr1", 1, lambda rec: sm.spr1_sweep(
+            gen, p, args[0], args[1], SPR_MOVES, *args[2:], record=rec),
+         lambda d: sm.spr1_sweep_core(p_cpu, *args_cpu, d)),
+        ("spr1_lanes", SPR_LANES, lambda rec: sm.spr1_sweep_lanes(
+            gen, [p] * SPR_LANES, args[0], args[1], SPR_MOVES, *args[2:],
+            record=rec),
+         lambda d: sm.spr1_sweep_core(p_cpu, *args_cpu, d)),
+        ("slide", 1, lambda rec: sm.slide_sweep(
+            gen, p, args[0], args[1], SPR_MOVES, *args[2:], record=rec),
+         lambda d: sm.slide_sweep_core(p_cpu, *args_cpu, d)))
+    err = 0.0
+    for name, lanes, card_fn, cpu_fn in cases:
+        rec = []
+        res, dt, n_sync = on_card(lambda: card_fn(rec))
+        res = res if isinstance(res, list) else [res]
+        got_cpu, dt_cpu = [], 0.0
+        for lane, draws in zip(res, rec):
+            r, t = on_cpu(lambda: cpu_fn(to_device(draws, cpu)))
+            got_cpu.append(r)
+            dt_cpu += t
+            err = max(err, same_spr_result(f"phase 13(b) {name}", lane, r))
+            spr_ledger(f"phase 13(b) {name}", tree, lane, device)
+        moves = SPR_MOVES * lanes
+        out[name] = {
+            "lanes": lanes, "moves": moves,
+            "accepted": sum(int(r.n_accepted) for r in res),
+            "eligible": sum(int(r.n_eligible) for r in res),
+            "card_ms_per_move": dt * 1e3 / moves,
+            "cpu_ms_per_move": dt_cpu * 1e3 / moves,
+            "host_syncs": n_sync, "host_syncs_per_move": n_sync / moves}
+        log(f"phase 13(b) {tree.num_tips} tips {name}: "
+            f"{json.dumps(out[name])} ({card})")
+    out["max_card_cpu_err"] = err
+    out["host_sync_sources"] = dict(sources)
+
+    p32 = sm.pack_tree(tree, device=device, dtype=F32)
+    args32 = spr_args(tree, device, F32)
+    sm.spr1_sweep(gen, p32, args32[0], args32[1], 4, *args32[2:])
+    res, dt, n_sync = on_card(lambda: sm.spr1_sweep(
+        gen, p32, args32[0], args32[1], SPR_MOVES, *args32[2:]))
+    start = sm.unpack_tree(p32, tree)
+    e32 = spr_ledger("phase 13(b) spr1 float32", tree, res, device,
+                     dtype=F32, start_tree=start)
+    out["spr1_f32"] = {"moves": SPR_MOVES,
+                       "accepted": int(res.n_accepted),
+                       "eligible": int(res.n_eligible),
+                       "card_ms_per_move": dt * 1e3 / SPR_MOVES,
+                       "host_syncs_per_move": n_sync / SPR_MOVES,
+                       "ledger_err": e32,
+                       "ledger_tol": f32_tol(card_log_G(start, device))}
+    log(f"phase 13(b) {tree.num_tips} tips spr1 float32: "
+        f"{json.dumps(out['spr1_f32'])} ({card})")
+    return out
+
+
+def fallback_and_device_spr(device, card: str, native_burst: dict) -> dict:
+    """Phase 13: (a)-(a2) in a child process with DELPHY_TPU_NATIVE=0 on
+    this process's trees, (b) the device SPR here.  Writes
+    chiprun_out/device_spr.json."""
+    import pickle
+    log("phase 13: the Python topology mixer fallback and the device SPR")
+    out = {"card": card, "native_burst_phase4": native_burst}
+    with tempfile.TemporaryDirectory() as tmp:
+        trees = os.path.join(tmp, "trees.pkl")
+        res = os.path.join(tmp, "child.json")
+        with open(trees, "wb") as f:
+            pickle.dump({"ebola": load_tree(),
+                         "sim1000": sim_tree(ONE_PART_TIPS, cache=True)}, f)
+        env = {k: v for k, v in os.environ.items() if k != F32_ENV}
+        env["DELPHY_TPU_NATIVE"] = "0"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--mixer-child",
+             trees, res], env=env, capture_output=True, text=True,
+            timeout=CHILD_TIMEOUT)
+        for line in proc.stdout.splitlines():
+            print(f"  [child] {line}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+            raise AssertionError(f"phase 13(a): the DELPHY_TPU_NATIVE=0 child "
+                                 f"exited {proc.returncode}")
+        with open(res) as f:
+            out.update(json.load(f))
+    a = out["a"]
+    log(f"phase 13(a): Python burst {a['burst_s']:.3f} s for "
+        f"{a['burst_moves']} moves ({a['ms_per_topology_move']:.4f} ms a "
+        f"move) against phase 4's native burst "
+        f"{native_burst['ms_per_topology_move']:.4f} ms a move "
+        f"({native_burst['moves']} moves in {native_burst['s']:.3f} s), "
+        f"child {time.perf_counter() - t0:.1f} s ({card})")
+    out["b"] = {}
+    for n in SPR_TIPS:
+        t0 = time.perf_counter()
+        tree = spr_tree(n)
+        log(f"phase 13(b): {n} tips x {SCALE_SITES} sites, greedy tree, "
+            f"{tree.num_mutations()} mutations in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["b"][str(n)] = spr_sweeps(tree, device, card)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "device_spr.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2563,8 +2972,12 @@ def main(argv=None) -> int:
     ap.add_argument("--large-tips", type=int, default=0, metavar="N",
                     help="phase 9d: also run a simulated tree of N tips "
                          "(the scale bench's is 100000)")
+    ap.add_argument("--mixer-child", nargs=2, metavar=("TREES", "OUT"),
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
-    # phases 1-11 are the float64 engine; phase 12 sets the switch itself
+    if opts.mixer_child:
+        return mixer_child(*opts.mixer_child)
+    # phases 1-11 and 13 are the float64 engine; phase 12 sets the switch
     f32_given = os.environ.pop(F32_ENV, None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2590,7 +3003,7 @@ def main(argv=None) -> int:
     records, floor = compare_kernels(run, device, base, floor_so)
     del run
 
-    counts, exp_ms = main_path(device, card)
+    counts, exp_ms, native_burst = main_path(device, card)
     for r in records:
         if r["name"] in counts and counts[r["name"]] > 0:
             r["launches"] = counts[r["name"]]
@@ -2621,6 +3034,7 @@ def main(argv=None) -> int:
             r["launches_unpartitioned"] = \
                 unpart["ebola"]["launch_counts"][r["name"]]
     records += f32_engine(device, card, records, tips10k)
+    fallback_and_device_spr(device, card, native_burst)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

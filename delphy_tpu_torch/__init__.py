@@ -3,11 +3,14 @@
 A port of the JAX package's device layer to PyTorch, with its three Pallas
 TPU kernels rewritten as hand-written CUDA kernels for Hopper (``csrc/``).
 Module names mirror ``delphy_tpu`` so each counterpart is easy to find.  The
-host layer (tree construction, MAPLE I/O, partition maps, native topology
-bursts: ``phylo``, ``seq``, ``dates``, ``init_tree``, ``io/``,
-``parallel/partmaps``, ``topo/``, ``native/``) is the port's own copy of the
-reference package's numpy and ctypes modules, so the port imports nothing of
-``delphy_tpu``.
+host layer (tree construction, MAPLE I/O, partition maps, the topology
+bursts on the native kernel or on the Python ``TopologyMixer`` without it:
+``phylo``, ``seq``, ``dates``, ``init_tree``, ``io/``, ``parallel/partmaps``,
+``topo/``, ``native/``) is the port's own copy of the reference package's
+numpy and ctypes modules, so the port imports nothing of ``delphy_tpu``.
+``ops/{runset,history,spr_study,spr_move}`` are the JAX package's device SPR
+for missation-free trees as PyTorch on tensors (a counterpart for tests and
+measurement: ``Run`` does not use it, as the JAX ``Run`` does not).
 
 Policy: a run's floats are float64 by default, and float32 where the
 ``DELPHY_TPU_F32`` environment variable is set and non-empty, the JAX

@@ -3,9 +3,10 @@
 The C++ kernel (topo_native.cpp) is a port of this repo's validated Python
 topology machinery (delphy_tpu/topo/).  It is compiled on first use with the
 system g++ into the package's ``_build/`` directory and cached by source hash;
-if the toolchain is unavailable (or DELPHY_TPU_NATIVE=0) the callers raise:
-the port has no Python mixer to fall back to.  One call runs a whole burst and
-releases the GIL, so per-partition bursts run on a plain thread pool."""
+if the toolchain is unavailable (or DELPHY_TPU_NATIVE=0) the callers fall
+back to the Python mixer (``topo/mixer.py`` ``TopologyMixer``).  One call
+runs a whole burst and releases the GIL, so per-partition bursts run on a
+plain thread pool."""
 
 from __future__ import annotations
 
@@ -46,11 +47,12 @@ def _build() -> str | None:
         os.replace(tmp, so)
         return so
     except subprocess.CalledProcessError as e:
-        # loud: without the native kernel the port runs no topology moves
+        # loud: silently losing the native kernel reroutes topology bursts
+        # to the much slower Python mixer
         import sys
         sys.stderr.write(
             "[delphy_tpu_torch] WARNING: native topology kernel failed to "
-            "compile.\n"
+            "compile; falling back to the Python mixer.\n"
             + e.stderr.decode(errors="replace")[-2000:] + "\n")
         return None
     except Exception:

@@ -7,7 +7,9 @@ process per device.
 Owns the device state and the step/cadence bookkeeping.  Each
 ``do_mcmc_steps`` call runs dispatches of partitioned boundaries (global
 moves + local sweep) on the run's device, and host topology bursts through
-the port's native C++ topology kernel (``native/``).  The host syncs where the
+the port's native C++ topology kernel (``native/``) or, without it (no g++,
+or ``DELPHY_TPU_NATIVE=0``), the Python ``TopologyMixer`` (``topo/``), as
+the reference ``Run`` falls back.  The host syncs where the
 reference ``Run`` does: draining the attempted-move counts and fetching the
 fused state bundle at a burst.  Two drivers, as in the reference: the
 blocking one (a dispatch, then a burst), and above 6M local moves per
@@ -45,7 +47,7 @@ from .mcmc import global_moves as gm
 from .mcmc.global_moves import PriorConfig
 from .mcmc.kernel import boundary_grid_bounds
 from .mcmc.moves import Ledger
-from .native import native_available, run_burst_native
+from .native import run_burst_native
 from .ops import coalescent as coal
 from .ops import likelihood as lk
 from .parallel.partmaps import (auto_num_partitions, build_part_maps,
@@ -54,7 +56,8 @@ from .parallel.sweep import NB_MAX, NB_MAX_SKYGRID, parts_multi_super_step
 from .phylo import FlatTree, rereference_to_root_sequence
 from .state import TreeState, fetch_fused, fetch_later, fetch_one, \
     pack_state, split_for_host, unpack_state
-from .topo.mixer import HostCoalGrid, HostExpPop, HostSkygridPop
+from .topo.mixer import (HostCoalGrid, HostExpPop, HostSkygridPop,
+                         TopologyMixer)
 from .topo.parallel import run_bursts_on_parts, run_partitioned_bursts
 from .topo.partition import partition_tree, reassemble
 from .topo.reform import resample_multi_site_chains
@@ -145,11 +148,6 @@ class Run:
         self.device = resolve_device(device)
         # float32 or float64: ``dtype``, else DELPHY_TPU_F32 (resolve_dtype)
         self.dtype = resolve_dtype(dtype)
-        if topology_moves_enabled:
-            # the port has no Python topology mixer to fall back to
-            if not native_available():
-                raise RuntimeError("topology moves need the native topology "
-                                   "kernel (g++), which failed to build")
         tree.check_integrity()
         tree = tree.copy()  # the Run owns its tree: bursts mutate it
         self.names = list(tree.name)
@@ -641,6 +639,7 @@ class Run:
         P = self._topology_num_parts()
         if P > 1 and n_moves >= 16 * P:
             # partitioned phase: parts run on the native kernel's threads
+            # (or, without it, on the Python mixer in worker processes)
             dlg, acc, prop = run_partitioned_bursts(
                 tree, n_moves, P, host_pop, mu, nu, q, pi, self.host_rng,
                 num_cells=num_cells, part=part, q_tab=q_tab)
@@ -659,9 +658,15 @@ class Run:
                 seed=int(self.host_rng.integers(2 ** 63)),
                 can_change_root=True, num_cells=num_cells,
                 t_max_tip=self.t_max_tip, part=part, q_tab=q_tab)
-            if res is None:
-                raise RuntimeError("native topology burst failed")
-            dlg, dlc, acc, prop = res
+            if res is not None:
+                dlg, dlc, acc, prop = res
+            else:  # no native toolchain: the Python mixer
+                mixer = TopologyMixer(tree, self.host_rng,
+                                      num_cells=num_cells)
+                mixer.run_burst(n_moves, mu, nu, q, pi, host_pop,
+                                self.t_max_tip, part=part, q_tab=q_tab)
+                dlg, dlc = mixer.delta_log_G, mixer.delta_log_coal
+                acc, prop = mixer.n_accepted, mixer.n_proposed
             if self.ledger is not None:
                 self.ledger = self.ledger._replace(
                     log_G=self.ledger.log_G + dlg,

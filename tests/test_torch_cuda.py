@@ -23,7 +23,9 @@ MC = 3200 for the three population models, a one-part Run on 1,000
 simulated tips (global build only, ledger green), and an overlapped cycle
 bit-equal to the same cycle forced sequential.  The unpartitioned step
 (``mcmc/kernel.py`` super_step) repeats itself bit for bit and enqueues a
-sweep without a host synchronisation.
+sweep without a host synchronisation.  A Run bursts on the Python mixer
+with the native kernel forced off, and the device SPR's sweeps on the card
+equal their CPU replay with one host synchronisation a sweep.
 """
 
 import os
@@ -1020,3 +1022,89 @@ def test_f32_run_repeats_itself_bit_for_bit(device):
     assert outs[0][0].dtype == F32
     for o in outs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+# ---------------------------------------------------------------------------
+# The Python topology mixer fallback and the device SPR
+# ---------------------------------------------------------------------------
+
+def test_python_mixer_run_on_card(device, monkeypatch):
+    """A Run on the card with the native burst forced off bursts on the
+    Python mixer (in process, one part), keeps its ledger at 1e-6 and
+    launches the exponential path's kernels."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import _cuda
+    monkeypatch.setattr(run_mod, "run_burst_native", lambda *a, **kw: None)
+    run = run_mod.Run(ebola_tree(30), seed=3, num_cells=128, device=device,
+                      topology_partitions=1)
+    _cuda.reset_launch_counts()
+    run.do_mcmc_steps(2 * run.local_moves_per_global_move)
+    assert run.burst_count >= 1 and run.topology_accepted > 0
+    assert all(_cuda.launch_counts[k] > 0 for k in EXP_KERNELS)
+    run.check_derived_quantities(1e-6)
+    run.tree().check_integrity()
+
+
+def test_device_spr_on_card_equals_cpu(device):
+    """spr1_sweep and slide_sweep on the card from a card generator, replayed
+    on the CPU from the same draws: the same trees (times and delta_log_G
+    1e-12), moves accepted, and one host synchronisation a sweep."""
+    import warnings
+
+    from delphy_tpu_torch.evo import make_evo_params
+    from delphy_tpu_torch.ops import spr_move as sm
+    from delphy_tpu_torch.phylo import (build_greedy_tree,
+                                        rereference_to_root_sequence)
+    from delphy_tpu_torch.sim import simulate_dataset
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        24, 3000, mu=1e-3 / 365, sample_window_days=700.0,
+        missing_fraction=0.0, seed=3)
+    tree = build_greedy_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(3))
+    rereference_to_root_sequence(tree)
+    evo = make_evo_params(tree.num_sites, mu=1e-3 / 365, kappa=2.0,
+                          device="cpu")
+    q3 = evo.q_tab.numpy().reshape(-1, 4, 4)
+    qa = np.stack([-np.diag(q) for q in q3])
+    nu, part = evo.nu.numpy(), evo.part.numpy()
+    lam_ref = float(np.sum(1e-3 / 365 * nu * qa[part, tree.ref_seq]))
+
+    def args(dev):
+        def F(a):
+            return torch.as_tensor(np.asarray(a, np.float64)).to(dev)
+        return (torch.as_tensor(tree.ref_seq.astype(np.int64)).to(dev),
+                tree.num_sites, F([1e-3 / 365]), F(nu), F(q3.reshape(-1)),
+                F(qa.reshape(-1)), torch.as_tensor(part.astype(np.int64)).to(
+                    dev), F([lam_ref]), float(np.max(tree.t_max[:24])))
+    a_dev, a_cpu = args(device), args(torch.device("cpu"))
+    p = sm.pack_tree(tree, device=device)
+    p_cpu = sm.pack_tree(tree, device="cpu")
+    gen = torch.Generator(device=device).manual_seed(7)
+    for sweep, core in ((sm.spr1_sweep, sm.spr1_sweep_core),
+                        (sm.slide_sweep, sm.slide_sweep_core)):
+        rec = []
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = sweep(gen, p, a_dev[0], a_dev[1], 32, *a_dev[2:],
+                            record=rec)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        n_sync = len([w for w in caught if "called a synchronizing CUDA "
+                      "operation" in str(w.message)])
+        assert n_sync == 1, n_sync
+        to_cpu = [type(d)(*[type(x)(*[y.cpu() for y in x])
+                            if isinstance(x, tuple) else x.cpu()
+                            for x in d]) for d in rec[0]]
+        want = core(p_cpu, *a_cpu, to_cpu)
+        assert int(got.n_accepted) == int(want.n_accepted) > 0
+        for k in sm.TREE_KEYS:
+            g, w = got.p[k].cpu(), want.p[k]
+            if g.is_floating_point():
+                torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+            else:
+                assert torch.equal(g, w), k
+        torch.testing.assert_close(got.delta_log_G.cpu(), want.delta_log_G,
+                                   rtol=1e-12, atol=1e-12)
