@@ -141,9 +141,21 @@ Phases, each of which raises (exit code != 0) on failure:
      from each final tree equal to the start plus the summed deltas (1e-9
      of |log_G|), integrity, moves accepted; ms per move on the card and
      the CPU, host syncs per move; one float32 single-lane sweep held to
-     the float32 ledger scale.  Record in chiprun_out/device_spr.json.
-Phases 1-11 and 13 run in float64 whatever DELPHY_TPU_F32 says (the script
-clears it and sets it only for phase 12, as bench.py sets it itself), so
+     the float32 ledger scale.  Record in chiprun_out/device_spr.json;
+ 14. the missation-aware device SPR (ops/spr_miss.py; no kernel of its
+     own) at scripts/topo_dev_bench.py's part (54 tips x 29,903 sites, 2%
+     missing, greedy tree, seed 3; scripts/torch_topo_dev_bench.py builds
+     it): (a) 64 spr1_sweep_miss moves on one lane on the card, replayed
+     move by move on the CPU from the card's draws (packed trees equal,
+     times and delta_log_G 1e-12), log_G recomputed from the final tree
+     equal to the start plus the summed deltas (1e-9 of |log_G|), the
+     tree's integrity, the accepted, performable and multi-branch-info
+     counts, ms per move on the card and the CPU, host syncs per move and
+     the draws' bytes per lane; (b) SPR_LANES lanes of 16 moves each on
+     the card, each lane's ledger; (c) one float32 lane of 64 moves held to
+     the float32 ledger scale.  Record in chiprun_out/device_spr_miss.json.
+Phases 1-11, 13 and 14 run in float64 whatever DELPHY_TPU_F32 says (the
+script clears it and sets it only for phase 12, as bench.py sets it), so
 `python3 chip_smoke.py` and `DELPHY_TPU_F32=1 python3 chip_smoke.py` run
 the same checks.
 Phases 6 and 7 also write a .dphy stream and read it back where the
@@ -2963,6 +2975,186 @@ def fallback_and_device_spr(device, card: str, native_burst: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the missation-aware device SPR
+# ---------------------------------------------------------------------------
+
+# scripts/topo_dev_bench.py's part (scripts/torch_topo_dev_bench.py): 54
+# tips x 29,903 sites, 2% missing, greedy tree, seed 3
+SPR_MISS_TIPS = 54
+SPR_MISS_MOVES = 64
+SPR_MISS_LANE_MOVES = 16
+
+
+def same_miss_result(what, got, want) -> float:
+    """Card result == CPU result of the missation-aware move: every packed
+    array (fs lanes too: the same program on both) equal, times and
+    delta_log_G within 1e-12; returns the largest float difference."""
+    from delphy_tpu_torch.ops import spr_miss as sm
+    err = 0.0
+    for k in sm.MISS_KEYS:
+        g, w = got.p[k].cpu(), want.p[k]
+        if g.is_floating_point():
+            err = max(err, assert_close(f"{what} {k}", g.masked_fill(
+                torch.isinf(g), 0), w.masked_fill(torch.isinf(w), 0),
+                1e-12, 1e-12))
+            if not torch.equal(torch.isinf(g), torch.isinf(w)):
+                raise AssertionError(f"{what} {k}: padding differs")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what} {k}: card and CPU trees differ")
+    for k in ("n_accepted", "n_eligible"):
+        if int(getattr(got, k)) != int(getattr(want, k)):
+            raise AssertionError(f"{what}: {k} differs")
+    return max(err, assert_close(f"{what} delta_log_G",
+                                 got.delta_log_G.cpu(), want.delta_log_G,
+                                 1e-12, 1e-12))
+
+
+def miss_ledger(what, tree, p, dlg, device, dtype=torch.float64,
+                start_tree=None) -> float:
+    """log_G of the final packed tree recomputed on the card == start +
+    the summed accepted delta_log_G (1e-9 of |log_G|, or the float32 ledger
+    scale); the tree's integrity.  Returns the difference."""
+    from delphy_tpu_torch.ops import spr_miss as sm
+    out = sm.unpack_tree_miss(p, tree)
+    out.check_integrity()
+    start = card_log_G(start_tree or tree, device)
+    end = card_log_G(out, device)
+    err = abs(end - (start + float(dlg)))
+    tol = f32_tol(start) if dtype == F32 else 1e-9 * abs(start)
+    if err > tol:
+        raise AssertionError(f"{what}: log_G {end!r} != start {start!r} + "
+                             f"{float(dlg)!r} (tol {tol})")
+    return err
+
+
+def replay_on_cpu(sm, p, L, c, t_max_tip, draws, WRB):
+    """The recorded moves replayed move by move on the CPU: the sweep's
+    result, its time, and the moves whose analyses walked more than one
+    branch info."""
+    n_acc = n_el = 0
+    dlg = torch.zeros(1, dtype=p["t"].dtype)
+    multi = 0
+    t0 = time.perf_counter()
+    for d in draws:
+        p, acc, g, el, diag = sm.spr1_miss_core(p, L, c, t_max_tip, d, WRB)
+        if bool(diag["exhausted"]):
+            raise AssertionError("phase 14: a replayed move lacked attempts")
+        n_acc += int(acc)
+        n_el += int(el)
+        dlg = dlg + g
+        multi += bool(el) and max(int(diag["n_bi_old"]),
+                                  int(diag["n_bi_new"])) > 1
+    dt = time.perf_counter() - t0
+    one = torch.ones(1, dtype=torch.int64)
+    return (sm.SweepResult(p, one * n_acc, dlg, one * n_el,
+                           torch.zeros(1, dtype=torch.bool)), dt, multi)
+
+
+def spr_miss_phase(device, card: str) -> dict:
+    """Phase 14: ops/spr_miss.py at scripts/topo_dev_bench.py's part: 64
+    spr1_sweep_miss moves on one lane and SPR_LANES lanes of
+    SPR_MISS_LANE_MOVES on the card; the single lane replayed on the CPU
+    from the card's draws; log_G recomputed from each final tree; one
+    float32 sweep.  Writes chiprun_out/device_spr_miss.json."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_topo_dev_bench as tdb
+
+    from delphy_tpu_torch.ops import spr_miss as sm
+    log("phase 14: the missation-aware device SPR")
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    tree = tdb.bench_tree(SPR_MISS_TIPS, SCALE_SITES)
+    L = tree.num_sites
+    p, c, t_max_tip, WRB, WH_ = tdb.move_args(tree, device, torch.float64)
+    p_cpu, c_cpu, _, _, _ = tdb.move_args(tree, cpu, torch.float64)
+    out = {"card": card, "tips": tree.num_tips, "nodes": tree.num_nodes,
+           "sites": L, "W": int(p["msite"].shape[1]),
+           "WR": int(p["rs"].shape[1]), "WF": int(p["fsite"].shape[1]),
+           "WRB": WRB, "WH": WH_, "mutations": tree.num_mutations(),
+           "missing_runs": sum(len(iv) for iv in tree.miss_intervals),
+           "setup_s": time.perf_counter() - t0}
+    log(f"phase 14: {json.dumps(out)}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    sm.spr1_sweep_miss(gen, p, L, 2, c, t_max_tip, WRB, WH_)    # warm-up
+    sync(device)
+    sources = {}
+
+    def on_card(fn):
+        box = []
+        t0 = time.perf_counter()
+        where = syncs_in(lambda: box.append(fn()))
+        sync(device)
+        for k, v in where.items():
+            sources[k] = sources.get(k, 0) + v
+        return box[0], time.perf_counter() - t0, sum(where.values())
+
+    # (a) one lane, 64 moves, replayed on the CPU from the card's draws
+    rec = []
+    res, dt, n_sync = on_card(lambda: sm.spr1_sweep_miss(
+        gen, p, L, SPR_MISS_MOVES, c, t_max_tip, WRB, WH_, record=rec))
+    got_cpu, dt_cpu, multi = replay_on_cpu(
+        sm, p_cpu, L, c_cpu, t_max_tip, to_device(rec[0], cpu), WRB)
+    err = same_miss_result("phase 14(a)", res, got_cpu)
+    led = miss_ledger("phase 14(a)", tree, res.p, res.delta_log_G, device)
+    if int(res.n_accepted) < 1 or multi < 1:
+        raise AssertionError(f"phase 14(a): {int(res.n_accepted)} accepted, "
+                             f"{multi} multi-branch-info moves")
+    out["a"] = {"moves": SPR_MISS_MOVES,
+                "accepted": int(res.n_accepted),
+                "performable": int(res.n_eligible),
+                "multi_branch_info": multi,
+                "card_ms_per_move": dt * 1e3 / SPR_MISS_MOVES,
+                "cpu_ms_per_move": dt_cpu * 1e3 / SPR_MISS_MOVES,
+                "host_syncs": n_sync,
+                "host_syncs_per_move": n_sync / SPR_MISS_MOVES,
+                "max_card_cpu_err": err, "ledger_err": led,
+                "draw_bytes_per_lane": sm.draw_bytes(rec[0]),
+                "draw_bytes_per_move": sm.draw_bytes(rec[0][0])}
+    log(f"phase 14(a) one lane: {json.dumps(out['a'])} ({card})")
+    del rec
+
+    # (b) SPR_LANES lanes interleaved, each lane's ledger
+    res_l, dt, n_sync = on_card(lambda: sm.spr1_sweep_miss_lanes(
+        gen, [p] * SPR_LANES, L, SPR_MISS_LANE_MOVES, c, t_max_tip, WRB,
+        WH_))
+    led = max(miss_ledger(f"phase 14(b) lane {i}", tree, r.p,
+                          r.delta_log_G, device)
+              for i, r in enumerate(res_l))
+    moves = SPR_LANES * SPR_MISS_LANE_MOVES
+    out["b"] = {"lanes": SPR_LANES, "moves": moves,
+                "accepted": sum(int(r.n_accepted) for r in res_l),
+                "performable": sum(int(r.n_eligible) for r in res_l),
+                "card_ms_per_move": dt * 1e3 / moves,
+                "host_syncs": n_sync, "host_syncs_per_move": n_sync / moves,
+                "ledger_err": led}
+    log(f"phase 14(b) {SPR_LANES} lanes: {json.dumps(out['b'])} ({card})")
+
+    # (c) one float32 lane, held to the float32 ledger scale
+    p32, c32, _, _, _ = tdb.move_args(tree, device, F32)
+    sm.spr1_sweep_miss(gen, p32, L, 2, c32, t_max_tip, WRB, WH_)
+    res, dt, n_sync = on_card(lambda: sm.spr1_sweep_miss(
+        gen, p32, L, SPR_MISS_MOVES, c32, t_max_tip, WRB, WH_))
+    start = sm.unpack_tree_miss(p32, tree)
+    e32 = miss_ledger("phase 14(c) float32", tree, res.p, res.delta_log_G,
+                      device, dtype=F32, start_tree=start)
+    out["c_f32"] = {"moves": SPR_MISS_MOVES,
+                    "accepted": int(res.n_accepted),
+                    "performable": int(res.n_eligible),
+                    "card_ms_per_move": dt * 1e3 / SPR_MISS_MOVES,
+                    "host_syncs_per_move": n_sync / SPR_MISS_MOVES,
+                    "ledger_err": e32,
+                    "ledger_tol": f32_tol(card_log_G(start, device))}
+    log(f"phase 14(c) float32: {json.dumps(out['c_f32'])} ({card})")
+    out["host_sync_sources"] = sources
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "device_spr_miss.json"),
+              "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2977,7 +3169,7 @@ def main(argv=None) -> int:
     opts = ap.parse_args(argv)
     if opts.mixer_child:
         return mixer_child(*opts.mixer_child)
-    # phases 1-11 and 13 are the float64 engine; phase 12 sets the switch
+    # phases 1-11, 13 and 14 are the float64 engine; phase 12 sets the switch
     f32_given = os.environ.pop(F32_ENV, None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3035,6 +3227,7 @@ def main(argv=None) -> int:
                 unpart["ebola"]["launch_counts"][r["name"]]
     records += f32_engine(device, card, records, tips10k)
     fallback_and_device_spr(device, card, native_burst)
+    spr_miss_phase(device, card)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -9,9 +9,10 @@ of the same name, and ``skygrid_pop_to_torch`` converts a
 back: it returns a ``{field: numpy array}`` dict from which the JAX class is
 rebuilt with ``Cls(**d)``.  ``load_jax_snapshot`` carries a whole run across: it
 reads a snapshot file written by the JAX package's ``io.snapshot.save_run``
-into a port ``Run``.  Float leaves keep their precision (float32 from a JAX
-run under ``DELPHY_TPU_F32``, float64 otherwise) unless a ``dtype`` is
-given.  This module imports no jax.
+into a port ``Run``; ``packed_tree_to_torch`` carries a packed tree of the
+device SPR modules (a dict).  Float leaves keep their precision (float32
+from a JAX run under ``DELPHY_TPU_F32``, float64 otherwise) unless a
+``dtype`` is given.  This module imports no jax.
 """
 
 from __future__ import annotations
@@ -82,6 +83,20 @@ def skygrid_pop_to_torch(pop, device=DEFAULT_DEVICE,
 
 def part_maps_to_torch(pm, device=DEFAULT_DEVICE, dtype=None) -> PartMaps:
     return from_numpy(PartMaps, pm, device, dtype)
+
+
+def packed_tree_to_torch(p_np: dict, device=DEFAULT_DEVICE,
+                         dtype=None) -> dict:
+    """The port's packed tree (``ops/spr_move.pack_tree``,
+    ``ops/spr_miss.pack_tree_miss``) from a JAX packed dict of the same
+    keys (numpy or jax leaves): integers as int64, floats in ``dtype`` (by
+    default their own precision), the root a one-element tensor."""
+    device = resolve_device(device)
+    out = {k: leaf_to_torch(v, device, dtype) for k, v in p_np.items()}
+    out = {k: v if v.is_floating_point() else v.long()
+           for k, v in out.items()}
+    out["root"] = out["root"].reshape(1)
+    return out
 
 
 def to_numpy(obj) -> dict:

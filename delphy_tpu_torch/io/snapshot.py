@@ -73,6 +73,7 @@ def save_run(run, path):
         "driver": {
             "device_partitions": run.device_partitions,
             "topology_partitions": run.topology_partitions,
+            "topology_parallel_processes": run.topology_parallel_processes,
             "topology_burst_chunks": run.topology_burst_chunks,
             "mpox_hack": run.mpox_hack,
             "mut_capacity": run.mut_capacity,
@@ -141,6 +142,8 @@ def restore_run(meta: dict, data: dict, device, gen_seed: int = 0,
               local_moves_per_global_move=meta["local_moves_per_global_move"],
               topology_moves_enabled=meta["topology_moves_enabled"],
               topology_partitions=drv["topology_partitions"],
+              topology_parallel_processes=drv.get(
+                  "topology_parallel_processes", True),
               device_partitions=drv["device_partitions"], device=device,
               pop_model=model, mpox_hack=drv.get("mpox_hack", False),
               mesh=mesh, dtype=dtype, **sky)

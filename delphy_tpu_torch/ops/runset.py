@@ -107,10 +107,10 @@ def combine(ars, are, acnt, brs, bre, bcnt, op: str, WR_out: int):
     idx_e = torch.where(keep & (gid < WR_out), gid, sink)
     re_out = torch.zeros(WR_out + 1, dtype=torch.int64, device=dev)
     re_out = re_out.scatter_reduce(0, idx_e, hi, "amax")[:WR_out]
+    # (a clamp, not a tensor of WR_out: a host-to-device copy would
+    # synchronise the stream)
     re_out = torch.where(torch.arange(WR_out, device=dev)
-                         < torch.minimum(n_out, torch.tensor(WR_out,
-                                                             device=dev)),
-                         re_out, BIG)
+                         < n_out.clamp(max=WR_out), re_out, BIG)
     return rs_out, re_out, n_out, ok
 
 

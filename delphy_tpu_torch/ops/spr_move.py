@@ -310,41 +310,48 @@ def log_alpha_mut(L, T, M, d, mu_prop):
 def compose_events(site, frm, to, valid):
     """Compose an ordered event sequence into per-site deltas: per site,
     from = first event's from, to = last event's to; identity pairs dropped
-    (site_deltas.push_back chains).  Inputs are order-stamped by position;
-    invalid slots have site < 0.  Returns (sites, froms, tos, count) sorted
-    by site, padded with -1 (count one element).
+    (site_deltas.push_back chains).  Inputs are order-stamped by position
+    on the last axis (leading axes are independent rows); invalid slots
+    have site < 0.  Returns (sites, froms, tos, count) sorted by site,
+    padded with -1; count is one element for a single row, one a row
+    otherwise.
 
     Each group's first and last slot is written once; only the sink slot
     takes duplicate writes."""
-    D = site.shape[0]
+    one = site.dim() == 1
+    if one:
+        site, frm, to, valid = (x[None] for x in (site, frm, to, valid))
+    K, D = site.shape
     dev = site.device
     # stable sort by site (invalid last) keeps the event order within each
     # site group
-    o = torch.argsort(torch.where(valid, site, _SITE_SENTINEL), stable=True)
-    s, f, t_, v = site[o], frm[o], to[o], valid[o]
-    edge = torch.full((1,), -2, dtype=s.dtype, device=dev)
-    prev_s = torch.cat([edge, s[:-1]])
-    next_s = torch.cat([s[1:], edge])
-    is_first = v & (s != prev_s)
-    is_last = v & (s != next_s)
-    gid = torch.cumsum(is_first.long(), 0) - 1
+    o = torch.argsort(torch.where(valid, site, _SITE_SENTINEL), dim=1,
+                      stable=True)
+    s, f, t_, v = (x.gather(1, o) for x in (site, frm, to, valid))
+    edge = torch.full((K, 1), -2, dtype=s.dtype, device=dev)
+    is_first = v & (s != torch.cat([edge, s[:, :-1]], 1))
+    is_last = v & (s != torch.cat([s[:, 1:], edge], 1))
+    gid = torch.cumsum(is_first.long(), 1) - 1
     sink = D  # one spare slot as the scatter sink for masked writes
     idx_first = torch.where(is_first, gid, sink)
     idx_last = torch.where(is_last, gid, sink)
-    g_site = torch.full((D + 1,), -1, dtype=s.dtype, device=dev).index_put(
-        (idx_first,), s)[:D]
-    g_from = torch.zeros(D + 1, dtype=f.dtype, device=dev).index_put(
-        (idx_first,), f)[:D]
-    g_to = torch.zeros(D + 1, dtype=t_.dtype, device=dev).index_put(
-        (idx_last,), t_)[:D]
-    n_groups = is_first.sum()
+    g_site = torch.full((K, D + 1), -1, dtype=s.dtype, device=dev).scatter(
+        1, idx_first, s)[:, :D]
+    g_from = torch.zeros((K, D + 1), dtype=f.dtype, device=dev).scatter(
+        1, idx_first, f)[:, :D]
+    g_to = torch.zeros((K, D + 1), dtype=t_.dtype, device=dev).scatter(
+        1, idx_last, t_)[:, :D]
     ar = _ar(D, dev)
-    keep = (ar < n_groups) & (g_from != g_to) & (g_site >= 0)
+    keep = ((ar < is_first.sum(1, keepdim=True)) & (g_from != g_to)
+            & (g_site >= 0))
     # compact kept entries to the front (stable, site order preserved)
-    o2 = torch.argsort((~keep).to(torch.int32), stable=True)
-    n_keep = keep.sum().reshape(1)
-    out_s = torch.where(ar < n_keep, g_site[o2], -1)
-    return out_s, g_from[o2], g_to[o2], n_keep
+    o2 = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    n_keep = keep.sum(1)
+    out = (torch.where(ar < n_keep[:, None], g_site.gather(1, o2), -1),
+           g_from.gather(1, o2), g_to.gather(1, o2))
+    if one:
+        return (*(x[0] for x in out), n_keep)
+    return (*out, n_keep)
 
 
 def _ancestors(parent, nodes, n_cols: int = _ANC_COLS):
@@ -1015,12 +1022,14 @@ def slide_sweep_core(p, ref_seq, L: int, mu, nu, qtab, qatab, part,
         p, draws_seq)
 
 
-def _sweeps(core, draw, gen, ps, n_moves: int, record) -> list:
+def _sweeps(core, draw, gen, ps, n_moves: int, record,
+            more=more_attempts) -> list:
     """n_moves of ``core`` on each packed tree of ``ps`` (lanes interleaved
     move by move), on draws made up front by ``draw()``.  The moves run
     without a host sync; all the lanes' exhaustion flags are read once at
     the end, and a lane whose move lacked attempts reruns from that move
-    with more attempts (the same samples as a move-by-move loop)."""
+    with more attempts (``more(gen, draws)``: the same samples as a
+    move-by-move loop)."""
     draws = [[draw() for _ in range(n_moves)] for _ in ps]
     start = [0] * len(ps)           # each lane's first move still to run
     states = [[p] for p in ps]      # states[lane][m]: the tree before move m
@@ -1044,7 +1053,7 @@ def _sweeps(core, draw, gen, ps, n_moves: int, record) -> list:
         for lane, bad, fl in zip(todo, flags.any(1).tolist(), flags):
             if bad:
                 first = int(torch.argmax(fl.to(torch.int8)))
-                draws[lane][first] = more_attempts(gen, draws[lane][first])
+                draws[lane][first] = more(gen, draws[lane][first])
                 start[lane] = first
                 rerun.append(lane)
         todo = rerun

@@ -16,6 +16,7 @@ indices (padding routes to a trash slot).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -33,8 +34,10 @@ from . import vsc_device as vsc
 # half-width sweeps take 2 NB_MAX on the exponential model
 NB_MAX = 64
 NB_MAX_SKYGRID = 512
-# cells per colour block of the batched displacement
-CELLS_PER_BLOCK = 16
+# cells per colour block of the batched displacement (DELPHY_TPU_CPB
+# overrides it, read at import as the reference reads its default; below 6
+# the sweep kernel takes its per-cell k_p scatter)
+CELLS_PER_BLOCK = int(os.environ.get("DELPHY_TPU_CPB", "16"))
 
 _M32 = 0xFFFFFFFF
 

@@ -15,7 +15,13 @@ fused state bundle at a burst.  Two drivers, as in the reference: the
 blocking one (a dispatch, then a burst), and above 6M local moves per
 boundary (about 60k tips) the overlapped one, whose host burst on one half
 of the parts runs while the device sweeps the other half
-(``DELPHY_TPU_OVERLAP`` = ``auto`` | ``0`` | ``1`` chooses).
+(``DELPHY_TPU_OVERLAP`` = ``auto`` | ``0`` | ``1`` chooses).  The
+reference ``Run``'s other overrides are read where it reads them:
+``DELPHY_TPU_RESTENCIL`` (boundaries between restencils) when a run is made,
+``DELPHY_TPU_MAX_DISPATCH_MOVES`` at each call of either driver,
+``DELPHY_TPU_TOPO_PARTS`` (topology parts) and ``DELPHY_TPU_TOPO_SINGLE=1``
+(one unpartitioned burst) at each burst, and ``DELPHY_TPU_CPB`` (cells per
+colour block) when ``parallel/sweep.py`` is imported.
 
 Under a mesh every rank runs this same host program on the same seeds:
 the host RNG, the topology bursts, the repartitions and the moves-per-block
@@ -62,17 +68,25 @@ from .topo.parallel import run_bursts_on_parts, run_partitioned_bursts
 from .topo.partition import partition_tree, reassemble
 from .topo.reform import resample_multi_site_chains
 
-# Dispatch cap: at most this many local moves of boundaries per dispatch.
+# Dispatch cap: at most this many local moves of boundaries per dispatch
+# (DELPHY_TPU_MAX_DISPATCH_MOVES overrides it, read at each call, as the
+# reference reads it).
 MAX_DISPATCH_MOVES = 32_000_000
 # The overlapped driver's cap per cycle, larger: its merge is a fixed cost
-# per cycle, which more boundaries amortize (the reference's, run.py:440-448)
+# per cycle, which more boundaries amortize (the reference's, run.py:440-448;
+# the same variable overrides it)
 OVERLAP_DISPATCH_MOVES = 96_000_000
 # Above this many local moves per boundary (about 60k tips) the overlapped
 # driver is the default (the reference's gate, run.py:405-416)
 OVERLAP_MIN_MOVES = 6_000_000
 # Boundaries between periodic restencils (the reference's stencil refresh,
-# run.cpp:87-108).
+# run.cpp:87-108); DELPHY_TPU_RESTENCIL overrides it, read when a run is
+# made.
 RESTENCIL_INTERVAL = 200
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, str(default)))
 
 
 def _round_cap(n: int) -> int:
@@ -128,6 +142,7 @@ class Run:
                  local_moves_per_global_move: int = -1,
                  topology_moves_enabled: bool = True,
                  topology_partitions: int = 0,
+                 topology_parallel_processes: bool = True,
                  device_partitions: int = 0, device=DEFAULT_DEVICE,
                  pop_model: str = "exp", skygrid_num_parameters: int = 50,
                  skygrid_cutoff_days: float | None = None,
@@ -167,6 +182,11 @@ class Run:
         self.num_cells = num_cells
         self.topology_moves_enabled = topology_moves_enabled
         self.topology_partitions = topology_partitions
+        # partitioned Python-mixer bursts in worker processes (False: in
+        # this process; the native kernel's threads either way)
+        self.topology_parallel_processes = topology_parallel_processes
+        self.restencil_interval = _env_int("DELPHY_TPU_RESTENCIL",
+                                           RESTENCIL_INTERVAL)
         self._topo_debt = 0
         self.host_rng = np.random.default_rng(np.uint64(seed)
                                               + 0x9E3779B97F4A7C15)
@@ -378,9 +398,11 @@ class Run:
         cadence = self.local_moves_per_global_move
         K = self.topology_burst_chunks
         P = self.device_partitions
-        k_cap = max(1, min(K, MAX_DISPATCH_MOVES // max(1, cadence)))
+        max_dispatch = _env_int("DELPHY_TPU_MAX_DISPATCH_MOVES",
+                                MAX_DISPATCH_MOVES)
+        k_cap = max(1, min(K, max_dispatch // max(1, cadence)))
         if P > 1:
-            k_cap = min(k_cap, RESTENCIL_INTERVAL)
+            k_cap = min(k_cap, self.restencil_interval)
         while done < n_steps:
             remaining = n_steps - done
             boundaries = max(1, min(k_cap, remaining // cadence))
@@ -417,11 +439,11 @@ class Run:
                     repartitioned = True
             if (not repartitioned and P > 1
                     and self._boundaries_since_repart
-                    >= RESTENCIL_INTERVAL):
+                    >= self.restencil_interval):
                 self._repartition(sync_times=True)
             if (repartitioned
                     or self._boundaries_since_repart
-                    >= RESTENCIL_INTERVAL):
+                    >= self.restencil_interval):
                 self._boundaries_since_repart = 0
             done += chunk
         self.step += n_steps
@@ -459,14 +481,15 @@ class Run:
         host's draws are the reference's, in its order.  Each cycle's stage
         times (host clock, s) are left in ``last_cycle``."""
         cadence = self.local_moves_per_global_move
+        max_dispatch = _env_int("DELPHY_TPU_MAX_DISPATCH_MOVES",
+                                OVERLAP_DISPATCH_MOVES)
         done = 0
         while done < n_steps:
             t0 = time.perf_counter()
             remaining = n_steps - done
             boundaries = max(1, min(self.topology_burst_chunks,
-                                    RESTENCIL_INTERVAL,
-                                    max(1, OVERLAP_DISPATCH_MOVES
-                                        // max(1, cadence)),
+                                    self.restencil_interval,
+                                    max(1, max_dispatch // max(1, cadence)),
                                     remaining // cadence))
             chunk = min(remaining, boundaries * cadence)
             per_boundary = (chunk + boundaries - 1) // boundaries
@@ -548,6 +571,7 @@ class Run:
             dlg, acc, prop = run_bursts_on_parts(
                 tree, parts, budget, host_pop, mu, nu, q, pi,
                 self.host_rng, num_cells=min(self.num_cells, 400),
+                parallel=self.topology_parallel_processes,
                 part=part, q_tab=q_tab, do_reassemble=False,
                 burst_idx=[int(i) for i in B])
             self.topology_accepted += acc
@@ -613,6 +637,9 @@ class Run:
     def _topology_num_parts(self) -> int:
         if self.topology_partitions > 0:
             return self.topology_partitions
+        env = os.environ.get("DELPHY_TPU_TOPO_PARTS", "")
+        if env:
+            return max(1, int(env))
         T = self.ts.num_tips
         return max(1, min(2 * (os.cpu_count() or 1), T // 10),
                    min(1024, T // 100))
@@ -637,12 +664,16 @@ class Run:
         self.burst_count += 1
 
         P = self._topology_num_parts()
+        if os.environ.get("DELPHY_TPU_TOPO_SINGLE", "0") == "1":
+            P = 1
         if P > 1 and n_moves >= 16 * P:
             # partitioned phase: parts run on the native kernel's threads
             # (or, without it, on the Python mixer in worker processes)
             dlg, acc, prop = run_partitioned_bursts(
                 tree, n_moves, P, host_pop, mu, nu, q, pi, self.host_rng,
-                num_cells=num_cells, part=part, q_tab=q_tab)
+                num_cells=num_cells,
+                parallel=self.topology_parallel_processes, part=part,
+                q_tab=q_tab)
             if self.ledger is not None:
                 # the augmented per-part priors do not sum to the plain
                 # prior: refresh log_coal from the post-burst tree

@@ -55,10 +55,11 @@ def test_no_jax_import_in_port_sources():
             from .pop import x
     """)) == ["delphy_tpu", "jax.numpy"]
     offenders = []
-    # chip_smoke.py and the port's script it runs on the card
+    # chip_smoke.py and the port's scripts it runs on the card
     files = list(_py_files()) + [
         os.path.join(REPO, "chip_smoke.py"),
-        os.path.join(REPO, "scripts", "torch_f32_study.py")]
+        os.path.join(REPO, "scripts", "torch_f32_study.py"),
+        os.path.join(REPO, "scripts", "torch_topo_dev_bench.py")]
     rel = {os.path.relpath(f, PKG) for f in files}
     assert {"cli.py", "server.py", "ui.py", "tools.py", "probers.py",
             "sim.py", "mcc.py", "ess.py", "version.py",
@@ -66,7 +67,8 @@ def test_no_jax_import_in_port_sources():
             os.path.join("io", "newick.py"),
             os.path.join("io", "beast_out.py"),
             os.path.join("io", "beast_xml.py"),
-            os.path.join("parallel", "distributed.py")} <= rel
+            os.path.join("parallel", "distributed.py"),
+            os.path.join("ops", "spr_miss.py")} <= rel
     for path in files:
         for n in _foreign_imports(open(path).read(), path):
             offenders.append((os.path.relpath(path, REPO), n))
