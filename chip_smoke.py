@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (delphy_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile] [--baseline CSRC_DIR] [--large-tips N]
+        [--ess-windows EBOLA_S TIPS1K_S]
 
 Phases, each of which raises (exit code != 0) on failure:
   1. print the card's name and power limit (nvidia-smi);
@@ -153,9 +154,25 @@ Phases, each of which raises (exit code != 0) on failure:
      counts, ms per move on the card and the CPU, host syncs per move and
      the draws' bytes per lane; (b) SPR_LANES lanes of 16 moves each on
      the card, each lane's ledger; (c) one float32 lane of 64 moves held to
-     the float32 ledger scale.  Record in chiprun_out/device_spr_miss.json.
+     the float32 ledger scale.  Record in chiprun_out/device_spr_miss.json;
+ 15. the posterior against the JAX package's (no kernel of its own): (a)
+     configuration R of data/jax_posterior_reference.json (VALIDATION.md's
+     48 tips x 6,000 sites, the JAX chains' pinned start, burn-in and
+     samples) through scripts/torch_validate_recovery.py on the card, one
+     chain in float64 and one in float32 (seed 101): the script's lines and
+     RECOVERY, each summary's distance in joint Monte-Carlo standard errors
+     from both committed JAX chains beside the JAX null (the run fails above
+     max(5, 3 x the null) or on RECOVERY: OFF), the ledger (float64 1e-6,
+     float32 the scaled bench bound), the tree's integrity and the three
+     kernels' launch counts; (b) scripts/torch_ess_at_scale.py in float32
+     on the Ebola main path's tree and on phase 9a's 1,000-tip tree: after
+     a burn-in, a 45 s and a 60 s window (--ess-windows for longer) of
+     samples, ESS and ESS per hour of the log-posterior, mu and the root
+     time, their MCSE and moves/s, the float32 kernels launched in each
+     window.  Record in chiprun_out/posterior.json.
 Phases 1-11, 13 and 14 run in float64 whatever DELPHY_TPU_F32 says (the
-script clears it and sets it only for phase 12, as bench.py sets it), so
+script clears it and sets it only for phase 12, as bench.py sets it; phase
+15 names each run's dtype), so
 `python3 chip_smoke.py` and `DELPHY_TPU_F32=1 python3 chip_smoke.py` run
 the same checks.
 Phases 6 and 7 also write a .dphy stream and read it back where the
@@ -1289,6 +1306,12 @@ def profile_path(device, n: int = 40) -> dict:
 
 
 
+def sim_tree_path(n_tips: int) -> str:
+    """Where ``sim_tree(n_tips, cache=True)`` keeps its pickle."""
+    return os.path.join(tempfile.gettempdir(), f"delphy_tpu_torch_tree_"
+                        f"{n_tips}_{SCALE_SITES}_{SCALE_SEED}.pkl")
+
+
 def sim_tree(n_tips: int, cache: bool = False):
     """The reference scale bench's simulated dataset at ``n_tips`` tips
     (29,903 sites, mu 1e-3/365, 1200 sampling days, 2% missing, seed 77)
@@ -1298,8 +1321,7 @@ def sim_tree(n_tips: int, cache: bool = False):
 
     from delphy_tpu_torch.init_tree import build_initial_tree
     from delphy_tpu_torch.sim import simulate_dataset
-    path = os.path.join(tempfile.gettempdir(), f"delphy_tpu_torch_tree_"
-                        f"{n_tips}_{SCALE_SITES}_{SCALE_SEED}.pkl")
+    path = sim_tree_path(n_tips)
     if cache and os.path.exists(path):
         with open(path, "rb") as f:
             return pickle.load(f)
@@ -3155,6 +3177,139 @@ def spr_miss_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the posterior against the JAX package's, and ESS per hour
+# ---------------------------------------------------------------------------
+
+# scripts/jax_posterior_reference.py's output: the JAX package's float64
+# posterior on the CPU at configurations S and R, two chains each
+POSTERIOR_REF = os.path.join(REPO, "data", "jax_posterior_reference.json")
+# (b): sampling windows in seconds (Ebola, 1,000 tips), --ess-windows for
+# longer ones; moves burned before a window (the Run's 2M-move topology
+# cadence cap); moves between samples in boundaries (one dispatch cycle,
+# the JAX script's default, is ~2M moves: a handful of samples in a window
+# this short)
+ESS_WINDOWS = (45.0, 60.0)
+ESS_BURN_MOVES = 2_000_000
+ESS_SAMPLE_BOUNDARIES = {"ebola": 4, "tips_1000": 1}
+
+
+def recovery_on_card(device, card: str, ref: dict, dtype) -> dict:
+    """Phase 15(a): configuration R (VALIDATION.md's 48 tips x 6,000 sites,
+    the JAX chains' pinned start and length) through
+    scripts/torch_validate_recovery.py on the card in ``dtype``, chain seed
+    101: the script's lines, RECOVERY, every summary against both JAX
+    chains and the JAX null, the ledger (float64 1e-6, float32 the scaled
+    bench bound), the tree's integrity and the kernels' launch counts."""
+    import torch_validate_recovery as tvr
+
+    from delphy_tpu_torch.parallel import _cuda
+    tag = "f32" if dtype == F32 else "f64"
+    R = ref["R"]
+    data, rrun = R["recipe"]["data"], R["recipe"]["run"]
+    k = {"T": data["tips"], "L": data["sites"], "seed": data["seed"],
+         "burn": rrun["burn"], "samples": rrun["samples"],
+         "thin": rrun["thin"]}
+
+    def say(line):
+        log(f"phase 15(a) {tag}: {line}")
+
+    _cuda.reset_launch_counts()
+    res, run = tvr.recovery_chain(k, device, dtype, pinned=True,
+                                  on_line=say)
+    sync(device)
+    counts = check_counts(f"on recovery R in {tag}",
+                          F32_EXP_PATH if dtype == F32 else EXP_PATH)
+    tol = f32_tol(run.ledger.log_G) if dtype == F32 else 1e-6
+    run.check_derived_quantities(tol)
+    run.tree().check_integrity()
+    drift = abs(float(run.ledger.log_G) - float(run.calc_cur_ledger().log_G))
+    res["against"] = tvr.against(res, ref, on_line=say)
+    rec = {key: res[key] for key in ("knobs", "dtype", "tip_deltas",
+                                     "truth", "posterior", "ess",
+                                     "ess_per_hour_t_root", "recovery_ok",
+                                     "against", "max_drift", "seconds",
+                                     "topology")}
+    rec.update(ledger={"tol": tol, "end_drift": drift},
+               integrity=True, launch_counts=counts, card=card,
+               log_post_end=run.log_posterior, step=run.step,
+               trace=res["trace"])
+    say(f"ledger {drift:.3e} (tol {tol:.3e}), integrity OK, "
+        f"{res['seconds']:.1f} s ({card})")
+    if not res["recovery_ok"]:
+        raise AssertionError(f"phase 15(a) {tag}: RECOVERY: OFF")
+    if not res["against"]["ok"]:
+        raise AssertionError(
+            f"phase 15(a) {tag}: largest sigma "
+            f"{res['against']['max_sigma']:.2f} against the JAX chains, "
+            f"bound {res['against']['bound']:.2f}")
+    return rec
+
+
+def ess_on_card(device, card: str, name: str, tree_pkl: str,
+                window: float) -> dict:
+    """Phase 15(b): scripts/torch_ess_at_scale.py's run from the pickled
+    tree in float32 (bench.py's precision), ESS_BURN_MOVES of burn-in, then
+    ``window`` seconds of samples; its JSON record, with the float32
+    kernels launched in the window."""
+    import torch_ess_at_scale as tes
+
+    def say(msg):
+        log(f"phase 15(b) {name}: {msg}")
+
+    run = tes.make_run(0, 0, device, F32, tree_pkl=tree_pkl, say=say)
+    lm = run.local_moves_per_global_move
+    out = tes.measure(run, window,
+                      sample_moves=ESS_SAMPLE_BOUNDARIES[name] * lm,
+                      burn=ESS_BURN_MOVES, say=say)
+    for k in F32_EXP_PATH:
+        if out["kernels"].get(k, 0) <= 0:
+            raise AssertionError(f"phase 15(b) {name}: {k} never launched "
+                                 f"in the window: {out['kernels']}")
+    out.update(card=card, burn_moves=ESS_BURN_MOVES)
+    log(f"phase 15(b) {name}: {json.dumps(out)}")
+    return out
+
+
+def posterior_phase(device, card: str, windows) -> dict:
+    """Phase 15: (a) configuration R on the card in float64 and float32
+    against the committed JAX chains; (b) ESS per hour in float32 on the
+    Ebola main path and on phase 9a's 1,000-tip tree.  Writes
+    chiprun_out/posterior.json."""
+    import pickle
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    log("phase 15: the posterior against the JAX package's, ESS per hour")
+    with open(POSTERIOR_REF) as f:
+        ref = json.load(f)
+    out = {"card": card, "reference": ref["what"],
+           "recovery": {"f64": recovery_on_card(device, card, ref,
+                                                torch.float64),
+                        "f32": recovery_on_card(device, card, ref, F32)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        ebola = os.path.join(tmp, "ebola.pkl")
+        with open(ebola, "wb") as f:
+            pickle.dump(load_tree(), f)
+        out["ess"] = {"ebola": ess_on_card(device, card, "ebola", ebola,
+                                           windows[0])}
+    sim_tree(ONE_PART_TIPS, cache=True)        # phase 9a's cached tree
+    out["ess"]["tips_1000"] = ess_on_card(
+        device, card, "tips_1000", sim_tree_path(ONE_PART_TIPS), windows[1])
+    for name, e in out["ess"].items():
+        log(f"phase 15(b) {name} float32: ESS log_post / mu / t_root "
+            f"{e['ess_log_post']} / {e['ess_mu']} / {e['ess_t_root']} of "
+            f"{e['samples']} samples in {e['window_s']} s; ESS per hour "
+            f"{e['ess_per_hour_log_post']} / {e['ess_per_hour_mu']} / "
+            f"{e['ess_per_hour_t_root']}; MCSE log_post "
+            f"{e['mcse_log_post']}, mu (relative) {e['mcse_mu_rel']}, "
+            f"t_root {e['mcse_t_root']}; {e['moves_per_s']} moves/s "
+            f"({card})")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "posterior.json"),
+              "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3164,6 +3319,9 @@ def main(argv=None) -> int:
     ap.add_argument("--large-tips", type=int, default=0, metavar="N",
                     help="phase 9d: also run a simulated tree of N tips "
                          "(the scale bench's is 100000)")
+    ap.add_argument("--ess-windows", nargs=2, type=float,
+                    default=ESS_WINDOWS, metavar=("EBOLA_S", "TIPS1K_S"),
+                    help="phase 15(b)'s sampling windows in seconds")
     ap.add_argument("--mixer-child", nargs=2, metavar=("TREES", "OUT"),
                     help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
@@ -3228,6 +3386,12 @@ def main(argv=None) -> int:
     records += f32_engine(device, card, records, tips10k)
     fallback_and_device_spr(device, card, native_burst)
     spr_miss_phase(device, card)
+    post = posterior_phase(device, card, opts.ess_windows)
+    for r in records:
+        for tag, rec in post["recovery"].items():
+            n = rec["launch_counts"].get(r["name"], 0)
+            if n:
+                r[f"launches_recovery_{tag}"] = n
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -16,6 +16,10 @@ max(local moves per boundary, 2000) steps, and the worst within-window
 distance in joint Monte-Carlo standard errors, f32 against f64 and the
 null (f64 against f64), and both drifts; exits 1 where f32's largest
 distance exceeds max(8, 3 x the null's), the rule of tests/test_f32.py.
+
+``ess_mean_se`` and ``compare`` are the port's one comparison of two
+chains' summaries: scripts/torch_validate_recovery.py and the tests import
+them from here.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ def run_chain(dtype, cfg: dict, device="cpu") -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def _ess_mean_se(x):
+def ess_mean_se(x):
     """Mean and MC standard error with a crude autocorrelation-time factor
     (scripts/f32_study.py)."""
     x = np.asarray(x, dtype=np.float64)
@@ -87,14 +91,16 @@ def _ess_mean_se(x):
 
 
 def compare(a: dict, b: dict) -> dict:
-    """scripts/f32_study.py's comparison of two chains' summaries."""
+    """scripts/f32_study.py's comparison of two chains' summaries: for each
+    trace of ``a`` (``b`` has the same keys), the means, their standard
+    errors and the distance in joint standard errors."""
     report = {"summaries": {}, "max_sigma": 0.0,
               "a_max_within_window_drift": a["max_drift"],
               "b_max_within_window_drift": b["max_drift"],
               "log_G_magnitude": a["log_G_mag"]}
     for k in a["trace"]:
-        m1, se1 = _ess_mean_se(a["trace"][k])
-        m2, se2 = _ess_mean_se(b["trace"][k])
+        m1, se1 = ess_mean_se(a["trace"][k])
+        m2, se2 = ess_mean_se(b["trace"][k])
         sigma = abs(m1 - m2) / max((se1 ** 2 + se2 ** 2) ** 0.5, 1e-12)
         report["summaries"][k] = {"a_mean": m1, "a_se": se1, "b_mean": m2,
                                   "b_se": se2, "sigma": sigma}

@@ -25,7 +25,9 @@ bit-equal to the same cycle forced sequential.  The unpartitioned step
 (``mcmc/kernel.py`` super_step) repeats itself bit for bit and enqueues a
 sweep without a host synchronisation.  A Run bursts on the Python mixer
 with the native kernel forced off, and the device SPR's sweeps on the card
-equal their CPU replay with one host synchronisation a sweep.
+equal their CPU replay with one host synchronisation a sweep.  The port's
+float64 chain at configuration S of data/jax_posterior_reference.json
+samples the JAX package's posterior on the card.
 """
 
 import os
@@ -1108,3 +1110,32 @@ def test_device_spr_on_card_equals_cpu(device):
                 assert torch.equal(g, w), k
         torch.testing.assert_close(got.delta_log_G.cpu(), want.delta_log_G,
                                    rtol=1e-12, atol=1e-12)
+
+
+def test_posterior_on_card_matches_jax_reference(device):
+    """Configuration S of data/jax_posterior_reference.json on the card:
+    the port's float64 chain against both committed JAX chains under
+    tests/test_f32.py's rule (tests/test_torch_posterior.py runs it on the
+    CPU): every summary under max(8, 3 x the JAX null) joint Monte-Carlo
+    standard errors, the within-window drift under 1e-8, and the chain on
+    the kernels."""
+    import json
+    import sys
+
+    from delphy_tpu_torch.parallel import _cuda
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_f32_study
+    with open(os.path.join(REPO, "data", "jax_posterior_reference.json")) as f:
+        S = json.load(f)["S"]
+    cfg = {k: S["recipe"][k] for k in ("tips", "sites", "steps")}
+    _cuda.reset_launch_counts()
+    port = torch_f32_study.run_chain(F64, dict(cfg, seed=5), device)
+    assert all(_cuda.launch_counts[k] > 0 for k in EXP_KERNELS)
+    chains = S["chains"]
+    null = torch_f32_study.compare(chains["5"], chains["1005"])
+    bound = max(8.0, 3.0 * null["max_sigma"])
+    assert port["max_drift"] < 1e-8
+    for seed, chain in chains.items():
+        report = torch_f32_study.compare(port, chain)
+        assert report["max_sigma"] < bound, (seed, report["summaries"],
+                                             null["summaries"])

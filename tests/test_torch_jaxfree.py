@@ -59,7 +59,9 @@ def test_no_jax_import_in_port_sources():
     files = list(_py_files()) + [
         os.path.join(REPO, "chip_smoke.py"),
         os.path.join(REPO, "scripts", "torch_f32_study.py"),
-        os.path.join(REPO, "scripts", "torch_topo_dev_bench.py")]
+        os.path.join(REPO, "scripts", "torch_topo_dev_bench.py"),
+        os.path.join(REPO, "scripts", "torch_validate_recovery.py"),
+        os.path.join(REPO, "scripts", "torch_ess_at_scale.py")]
     rel = {os.path.relpath(f, PKG) for f in files}
     assert {"cli.py", "server.py", "ui.py", "tools.py", "probers.py",
             "sim.py", "mcc.py", "ess.py", "version.py",
