@@ -169,7 +169,31 @@ Phases, each of which raises (exit code != 0) on failure:
      a burn-in, a 45 s and a 60 s window (--ess-windows for longer) of
      samples, ESS and ESS per hour of the log-posterior, mu and the root
      time, their MCSE and moves/s, the float32 kernels launched in each
-     window.  Record in chiprun_out/posterior.json.
+     window.  Record in chiprun_out/posterior.json;
+ 16. the compiled dispatch (parallel/dispatch_graph.py: the blocking
+     driver's boundaries as replays of one boundary's CUDA graph, which
+     phases 4, 5, 9c, 12(b) and 15 now run; check_counts reads the launch
+     counts that graph replays add to and prints the replays beside them):
+     (a) phase 4's recipe from one tree and seed through graphs and
+     through the eager loop (parts_multi_super_step's private _eager), in
+     float64 and float32: the state, the ledger, local_moves_attempted and
+     the generator's state bit-equal, the three kernels' launch counts
+     equal, graph replays > 0 on the graph path only, the ledger (1e-6,
+     float32 the scaled bench bound), each path's moves/s; (b) graph and
+     eager in turns, three pairs, a fresh Run without topology moves each
+     dispatching 24 boundaries at the main path's block count: ms a
+     boundary (wall, enqueue), moves/s, no host sync inside the dispatch
+     (syncs_in), the device's busy share, the host's launch calls and the
+     device operations a boundary under torch.profiler (phase 5's method),
+     the captures (ms, pool bytes) and none for a size already captured;
+     (c) phase 9c's 10,000-tip tree through the blocking driver on a
+     graph Run and an eager Run of one seed: six warm-up calls each, then
+     three pairs of calls in turns, moves/s and captures of every call,
+     one traced call of each (busy share), the runs bit-equal, the ledger
+     at 1e-6, the dispatches by block count, the graphs held and their
+     pools' bytes (graph_large(device, card, tips, warm, pairs) for other
+     sizes).
+     Record in chiprun_out/dispatch_graph.json.
 Phases 1-11, 13 and 14 run in float64 whatever DELPHY_TPU_F32 says (the
 script clears it and sets it only for phase 12, as bench.py sets it; phase
 15 names each run's dtype), so
@@ -185,6 +209,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
@@ -696,7 +721,7 @@ def main_path(device, card: str):
     total = run.local_moves_attempted - base
     sync(device)
     dt = time.perf_counter() - t0
-    counts = check_counts("on the main path")
+    counts = check_counts("on the main path", graphs=True)
     log(f"dispatches {run.dispatch_count}, bursts {run.burst_count}, "
         f"topology moves {run.topology_proposed} proposed / "
         f"{run.topology_accepted} accepted")
@@ -709,6 +734,7 @@ def main_path(device, card: str):
             and math.isfinite(run.log_posterior)):
         raise AssertionError("non-finite state after the main path")
     log(run.stats_line())
+    log(f"main path's graphs: {graph_summary(run)}")
     n_b = run.topology_burst_chunks
     log(f"main path: {total} local moves in {dt:.3f} s = "
         f"{total / dt:.1f} moves/s, {dt * 1e3 / n_b:.3f} ms per boundary "
@@ -739,16 +765,27 @@ SKYGRID_PATH = ("hky_chain", "sweep_chain_skygrid")
 MPOX_PATH = ("exp_pop_chain", "sweep_chain")
 
 
-def check_counts(what: str, path=EXP_PATH) -> dict:
+def check_counts(what: str, path=EXP_PATH, graphs=None) -> dict:
+    """The kernels' launch counts since the last reset, graph replays
+    included (each replay adds its capture's launches): every kernel of
+    ``path`` launched, no other.  ``graphs`` True: the launches came
+    through CUDA graphs (replays > 0); False: through the eager loop (no
+    replay); None: either."""
     from delphy_tpu_torch.parallel import _cuda
     counts = dict(_cuda.launch_counts)
+    replays = _cuda.graph_replays
     for k, v in counts.items():
         if k in path and v <= 0:
             raise AssertionError(f"kernel {k} never launched {what}")
         if k not in path and v != 0:
             raise AssertionError(f"kernel {k} launched {v} times {what}, "
                                  f"off its path")
-    log(f"launch counts {what}: {counts}")
+    if graphs is not None and (replays > 0) != graphs:
+        raise AssertionError(f"{replays} graph replays {what}, expected "
+                             f"{'some' if graphs else 'none'}")
+    log(f"launch counts {what}: "
+        f"{ {k: v for k, v in counts.items() if v} }, "
+        f"graph replays {replays}")
     return counts
 
 
@@ -1037,7 +1074,8 @@ def model_paths(device, card: str, exp_ms: float) -> dict:
             run.do_mcmc_steps(B * lm)          # dispatch + flush burst
             sync(device)
             dt = time.perf_counter() - t0
-            counts = check_counts(f"on the {name} path", path)
+            # the rule keeps every model option on the eager loop
+            counts = check_counts(f"on the {name} path", path, graphs=False)
             if run.dispatch_count < 2 or run.burst_count < 2:
                 raise AssertionError(f"{name}: needs 2 dispatches and bursts")
             run.check_derived_quantities(1e-6)
@@ -1522,8 +1560,14 @@ def busy_share(fn, what: str) -> dict:
                      for e in dev) * 1e-6
     sweep = sum(float(e["dur"]) for e in dev
                 if "sweep_chain_kernel" in e["name"]) * 1e-6
+    # the host's launches: kernel and graph launches, async copies and sets
+    launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                   and ("Launch" in e.get("name", "")
+                        or "MemcpyAsync" in e.get("name", "")
+                        or "MemsetAsync" in e.get("name", "")))
     res = {"wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
-           "sweep_kernel_s": sweep, "device_events": len(dev)}
+           "sweep_kernel_s": sweep, "device_events": len(dev),
+           "launch_calls": launches}
     log(f"traced {what}: {json.dumps(res)}")
     return res
 
@@ -2434,7 +2478,8 @@ def bench_recipe(device, card) -> dict:
         sync(device)
         dt = time.perf_counter() - t0
         counts = check_counts(f"on bench.py's recipe in {tag}",
-                              F32_EXP_PATH if tag == "f32" else EXP_PATH)
+                              F32_EXP_PATH if tag == "f32" else EXP_PATH,
+                              graphs=True)
         if tag == "f32":
             for k in launches:
                 launches[k] += counts[k]
@@ -3219,7 +3264,8 @@ def recovery_on_card(device, card: str, ref: dict, dtype) -> dict:
                                   on_line=say)
     sync(device)
     counts = check_counts(f"on recovery R in {tag}",
-                          F32_EXP_PATH if dtype == F32 else EXP_PATH)
+                          F32_EXP_PATH if dtype == F32 else EXP_PATH,
+                          graphs=True)
     tol = f32_tol(run.ledger.log_G) if dtype == F32 else 1e-6
     run.check_derived_quantities(tol)
     run.tree().check_integrity()
@@ -3266,6 +3312,9 @@ def ess_on_card(device, card: str, name: str, tree_pkl: str,
         if out["kernels"].get(k, 0) <= 0:
             raise AssertionError(f"phase 15(b) {name}: {k} never launched "
                                  f"in the window: {out['kernels']}")
+    if out["graph_replays"] <= 0:
+        raise AssertionError(f"phase 15(b) {name}: no graph replay in the "
+                             f"window")
     out.update(card=card, burn_moves=ESS_BURN_MOVES)
     log(f"phase 15(b) {name}: {json.dumps(out)}")
     return out
@@ -3305,6 +3354,315 @@ def posterior_phase(device, card: str, windows) -> dict:
             f"({card})")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "posterior.json"),
+              "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the compiled dispatch (a CUDA graph of one boundary)
+# ---------------------------------------------------------------------------
+
+GRAPH_PAIRS = 3          # (b): graph and eager in turns, this many pairs
+GRAPH_BOUNDARIES = 24    # (b): boundaries a reading
+GRAPH_LARGE_WARM = 6     # (c): warm-up calls of a cycle's boundaries
+GRAPH_LARGE_PAIRS = 3    # (c): then graph and eager calls in turns
+
+
+def graph_summary(run) -> dict:
+    """A run's graph cache: its captures (ms, pool bytes, blocks), its
+    dispatches by block count, the block counts of the graphs it holds
+    and their pools' bytes, and its replays."""
+    cache = run._graphs
+    caps = cache.captures
+    return {"captures": len(caps), "replays": cache.replays,
+            "capture_ms": [c["ms"] for c in caps],
+            "pool_bytes": [c["pool_bytes"] for c in caps],
+            "blocks": [c["blocks"] for c in caps],
+            "dispatches_by_blocks": dict(sorted(cache.dispatches.items())),
+            "graphs_held": [k[1] for k in cache.graphs],
+            "pool_bytes_held": sum(g.pool_bytes
+                                   for g in cache.graphs.values())}
+
+
+@contextlib.contextmanager
+def eager_dispatch():
+    """Run's dispatches through the eager loop (parts_multi_super_step's
+    private ``_eager``): the other side of phase 16's A/B."""
+    from delphy_tpu_torch import run as run_mod
+    orig = run_mod.parts_multi_super_step
+    run_mod.parts_multi_super_step = functools.partial(orig, _eager=True)
+    try:
+        yield
+    finally:
+        run_mod.parts_multi_super_step = orig
+
+
+def dispatch_path(eager: bool):
+    return eager_dispatch() if eager else contextlib.nullcontext()
+
+
+def run_leaves(run) -> dict:
+    """What 16(a) compares: the state, the ledger, the move count and the
+    generator's state."""
+    return {"ts.t": run.ts.t, "ts.mut_t": run.ts.mut_t,
+            **{f"evo.{k}": v for k, v in run.evo._asdict().items()},
+            **{f"pop.{k}": v for k, v in run.pop._asdict().items()},
+            **{f"ledger.{k}": v for k, v in run.ledger._asdict().items()},
+            "local_moves_attempted": torch.tensor(run.local_moves_attempted),
+            "generator": run.gen.get_state()}
+
+
+def main_recipe(device, dtype, eager: bool):
+    """Phase 4's recipe (a 2-boundary call, then one of lm x
+    topology_burst_chunks) in ``dtype`` through graphs or the eager loop:
+    (run, record) with the launch counts and replays of both calls and the
+    long call's moves/s; the ledger (float64 1e-6, float32 the scaled
+    bench bound) and the tree's integrity checked."""
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+    with dispatch_path(eager):
+        run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
+                  dtype=dtype)
+        lm = run.local_moves_per_global_move
+        _cuda.reset_launch_counts()
+        run.do_mcmc_steps(2 * lm)
+        first = graph_summary(run)
+        sync(device)
+        base = run.local_moves_attempted
+        t0 = time.perf_counter()
+        run.do_mcmc_steps(lm * run.topology_burst_chunks)
+        sync(device)
+        dt = time.perf_counter() - t0
+    tol = 1e-6 if dtype == torch.float64 else f32_tol(run.ledger.log_G)
+    run.check_derived_quantities(tol)
+    run.tree().check_integrity()
+    return run, {
+        "path": "eager" if eager else "graph",
+        "moves_per_s": (run.local_moves_attempted - base) / dt, "s": dt,
+        "launch_counts": {k: v for k, v in _cuda.launch_counts.items() if v},
+        "graph_replays": _cuda.graph_replays, "step": run.step,
+        "log_post": run.log_posterior, "ledger_tol": tol,
+        "graphs_after_first_call": first, "graphs": graph_summary(run)}
+
+
+def graph_against_eager(device, card: str) -> dict:
+    """16(a): phase 4's recipe from one tree and seed through graphs and
+    through the eager loop, float64 and float32: the state, the ledger,
+    local_moves_attempted and the generator's state equal, the kernels'
+    launch counts equal, graph replays only on the graph path."""
+    out = {}
+    for dtype in (torch.float64, F32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        g_run, g = main_recipe(device, dtype, eager=False)
+        e_run, e = main_recipe(device, dtype, eager=True)
+        a, b = run_leaves(g_run), run_leaves(e_run)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ:
+            raise AssertionError(f"phase 16(a) {tag}: graph and eager differ "
+                                 f"in {differ}")
+        if g["launch_counts"] != e["launch_counts"]:
+            raise AssertionError(f"phase 16(a) {tag}: launch counts "
+                                 f"{g['launch_counts']} (graph) != "
+                                 f"{e['launch_counts']} (eager)")
+        if g["graph_replays"] <= 0 or e["graph_replays"] != 0:
+            raise AssertionError(f"phase 16(a) {tag}: replays "
+                                 f"{g['graph_replays']} (graph), "
+                                 f"{e['graph_replays']} (eager)")
+        out[tag] = {"bit_equal": sorted(a), "graph": g, "eager": e}
+        log(f"phase 16(a) {tag}: graph = eager bit for bit ({len(a)} "
+            f"tensors, generator included) at step {g['step']}, log_post "
+            f"{g['log_post']:.4f}; launches {g['launch_counts']} each, "
+            f"graph replays {g['graph_replays']}; captures "
+            f"{json.dumps(g['graphs'])}; main path {g['moves_per_s']:.1f} "
+            f"moves/s through graphs, {e['moves_per_s']:.1f} eager ({card})")
+        del g_run, e_run
+    return out
+
+
+def graph_profile(device, card: str) -> dict:
+    """16(b): where a boundary's time goes through graphs and through the
+    eager loop, GRAPH_PAIRS pairs in turns, each on a fresh Run without
+    topology moves dispatching GRAPH_BOUNDARIES boundaries at the main
+    path's block count: ms a boundary (wall and enqueue), moves/s, host
+    syncs in a dispatch, the device's busy share and the host's launch
+    calls and device operations a boundary under torch.profiler (phase 5's
+    method), and the graph's captures."""
+    from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
+    from delphy_tpu_torch.run import Run
+    n = GRAPH_BOUNDARIES
+    recs = {"graph": [], "eager": []}
+    for path in ("graph", "eager") * GRAPH_PAIRS:
+        run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
+                  topology_moves_enabled=False)
+        lm = run.local_moves_per_global_move
+        run.do_mcmc_steps(2 * lm)
+        nb = max(1, min(run._nb_cap(), round(lm / run._per_block_rate)))
+        kw = ({"_eager": True} if path == "eager"
+              else {"graphs": run._graphs})
+
+        def dispatch():
+            return parts_multi_super_step(
+                run.ts, run.evo, run.pop, run.gen, run.tin, run.tout,
+                run.pm, nb, run.t_max_tip, run.hyp, run.num_cells, n, **kw)
+        caps0 = len(run._graphs.captures)
+        dispatch()                                   # warm-up, captures
+        sync(device)
+        caps = run._graphs.captures
+        rec = {"blocks": nb, "captures_in_warm_up": caps[caps0:]}
+        t0 = time.perf_counter()
+        out = dispatch()
+        enq = time.perf_counter() - t0
+        moves = int(out[4]["local_moves_attempted"])
+        wall = time.perf_counter() - t0
+        rec.update(wall_ms_per_boundary=wall * 1e3 / n,
+                   enqueue_ms_per_boundary=enq * 1e3 / n,
+                   moves_per_s_no_bursts=moves / wall,
+                   syncs_in_dispatch=syncs_in(dispatch))
+        sync(device)
+        tr = busy_share(lambda: dispatch(), f"16(b) {path}, {n} boundaries")
+        rec.update(busy_share=tr["busy_share"],
+                   launch_calls_per_boundary=tr["launch_calls"] / n,
+                   device_ops_per_boundary=tr["device_events"] / n,
+                   traced_wall_ms_per_boundary=tr["wall_s"] * 1e3 / n)
+        if rec["syncs_in_dispatch"]:
+            raise AssertionError(f"phase 16(b) {path}: host syncs inside a "
+                                 f"dispatch: {rec['syncs_in_dispatch']}")
+        if len(caps) != caps0 + len(rec["captures_in_warm_up"]):
+            raise AssertionError("phase 16(b): a dispatch of a size already "
+                                 "captured captured again")
+        recs[path].append(rec)
+        log(f"phase 16(b) {path}: {json.dumps(rec)} ({card})")
+        del run
+    return recs
+
+
+def graph_large(device, card: str, tips: int = LARGE_TIPS,
+                warm: int = GRAPH_LARGE_WARM,
+                pairs: int = GRAPH_LARGE_PAIRS) -> dict:
+    """16(c): phase 9c's ``tips``-tip tree through the blocking driver on
+    two Runs of one seed, one through graphs and one through the eager
+    loop: ``warm`` calls of a cycle's boundaries and their burst each (the
+    block count settles), then ``pairs`` pairs of such calls in turns
+    graph, eager, eager, graph, ...: moves/s and captures of every call,
+    the dispatches by block count, the graphs held and their pools' bytes;
+    one traced call of each (busy share, launch calls); then the two runs
+    bit-equal, the ledger at 1e-6 and the tree's integrity."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import _cuda
+    tree = sim_tree(tips, cache=True)
+    prev = os.environ.get("DELPHY_TPU_OVERLAP")
+    os.environ["DELPHY_TPU_OVERLAP"] = "0"
+    runs = {}
+    out = {"tips": tips, "graph": {"warm": [], "calls": []},
+           "eager": {"warm": [], "calls": []}}
+
+    def call(path, run, kind):
+        caps = len(run._graphs.captures)
+        with dispatch_path(path == "eager"):
+            _cuda.reset_launch_counts()
+            sync(device)
+            base = run.local_moves_attempted
+            t0 = time.perf_counter()
+            run.do_mcmc_steps(B * lm)
+            sync(device)
+            dt = time.perf_counter() - t0
+        if kind == "calls":
+            check_counts(f"on 16(c)'s {path} path", EXP_PATH,
+                         graphs=path == "graph")
+        moves = run.local_moves_attempted - base
+        out[path][kind].append({
+            "moves": moves, "s": dt, "moves_per_s": moves / dt,
+            "captures": len(run._graphs.captures) - caps})
+    try:
+        for path in ("graph", "eager"):
+            with dispatch_path(path == "eager"):
+                run = run_mod.Run(tree, seed=SEED, num_cells=NUM_CELLS,
+                                  device=device)
+            lm = run.local_moves_per_global_move
+            B = max(1, min(run.topology_burst_chunks,
+                           run_mod.RESTENCIL_INTERVAL,
+                           run_mod.OVERLAP_DISPATCH_MOVES // lm))
+            for _ in range(warm):
+                call(path, run, "warm")
+            runs[path] = run
+        for path in ("graph", "eager", "eager", "graph") * (pairs // 2) + (
+                ("graph", "eager") if pairs % 2 else ()):
+            call(path, runs[path], "calls")
+        for path, run in runs.items():
+            with dispatch_path(path == "eager"):
+                tr = busy_share(lambda: run.do_mcmc_steps(B * lm),
+                                f"16(c) {tips:,} tips, {path}, {B} "
+                                f"boundaries and a burst")
+            out[path].update(traced=tr, graphs=graph_summary(run))
+            run.check_derived_quantities(1e-6)
+            run.tree().check_integrity()
+            out[path]["ledger_drift"] = abs(
+                float(run.ledger.log_G) - float(run.calc_cur_ledger().log_G))
+        a, b = (run_leaves(runs[p]) for p in ("graph", "eager"))
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ:
+            raise AssertionError(f"phase 16(c): graph and eager differ in "
+                                 f"{differ}")
+        for path in ("graph", "eager"):
+            r = out[path]
+            log(f"phase 16(c) {tips:,} tips, blocking, {path}: captures a "
+                f"warm-up call {[c['captures'] for c in r['warm']]}, then "
+                f"{[c['moves_per_s'] for c in r['calls']]} moves/s and "
+                f"{[c['captures'] for c in r['calls']]} captures a call "
+                f"({B} boundaries and a burst), busy share "
+                f"{r['traced']['busy_share']:.4f}, ledger drift "
+                f"{r['ledger_drift']:.3e} (1e-6), graphs "
+                f"{json.dumps(r['graphs'])} ({card})")
+        log(f"phase 16(c): the two runs bit-equal at step "
+            f"{runs['graph'].step}")
+        out["boundaries_per_call"] = B
+        del runs, run
+    finally:
+        if prev is None:
+            os.environ.pop("DELPHY_TPU_OVERLAP", None)
+        else:
+            os.environ["DELPHY_TPU_OVERLAP"] = prev
+    return out
+
+
+def dispatch_graph_phase(device, card: str) -> dict:
+    """Phase 16: the compiled dispatch.  Writes
+    chiprun_out/dispatch_graph.json."""
+    log("phase 16: the compiled dispatch (CUDA graphs of one boundary)")
+    t0 = time.perf_counter()
+    out = {"card": card, "torch": torch.__version__,
+           "a": graph_against_eager(device, card),
+           "b": graph_profile(device, card),
+           "c": graph_large(device, card)}
+    out["seconds"] = time.perf_counter() - t0
+    summary = {
+        "ms_per_boundary": {p: [r["wall_ms_per_boundary"] for r in rs]
+                            for p, rs in out["b"].items()},
+        "enqueue_ms_per_boundary": {
+            p: [r["enqueue_ms_per_boundary"] for r in rs]
+            for p, rs in out["b"].items()},
+        "busy_share": {p: [r["busy_share"] for r in rs]
+                       for p, rs in out["b"].items()},
+        "launch_calls_per_boundary": {
+            p: [r["launch_calls_per_boundary"] for r in rs]
+            for p, rs in out["b"].items()},
+        "main_path_moves_per_s": {
+            tag: {p: out["a"][tag][p]["moves_per_s"]
+                  for p in ("graph", "eager")} for tag in out["a"]},
+        "tips_10k_moves_per_s": {p: [c["moves_per_s"]
+                                     for c in out["c"][p]["calls"]]
+                                 for p in ("graph", "eager")},
+        "tips_10k_graph_captures_a_call": [
+            c["captures"] for c in out["c"]["graph"]["warm"]
+            + out["c"]["graph"]["calls"]],
+        "tips_10k_graph_pool_bytes_held": out["c"]["graph"]["graphs"][
+            "pool_bytes_held"]}
+    out["summary"] = summary
+    log(f"phase 16: {json.dumps(summary)} in {out['seconds']:.1f} s "
+        f"({card})")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "dispatch_graph.json"),
               "w") as f:
         json.dump(out, f, indent=1, default=str)
     return out
@@ -3392,6 +3750,7 @@ def main(argv=None) -> int:
             n = rec["launch_counts"].get(r["name"], 0)
             if n:
                 r[f"launches_recovery_{tag}"] = n
+    dispatch_graph_phase(device, card)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -204,6 +204,12 @@ def calc_num_muts_l(ts: TreeState):
     return _scatter_add(ts.num_sites, ts.mut_site, real.to(torch.int64))
 
 
+def _at_root(x, ts: TreeState):
+    """x[root] as a one-element tensor, broadcast like a scalar: a 0-d
+    index tensor would read the index back to the host."""
+    return x[ts.root.long().reshape(1)]
+
+
 def calc_T_below(ts: TreeState, tin, tout):
     """Total branch length strictly below each node (Euler-tour prefix
     sums)."""
@@ -239,7 +245,7 @@ def calc_Ttwiddle_a(ts: TreeState, evo: EvoParams, tin, tout, nu_prefix):
     state, then correct per mutation and missation.  ``nu_prefix`` is
     calc_ref_state_prefix()[1]."""
     T_below = calc_T_below(ts, tin, tout)
-    tw = nu_prefix[:, -1] * T_below[ts.root.long()]
+    tw = nu_prefix[:, -1] * _at_root(T_below, ts)
     zero = torch.zeros((), dtype=tw.dtype, device=tw.device)
 
     Tb_mut = _mut_T_below(ts, T_below)
@@ -269,7 +275,7 @@ def calc_Ttwiddle_l(ts: TreeState, evo: EvoParams, tin, tout):
     qa_tab = evo.qa_tab
     qa_ref = qa_tab[evo.part.long(), ts.ref_seq.long()]            # [L]
     T_below = calc_T_below(ts, tin, tout)
-    tl = qa_ref * T_below[ts.root.long()]
+    tl = qa_ref * _at_root(T_below, ts)
     zero = torch.zeros((), dtype=tl.dtype, device=tl.device)
 
     Tb_mut = _mut_T_below(ts, T_below)
@@ -316,7 +322,7 @@ def calc_Ttwiddle_beta_a(ts: TreeState, evo: EvoParams, tin, tout,
     calc_Ttwiddle_a.  ``nu_prefix_pa`` is calc_ref_state_prefix_beta()."""
     P = evo.q_tab.shape[0]
     T_below = calc_T_below(ts, tin, tout)
-    tw = (nu_prefix_pa[:, :, -1] * T_below[ts.root.long()]).reshape(-1)
+    tw = (nu_prefix_pa[:, :, -1] * _at_root(T_below, ts)).reshape(-1)
     zero = torch.zeros((), dtype=tw.dtype, device=tw.device)
 
     Tb_mut = _mut_T_below(ts, T_below)

@@ -21,10 +21,17 @@ are per process, over every run and thread: the engine server steps runs on
 worker threads, so the increment takes a lock.  ``launch_blocks`` sums the
 thread blocks (parts, for the sweep) of those launches, so a run can show
 which share of its parts a dispatch swept.
+
+Under a CUDA graph (``dispatch_graph.py``) a wrapper runs once, at the
+capture, and launches nothing then: inside ``recording()`` its count goes
+to the capture's record instead, and each replay of the graph adds that
+record (``tally``), so the counts mean launches on the card either way.
+``graph_replays`` counts the replays.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -51,10 +58,12 @@ _KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain",
 launch_counts = dict.fromkeys(
     list(_KERNELS) + [k + "_f32" for k in _KERNELS], 0)
 launch_blocks = dict.fromkeys(launch_counts, 0)
+graph_replays = 0
 
 _LIB = None
 _LOCK = threading.Lock()          # building and loading the library
 _COUNT_LOCK = threading.Lock()    # launch_counts
+_RECORD = threading.local()       # the capture under way in this thread
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SWEEP = [_I, _I, _I, _I, _I, _I, _I,
           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -103,10 +112,12 @@ class Packed(NamedTuple):
 
 
 def reset_launch_counts() -> None:
+    global graph_replays
     with _COUNT_LOCK:
         for k in launch_counts:
             launch_counts[k] = 0
             launch_blocks[k] = 0
+        graph_replays = 0
 
 
 def suffix(dtype) -> str:
@@ -120,9 +131,37 @@ def suffix(dtype) -> str:
 
 
 def count_launch(name: str, blocks: int = 1) -> None:
+    record = getattr(_RECORD, "launches", None)
+    if record is not None:
+        record.append((name, blocks))
+        return
     with _COUNT_LOCK:
         launch_counts[name] += 1
         launch_blocks[name] += blocks
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, this thread's ``count_launch`` calls append
+    (name, blocks) to the list it yields instead of counting: a graph's
+    capture, whose launches happen at its replays."""
+    prev = getattr(_RECORD, "launches", None)
+    _RECORD.launches = record = []
+    try:
+        yield record
+    finally:
+        _RECORD.launches = prev
+
+
+def tally(record, replays: int = 1) -> None:
+    """Count ``replays`` replays of a graph whose capture recorded
+    ``record``: each of its launches, that many times."""
+    global graph_replays
+    with _COUNT_LOCK:
+        for name, blocks in record:
+            launch_counts[name] += replays
+            launch_blocks[name] += replays * blocks
+        graph_replays += replays
 
 
 def _nvcc() -> str:

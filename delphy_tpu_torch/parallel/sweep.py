@@ -12,6 +12,11 @@ log_G is branch-additive with every branch in exactly one part, and the
 augmented coalescent prior (vsc_device) factorises per part given the
 frozen fields.  Reassembly scatter-adds the part-local deltas at owned
 indices (padding routes to a trash slot).
+
+A dispatch of boundaries (``parts_multi_super_step``) runs on the blocking
+driver's main path as replays of one boundary's CUDA graph
+(``dispatch_graph.py``, the counterpart of the JAX package's jitted scan),
+elsewhere as an eager loop of the same boundary.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ..mcmc.kernel import run_global_moves
 from ..mcmc.moves import Caches
 from ..state import TreeState, fuse_for_host
 from . import block_cuda as bc
+from . import dispatch_graph as dg
 from . import vsc_device as vsc
 
 # caps on blocks per boundary, the reference package's: NB_MAX where its
@@ -283,13 +289,31 @@ def parts_multi_super_step(ts: TreeState, evo, pop_params,
                            gen: torch.Generator, tin, tout, pm,
                            n_blocks: int, t_max_tip, hyp, num_cells: int,
                            n_boundaries: int, param_moves: bool = True,
-                           part_sel=None, nb_max: int = NB_MAX, mesh=None):
-    """n_boundaries partitioned boundaries in one host call, with no host
-    synchronisation (but a staged reassembly's).  Returns (ts, evo,
-    pop_params, ledger, stats, fused); stats["local_moves_attempted"] is a
-    device tensor summed over the boundaries (over every rank's parts), and
-    ``fused`` is fuse_for_host((ts, evo, pop_params)) for a following
-    topology burst.  part_sel, nb_max and mesh as in _boundary_body."""
+                           part_sel=None, nb_max: int = NB_MAX, mesh=None,
+                           graphs=None, _eager: bool = False):
+    """n_boundaries partitioned boundaries in one host call.  Returns (ts,
+    evo, pop_params, ledger, stats, fused); stats["local_moves_attempted"]
+    is a device tensor summed over the boundaries (over every rank's
+    parts), and ``fused`` is fuse_for_host((ts, evo, pop_params)) for a
+    following topology burst.  part_sel, nb_max and mesh as in
+    _boundary_body.
+
+    Where ``dispatch_graph.graph_rule`` says so (the blocking driver's
+    main path on CUDA) the boundaries are replays of one boundary's CUDA
+    graph (dispatch_graph.py) from ``graphs``, the caller's cache (a
+    ``Run``'s own; None: a cache for this call alone), else this eager
+    loop; both give the same bits.  Neither reads anything back to the
+    host (a mesh's all-reduce over gloo stages through it): the caller's
+    first read of the move count waits for the dispatch
+    (``Run._absorb``).  ``_eager`` (private) forces the eager loop on
+    CUDA, for the graph-against-eager checks."""
+    if not _eager and dg.graph_rule(ts.t.device, pop_params, hyp, n_blocks,
+                                    part_sel, mesh):
+        if graphs is None:
+            graphs = dg.DispatchGraphs()
+        return graph_dispatch(graphs, ts, evo, pop_params, gen,
+                              tin, tout, pm, n_blocks, t_max_tip, hyp,
+                              num_cells, n_boundaries, param_moves, nb_max)
     total = None
     for _ in range(n_boundaries):
         ts, evo, pop_params, ledger, stats = _boundary_body(
@@ -301,3 +325,23 @@ def parts_multi_super_step(ts: TreeState, evo, pop_params,
     stats = dict(stats, local_moves_attempted=total)
     fused = fuse_for_host((ts, evo, pop_params))
     return ts, evo, pop_params, ledger, stats, fused
+
+
+def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
+                   gen: torch.Generator, tin, tout, pm, n_blocks: int,
+                   t_max_tip, hyp, num_cells: int, n_boundaries: int,
+                   param_moves: bool = True, nb_max: int = NB_MAX):
+    """parts_multi_super_step's graph path through ``graphs`` (a
+    ``dispatch_graph.DispatchGraphs``): n_boundaries replays of one
+    _boundary_body, keyed by the arguments the JAX jit takes as static,
+    the values the capture bakes in and the block count.  On CPU tensors the body runs as it is through the same buffers (the
+    tests' check of the plumbing)."""
+    statics = (hyp, num_cells, nb_max, param_moves, float(t_max_tip),
+               CELLS_PER_BLOCK)
+
+    def body(ts, evo, pop_params, tin, tout, pm):
+        return _boundary_body(ts, evo, pop_params, gen, tin, tout, pm,
+                              n_blocks, t_max_tip, hyp, num_cells,
+                              param_moves=param_moves, nb_max=nb_max)
+    return graphs.dispatch(body, (ts, evo, pop_params, tin, tout, pm), gen,
+                           statics, min(n_blocks, nb_max), n_boundaries)

@@ -56,6 +56,7 @@ from .mcmc.moves import Ledger
 from .native import run_burst_native
 from .ops import coalescent as coal
 from .ops import likelihood as lk
+from .parallel.dispatch_graph import DispatchGraphs
 from .parallel.partmaps import (auto_num_partitions, build_part_maps,
                                 host_mut_nodes, pad_part_maps, part_size_cap)
 from .parallel.sweep import NB_MAX, NB_MAX_SKYGRID, parts_multi_super_step
@@ -262,6 +263,8 @@ class Run:
 
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
+        # the blocking driver's CUDA graphs (parallel/dispatch_graph.py)
+        self._graphs = DispatchGraphs()
         self.step = 0
         self.local_moves_attempted = 0
         self.ledger: Ledger | None = None
@@ -415,7 +418,8 @@ class Run:
              self._fused_bundle) = parts_multi_super_step(
                 self.ts, self.evo, self.pop, self.gen, self.tin, self.tout,
                 self.pm, n_blocks, self.t_max_tip, self.hyp, self.num_cells,
-                boundaries, nb_max=nb_cap, mesh=self.mesh)
+                boundaries, nb_max=nb_cap, mesh=self.mesh,
+                graphs=self._graphs)
             self.dispatch_count += 1
             # every dispatch's count feeds the next dispatch's size, waiting
             # for the card's tail of it: a rule, not a question of whether

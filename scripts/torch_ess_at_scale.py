@@ -136,6 +136,7 @@ def measure(run, window: float, sample_moves: int = 0, burn: int = 0,
     dt = time.time() - t_start
     moves = run.local_moves_attempted - base
     kernels = {k: v for k, v in _cuda.launch_counts.items() if v}
+    replays = _cuda.graph_replays
     # f32 drift scales with the window; hold RELATIVE drift to 5e-7,
     # floored at the small-problem absolute tol
     run.check_derived_quantities(
@@ -163,6 +164,7 @@ def measure(run, window: float, sample_moves: int = 0, burn: int = 0,
         "sample_moves": n,
         "dtype": str(run.dtype).replace("torch.", ""),
         "kernels": kernels,
+        "graph_replays": replays,
     }
     return out
 

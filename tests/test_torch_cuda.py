@@ -27,7 +27,8 @@ sweep without a host synchronisation.  A Run bursts on the Python mixer
 with the native kernel forced off, and the device SPR's sweeps on the card
 equal their CPU replay with one host synchronisation a sweep.  The port's
 float64 chain at configuration S of data/jax_posterior_reference.json
-samples the JAX package's posterior on the card.
+samples the JAX package's posterior on the card.  The blocking driver
+through CUDA graphs gives the eager loop's bits in both precisions.
 """
 
 import os
@@ -1139,3 +1140,42 @@ def test_posterior_on_card_matches_jax_reference(device):
         report = torch_f32_study.compare(port, chain)
         assert report["max_sigma"] < bound, (seed, report["summaries"],
                                              null["summaries"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_graph_dispatch_equals_eager(device, dtype, monkeypatch):
+    """The blocking driver through CUDA graphs (parallel/dispatch_graph.py)
+    against the eager loop (parts_multi_super_step's private _eager) on 20
+    Ebola tips, two dispatches with bursts: the state, every parameter,
+    the ledger, the move count and the generator's state bit-equal, the
+    same launch counts, replays on the graph path only."""
+    import functools
+
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import _cuda
+    orig = run_mod.parts_multi_super_step
+    out = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(run_mod, "parts_multi_super_step",
+                                functools.partial(orig, _eager=True))
+        run = run_mod.Run(ebola_tree(20), seed=5, num_cells=256,
+                          device=device, dtype=dtype)
+        run.topology_burst_chunks = 2
+        _cuda.reset_launch_counts()
+        run.do_mcmc_steps(4 * run.local_moves_per_global_move)
+        out.append((run, dict(_cuda.launch_counts), _cuda.graph_replays))
+    (a, counts_a, replays_a), (b, counts_b, replays_b) = out
+    assert replays_a > 0 and replays_b == 0
+    assert counts_a == counts_b
+    assert all(counts_a[k + _cuda.suffix(dtype)] > 0 for k in EXP_KERNELS)
+    assert a.dispatch_count == b.dispatch_count >= 2
+    assert a.burst_count == b.burst_count >= 1
+    for x, y in ((a.ts, b.ts), (a.evo, b.evo), (a.pop, b.pop),
+                 (a.ledger, b.ledger)):
+        assert all(torch.equal(p, q) for p, q in zip(x, y))
+    assert a.local_moves_attempted == b.local_moves_attempted
+    assert torch.equal(a.gen.get_state(), b.gen.get_state())
+    a.check_derived_quantities(
+        1e-6 if dtype == F64
+        else max(0.05 * abs(float(a.ledger.log_G)) / 4.5e4, 1e-3))
