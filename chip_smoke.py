@@ -34,7 +34,7 @@ Phases, each of which raises (exit code != 0) on failure:
      that never stopped (log_posterior compared with ==), the launch counts,
      and the three BEAST XML exports; then the CLI with --v0-pop-model
      skygrid --v0-site-rate-heterogeneity and with --v0-mpox-hack (both
-     --v0-paranoid, each path's launch counts);
+     --v0-paranoid, each path's launch counts and graph replays > 0);
   7. the engine server: serve_in_thread on the card and, over the socket,
      create_run, run_steps twice with a get_state in between, set_params,
      get_tree_newick, both probers, get_mcc_nexus, save_snapshot +
@@ -42,15 +42,25 @@ Phases, each of which raises (exit code != 0) on failure:
      close_run and an unknown run_id (an RPC error); each request's wall
      time is printed; then the ledger check at 1e-6, the tree's integrity
      and the worker threads' launch counts; then create_run with pop_model
-     "skygrid", stepped, its ledger and launch counts;
-  8. the model options at the same width: four Runs (skygrid staircase
-     and log-linear with the defaults, 50 parameters and tau 1; the
-     exponential model with alpha/nu moves; the mpox hack), each two
-     dispatches with a burst after each, then the ledger check at 1e-6, the
-     tree's integrity, the kernels each path must launch (and no other),
-     ms per boundary beside phase 4's, the share of a boundary that the
-     path's own move takes (the skygrid's HMC, the alpha/nu moves, the mpox
-     mu/rho moves), and a snapshot that resumes bit-equal;
+     "skygrid", stepped, its ledger, launch counts and graph replays > 0;
+  8. the model options at the same width, each through CUDA graphs: four
+     Runs (skygrid staircase and log-linear with the defaults, 50
+     parameters and tau 1; the exponential model with alpha/nu moves; the
+     mpox hack), each two dispatches with a burst after each, then the
+     ledger check at 1e-6, the tree's integrity, the kernels each path
+     must launch (and no other), graph replays > 0, the captures (ms, pool
+     bytes, block counts), ms per boundary beside phase 4's; (ii) graph
+     and eager in turns, MODEL_PAIRS pairs of fresh Runs dispatching
+     MODEL_PROFILE_BOUNDARIES boundaries (phase 16(b)'s method): ms a
+     boundary, moves/s, no host sync inside a dispatch, busy share, launch
+     calls and device operations a boundary; the share of an eager
+     boundary that the path's own move takes (the skygrid's HMC, the
+     alpha/nu moves, the mpox mu/rho moves) and that move's device time
+     inside a CUDA graph beside a graph boundary; a snapshot that resumes
+     bit-equal; (i) a graph Run and an eager Run of one seed (phase
+     16(a)'s recipe with a long call of MODEL_AB_BOUNDARIES) bit-equal in
+     float64 and float32.  Record under "options" in
+     chiprun_out/dispatch_graph.json;
   9. large trees: (a) Run(device_partitions=1) on 1,000 simulated tips
      (the reference scale bench's settings) with each population model,
      whose one part needs the sweep kernel's global build: two boundaries
@@ -171,9 +181,10 @@ Phases, each of which raises (exit code != 0) on failure:
      time, their MCSE and moves/s, the float32 kernels launched in each
      window.  Record in chiprun_out/posterior.json;
  16. the compiled dispatch (parallel/dispatch_graph.py: the blocking
-     driver's boundaries as replays of one boundary's CUDA graph, which
-     phases 4, 5, 9c, 12(b) and 15 now run; check_counts reads the launch
-     counts that graph replays add to and prints the replays beside them):
+     driver's boundaries as replays of one boundary's CUDA graph, on
+     every model option, which phases 4-9c, 12(b) and 15 now run;
+     check_counts reads the launch counts that graph replays add to and
+     prints the replays beside them):
      (a) phase 4's recipe from one tree and seed through graphs and
      through the eager loop (parts_multi_super_step's private _eager), in
      float64 and float32: the state, the ledger, local_moves_attempted and
@@ -1041,18 +1052,16 @@ def server_path(device, card: str, dphy_leg: bool) -> dict:
 
 
 MODEL_BOUNDARIES = 24     # boundaries of a path's timed dispatch
+MODEL_AB_BOUNDARIES = 8   # (i): the long call of graph = eager
+MODEL_PAIRS = 2           # (ii): graph and eager in turns, this many pairs
+MODEL_PROFILE_BOUNDARIES = 4   # (ii): boundaries a reading
 
 
-def model_paths(device, card: str, exp_ms: float) -> dict:
-    """Phase 8: the model options at full Ebola width.  Returns the skygrid
-    kernel's launches per skygrid path."""
+def model_options():
+    """(name, Run arguments, kernels of the path) of phase 8's options."""
     from delphy_tpu_torch import pop as popm
-    from delphy_tpu_torch.io.snapshot import load_run, save_run
     from delphy_tpu_torch.mcmc.global_moves import PriorConfig
-    from delphy_tpu_torch.parallel import _cuda
-    from delphy_tpu_torch.run import Run
-
-    paths = [
+    return [
         ("skygrid staircase", dict(pop_model="skygrid"), SKYGRID_PATH),
         ("skygrid log-linear", dict(pop_model="skygrid",
                                     skygrid_type=popm.LOG_LINEAR),
@@ -1060,10 +1069,25 @@ def model_paths(device, card: str, exp_ms: float) -> dict:
         ("alpha/nu", dict(hyp=PriorConfig(alpha_move_enabled=True)),
          EXP_PATH),
         ("mpox", dict(mpox_hack=True), MPOX_PATH)]
+
+
+def model_paths(device, card: str, exp_ms: float):
+    """Phase 8: the model options at full Ebola width, each through CUDA
+    graphs.  Returns the skygrid kernel's launches per skygrid path and
+    the phase's record (phase 16 writes it into
+    chiprun_out/dispatch_graph.json under "options", and so does this
+    phase)."""
+    from delphy_tpu_torch.io.snapshot import load_run, save_run
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.run import Run
+
     sky_launches, times = {}, {"exp (phase 4)": exp_ms}
+    out = {"card": card}
     B = MODEL_BOUNDARIES
     with tempfile.TemporaryDirectory() as tmp:
-        for name, kw, path in paths:
+        for name, kw, path in model_options():
+            t_opt = time.perf_counter()
+            rec = out[name] = {}
             run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS,
                       device=device, **kw)
             lm = run.local_moves_per_global_move
@@ -1074,8 +1098,8 @@ def model_paths(device, card: str, exp_ms: float) -> dict:
             run.do_mcmc_steps(B * lm)          # dispatch + flush burst
             sync(device)
             dt = time.perf_counter() - t0
-            # the rule keeps every model option on the eager loop
-            counts = check_counts(f"on the {name} path", path, graphs=False)
+            # every model option's boundaries are graph replays
+            counts = check_counts(f"on the {name} path", path, graphs=True)
             if run.dispatch_count < 2 or run.burst_count < 2:
                 raise AssertionError(f"{name}: needs 2 dispatches and bursts")
             run.check_derived_quantities(1e-6)
@@ -1084,13 +1108,22 @@ def model_paths(device, card: str, exp_ms: float) -> dict:
                     and math.isfinite(run.log_posterior)):
                 raise AssertionError(f"{name}: non-finite state")
             times[name] = dt * 1e3 / B
+            rec.update(ms_per_boundary_graph_run=times[name],
+                       launch_counts={k: v for k, v in counts.items() if v},
+                       graphs=graph_summary(run))
             log(f"{name}: {run.stats_line()}")
             log(f"{name}: {times[name]:.3f} ms per boundary ({B} boundaries "
-                f"and a burst) beside the exponential path's {exp_ms:.3f} "
-                f"in phase 4 ({card})")
+                f"and a burst, through graphs) beside the exponential "
+                f"path's {exp_ms:.3f} in phase 4; graphs "
+                f"{json.dumps(rec['graphs'])} ({card})")
             if name.startswith("skygrid"):
                 sky_launches[name.split()[1]] = counts["sweep_chain_skygrid"]
-            move_share(run, name, times[name], device, card)
+            rec["b"] = graph_profile(device, card, kw, MODEL_PAIRS,
+                                     MODEL_PROFILE_BOUNDARIES, f"8(ii) {name}")
+            rec["move"] = move_share(run, name, {
+                p: float(np.mean([r["wall_ms_per_boundary"]
+                                  for r in rec["b"][p]]))
+                for p in ("graph", "eager")}, device, card)
             # a snapshot written on the card resumes bit-equal there
             snap = os.path.join(tmp, "model.npz")
             save_run(run, snap)
@@ -1103,16 +1136,61 @@ def model_paths(device, card: str, exp_ms: float) -> dict:
             log(f"{name}: resume bit-equal at step {run.step}: "
                 f"{run.log_posterior!r}")
             del run, loaded
+            rec["a"] = graph_against_eager(
+                device, card, kw, MODEL_AB_BOUNDARIES, f"8(i) {name}")
+            rec["seconds"] = time.perf_counter() - t_opt
+        out["ms_per_boundary"] = times
+        keys = ("wall_ms_per_boundary", "moves_per_s_no_bursts",
+                "busy_share", "launch_calls_per_boundary",
+                "device_ops_per_boundary")
+        out["summary"] = {
+            name: {p: {k: [r[k] for r in out[name]["b"][p]] for k in keys}
+                   for p in ("graph", "eager")}
+            for name, _kw, _p in model_options()}
         log("ms per boundary by path: " + json.dumps(
             {k: round(v, 3) for k, v in times.items()}) + f" ({card})")
-    return sky_launches
+        log(f"phase 8 summary: {json.dumps(out['summary'])} ({card})")
+    write_dispatch_graph({"card": card, "options": out})
+    return sky_launches, out
 
 
-def move_share(run, name, boundary_ms, device, card: str, n: int = 10):
+def graph_ms_of(fn, gen, device, what: str, n: int = 20,
+                traced: int = 4) -> dict:
+    """fn()'s device time inside a CUDA graph: warmed up once on a side
+    stream (autograd's first run there), captured with ``gen`` registered,
+    replayed ``n`` times: ms a replay by CUDA events; then ``traced``
+    replays under torch.profiler: the device's busy ms and operations a
+    replay."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.stream(side):
+        fn()
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    ms = time_ms(graph.replay, device, reps=n)
+    tr = busy_share(lambda: [graph.replay() for _ in range(traced)],
+                    f"{what} as a graph, {traced} replays")
+    return {"event_ms": ms, "busy_ms": tr["device_busy_s"] * 1e3 / traced,
+            "device_ops": tr["device_events"] / traced}
+
+
+def move_share(run, name, boundary_ms: dict, device, card: str,
+               n: int = 10):
     """Host time of a boundary's global moves, and of the move this path
-    adds, alone: the skygrid's HMC, the alpha/nu moves (with the per-site
-    statistics they read) or the mpox hack's mu/rho moves (with theirs).
-    These moves are eager PyTorch: their device work waits on the host."""
+    adds, alone, on the eager loop: the skygrid's HMC, the alpha/nu moves
+    (with the per-site statistics they read) or the mpox hack's mu/rho
+    moves (with theirs), and its share of an eager boundary
+    (``boundary_ms["eager"]``).  Eager, a move's device work waits on the
+    host; the same move's device time inside a CUDA graph (graph_ms_of, on
+    a copy of the run's generator), as the graph boundary runs it, stands
+    beside it with its share of a graph boundary
+    (``boundary_ms["graph"]``)."""
     from delphy_tpu_torch.mcmc import global_moves as gm
     from delphy_tpu_torch.mcmc.kernel import run_global_moves
     from delphy_tpu_torch.ops import likelihood as lk
@@ -1127,24 +1205,26 @@ def move_share(run, name, boundary_ms, device, card: str, n: int = 10):
     sync(device)
     glob = (time.perf_counter() - t0) * 1e3 / n
     hyp, tin, tout = run.hyp, run.tin, run.tout
+    gen = torch.Generator(device)
+    gen.set_state(run.gen.get_state())
     if name.startswith("skygrid"):
         what = "the HMC move"
 
-        def move():
-            gm.skygrid_hmc_move(run.gen, pop, grid, ts.t, ts.is_tip, hyp)
+        def move(gen=run.gen):
+            gm.skygrid_hmc_move(gen, pop, grid, ts.t, ts.is_tip, hyp)
     elif name == "alpha/nu":
         what = "Ttwiddle_l, M_l and the alpha/nu moves"
 
-        def move():
-            gm.alpha_and_nu_moves(run.gen, evo,
+        def move(gen=run.gen):
+            gm.alpha_and_nu_moves(gen, evo,
                                   lk.calc_Ttwiddle_l(ts, evo, tin, tout),
                                   lk.calc_num_muts_l(ts), hyp)
     else:
         what = "the per-partition statistics and the mu/rho moves"
 
-        def move():
+        def move(gen=run.gen):
             pa = lk.calc_ref_state_prefix_beta(ts, evo)
-            gm.mpox_hack_moves(run.gen, evo, lk.calc_num_muts_beta_ab(ts, evo),
+            gm.mpox_hack_moves(gen, evo, lk.calc_num_muts_beta_ab(ts, evo),
                                lk.calc_num_muts(ts),
                                lk.calc_Ttwiddle_beta_a(ts, evo, tin, tout, pa),
                                hyp)
@@ -1155,9 +1235,20 @@ def move_share(run, name, boundary_ms, device, card: str, n: int = 10):
         move()
     sync(device)
     ms = (time.perf_counter() - t0) * 1e3 / n
-    log(f"{name}: run_global_moves {glob:.3f} ms, of it {what} {ms:.3f} ms "
-        f"= {ms / boundary_ms:.1%} of a boundary's {boundary_ms:.3f} ms "
-        f"({card})")
+    in_graph = graph_ms_of(lambda: move(gen), gen, device, f"{name}: {what}")
+    eager_ms, graph_ms = boundary_ms["eager"], boundary_ms["graph"]
+    log(f"{name}: eager, run_global_moves {glob:.3f} ms, of it {what} "
+        f"{ms:.3f} ms = {ms / eager_ms:.1%} of an eager boundary's "
+        f"{eager_ms:.3f} ms; inside a CUDA graph {what} takes "
+        f"{in_graph['busy_ms']:.3f} ms of device time "
+        f"({in_graph['device_ops']:.0f} device operations, "
+        f"{in_graph['event_ms']:.3f} ms a replay by events) = "
+        f"{in_graph['busy_ms'] / graph_ms:.1%} of a graph boundary's "
+        f"{graph_ms:.3f} ms ({card})")
+    return {"what": what, "global_moves_eager_ms": glob, "eager_ms": ms,
+            "eager_share": ms / eager_ms, "in_graph": in_graph,
+            "graph_share": in_graph["busy_ms"] / graph_ms,
+            "boundary_ms": boundary_ms}
 
 
 def model_cli(device, card: str) -> None:
@@ -1192,7 +1283,7 @@ def model_cli(device, card: str) -> None:
                 log(f"cli {what}: {line}")
             if code != 0:
                 raise AssertionError(f"cli.main {what} returned {code}")
-            check_counts(f"on the CLI path {what}", path)
+            check_counts(f"on the CLI path {what}", path, graphs=True)
             with open(out) as f:
                 rows = [ln.rstrip("\n").split("\t") for ln in f]
         if col not in rows[0] or len(rows) != 3 or not all(
@@ -1235,7 +1326,8 @@ def model_server(device, card: str) -> None:
         client.close()
         srv.shutdown()
         srv.server_close()
-    check_counts("from the server's skygrid run", SKYGRID_PATH)
+    check_counts("from the server's skygrid run", SKYGRID_PATH,
+                 graphs=True)
 
 
 def _union_us(spans) -> float:
@@ -3403,27 +3495,30 @@ def dispatch_path(eager: bool):
 
 
 def run_leaves(run) -> dict:
-    """What 16(a) compares: the state, the ledger, the move count and the
-    generator's state."""
+    """What 16(a) and 8 compare: the state, the ledger, the move count and
+    the generator's state."""
+    pop = (run.pop._asdict() if hasattr(run.pop, "_asdict")
+           else {"x": run.pop.x, "gamma": run.pop.gamma, "tau": run.pop.tau})
     return {"ts.t": run.ts.t, "ts.mut_t": run.ts.mut_t,
             **{f"evo.{k}": v for k, v in run.evo._asdict().items()},
-            **{f"pop.{k}": v for k, v in run.pop._asdict().items()},
+            **{f"pop.{k}": v for k, v in pop.items()},
             **{f"ledger.{k}": v for k, v in run.ledger._asdict().items()},
             "local_moves_attempted": torch.tensor(run.local_moves_attempted),
             "generator": run.gen.get_state()}
 
 
-def main_recipe(device, dtype, eager: bool):
+def main_recipe(device, dtype, eager: bool, kw=None, boundaries=None):
     """Phase 4's recipe (a 2-boundary call, then one of lm x
-    topology_burst_chunks) in ``dtype`` through graphs or the eager loop:
-    (run, record) with the launch counts and replays of both calls and the
-    long call's moves/s; the ledger (float64 1e-6, float32 the scaled
-    bench bound) and the tree's integrity checked."""
+    topology_burst_chunks, or of lm x ``boundaries``) in ``dtype`` through
+    graphs or the eager loop, on a Run with the extra arguments ``kw`` (a
+    model option): (run, record) with the launch counts and replays of
+    both calls and the long call's moves/s; the ledger (float64 1e-6,
+    float32 the scaled bench bound) and the tree's integrity checked."""
     from delphy_tpu_torch.parallel import _cuda
     from delphy_tpu_torch.run import Run
     with dispatch_path(eager):
         run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
-                  dtype=dtype)
+                  dtype=dtype, **(kw or {}))
         lm = run.local_moves_per_global_move
         _cuda.reset_launch_counts()
         run.do_mcmc_steps(2 * lm)
@@ -3431,7 +3526,7 @@ def main_recipe(device, dtype, eager: bool):
         sync(device)
         base = run.local_moves_attempted
         t0 = time.perf_counter()
-        run.do_mcmc_steps(lm * run.topology_burst_chunks)
+        run.do_mcmc_steps(lm * (boundaries or run.topology_burst_chunks))
         sync(device)
         dt = time.perf_counter() - t0
     tol = 1e-6 if dtype == torch.float64 else f32_tol(run.ledger.log_G)
@@ -3446,65 +3541,71 @@ def main_recipe(device, dtype, eager: bool):
         "graphs_after_first_call": first, "graphs": graph_summary(run)}
 
 
-def graph_against_eager(device, card: str) -> dict:
-    """16(a): phase 4's recipe from one tree and seed through graphs and
-    through the eager loop, float64 and float32: the state, the ledger,
-    local_moves_attempted and the generator's state equal, the kernels'
-    launch counts equal, graph replays only on the graph path."""
+def graph_against_eager(device, card: str, kw=None, boundaries=None,
+                        what: str = "16(a)") -> dict:
+    """16(a) (and 8(i) with a model option's Run arguments ``kw`` and a
+    long call of ``boundaries``): phase 4's recipe from one tree and seed
+    through graphs and through the eager loop, float64 and float32: the
+    state, the ledger, local_moves_attempted and the generator's state
+    equal, the kernels' launch counts equal, graph replays only on the
+    graph path."""
     out = {}
     for dtype in (torch.float64, F32):
         tag = "f64" if dtype == torch.float64 else "f32"
-        g_run, g = main_recipe(device, dtype, eager=False)
-        e_run, e = main_recipe(device, dtype, eager=True)
+        g_run, g = main_recipe(device, dtype, False, kw, boundaries)
+        e_run, e = main_recipe(device, dtype, True, kw, boundaries)
         a, b = run_leaves(g_run), run_leaves(e_run)
         differ = [k for k in a if not torch.equal(a[k], b[k])]
         if differ:
-            raise AssertionError(f"phase 16(a) {tag}: graph and eager differ "
-                                 f"in {differ}")
+            raise AssertionError(f"phase {what} {tag}: graph and eager "
+                                 f"differ in {differ}")
         if g["launch_counts"] != e["launch_counts"]:
-            raise AssertionError(f"phase 16(a) {tag}: launch counts "
+            raise AssertionError(f"phase {what} {tag}: launch counts "
                                  f"{g['launch_counts']} (graph) != "
                                  f"{e['launch_counts']} (eager)")
         if g["graph_replays"] <= 0 or e["graph_replays"] != 0:
-            raise AssertionError(f"phase 16(a) {tag}: replays "
+            raise AssertionError(f"phase {what} {tag}: replays "
                                  f"{g['graph_replays']} (graph), "
                                  f"{e['graph_replays']} (eager)")
         out[tag] = {"bit_equal": sorted(a), "graph": g, "eager": e}
-        log(f"phase 16(a) {tag}: graph = eager bit for bit ({len(a)} "
+        log(f"phase {what} {tag}: graph = eager bit for bit ({len(a)} "
             f"tensors, generator included) at step {g['step']}, log_post "
             f"{g['log_post']:.4f}; launches {g['launch_counts']} each, "
             f"graph replays {g['graph_replays']}; captures "
-            f"{json.dumps(g['graphs'])}; main path {g['moves_per_s']:.1f} "
+            f"{json.dumps(g['graphs'])}; {g['moves_per_s']:.1f} "
             f"moves/s through graphs, {e['moves_per_s']:.1f} eager ({card})")
         del g_run, e_run
     return out
 
 
-def graph_profile(device, card: str) -> dict:
-    """16(b): where a boundary's time goes through graphs and through the
-    eager loop, GRAPH_PAIRS pairs in turns, each on a fresh Run without
-    topology moves dispatching GRAPH_BOUNDARIES boundaries at the main
-    path's block count: ms a boundary (wall and enqueue), moves/s, host
-    syncs in a dispatch, the device's busy share and the host's launch
-    calls and device operations a boundary under torch.profiler (phase 5's
-    method), and the graph's captures."""
+def graph_profile(device, card: str, kw=None, pairs: int = GRAPH_PAIRS,
+                  n: int = GRAPH_BOUNDARIES, what: str = "16(b)") -> dict:
+    """16(b) (and 8(ii) with a model option's Run arguments ``kw``): where
+    a boundary's time goes through graphs and through the eager loop,
+    ``pairs`` pairs in turns, each on a fresh Run without topology moves
+    dispatching ``n`` boundaries at the path's block count: ms a boundary
+    (wall and enqueue), moves/s, host syncs in a dispatch, the device's
+    busy share and the host's launch calls and device operations a
+    boundary under torch.profiler (phase 5's method), and the graph's
+    captures."""
     from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
     from delphy_tpu_torch.run import Run
-    n = GRAPH_BOUNDARIES
     recs = {"graph": [], "eager": []}
-    for path in ("graph", "eager") * GRAPH_PAIRS:
+    for path in ("graph", "eager") * pairs:
         run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device,
-                  topology_moves_enabled=False)
+                  topology_moves_enabled=False, **(kw or {}))
         lm = run.local_moves_per_global_move
-        run.do_mcmc_steps(2 * lm)
+        with dispatch_path(path == "eager"):
+            run.do_mcmc_steps(2 * lm)
         nb = max(1, min(run._nb_cap(), round(lm / run._per_block_rate)))
-        kw = ({"_eager": True} if path == "eager"
-              else {"graphs": run._graphs})
+        path_kw = ({"_eager": True} if path == "eager"
+                   else {"graphs": run._graphs})
 
         def dispatch():
             return parts_multi_super_step(
                 run.ts, run.evo, run.pop, run.gen, run.tin, run.tout,
-                run.pm, nb, run.t_max_tip, run.hyp, run.num_cells, n, **kw)
+                run.pm, nb, run.t_max_tip, run.hyp, run.num_cells, n,
+                nb_max=run._nb_cap(), **path_kw)
         caps0 = len(run._graphs.captures)
         dispatch()                                   # warm-up, captures
         sync(device)
@@ -3520,19 +3621,19 @@ def graph_profile(device, card: str) -> dict:
                    moves_per_s_no_bursts=moves / wall,
                    syncs_in_dispatch=syncs_in(dispatch))
         sync(device)
-        tr = busy_share(lambda: dispatch(), f"16(b) {path}, {n} boundaries")
+        tr = busy_share(lambda: dispatch(), f"{what} {path}, {n} boundaries")
         rec.update(busy_share=tr["busy_share"],
                    launch_calls_per_boundary=tr["launch_calls"] / n,
                    device_ops_per_boundary=tr["device_events"] / n,
                    traced_wall_ms_per_boundary=tr["wall_s"] * 1e3 / n)
         if rec["syncs_in_dispatch"]:
-            raise AssertionError(f"phase 16(b) {path}: host syncs inside a "
+            raise AssertionError(f"phase {what} {path}: host syncs inside a "
                                  f"dispatch: {rec['syncs_in_dispatch']}")
         if len(caps) != caps0 + len(rec["captures_in_warm_up"]):
-            raise AssertionError("phase 16(b): a dispatch of a size already "
-                                 "captured captured again")
+            raise AssertionError(f"phase {what}: a dispatch of a size "
+                                 f"already captured captured again")
         recs[path].append(rec)
-        log(f"phase 16(b) {path}: {json.dumps(rec)} ({card})")
+        log(f"phase {what} {path}: {json.dumps(rec)} ({card})")
         del run
     return recs
 
@@ -3626,12 +3727,20 @@ def graph_large(device, card: str, tips: int = LARGE_TIPS,
     return out
 
 
-def dispatch_graph_phase(device, card: str) -> dict:
+def write_dispatch_graph(out: dict) -> None:
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "dispatch_graph.json"),
+              "w") as f:
+        json.dump(out, f, indent=1, default=str)
+
+
+def dispatch_graph_phase(device, card: str, options: dict) -> dict:
     """Phase 16: the compiled dispatch.  Writes
-    chiprun_out/dispatch_graph.json."""
+    chiprun_out/dispatch_graph.json, with phase 8's record of the model
+    options (``options``) under "options"."""
     log("phase 16: the compiled dispatch (CUDA graphs of one boundary)")
     t0 = time.perf_counter()
-    out = {"card": card, "torch": torch.__version__,
+    out = {"card": card, "torch": torch.__version__, "options": options,
            "a": graph_against_eager(device, card),
            "b": graph_profile(device, card),
            "c": graph_large(device, card)}
@@ -3661,10 +3770,7 @@ def dispatch_graph_phase(device, card: str) -> dict:
     out["summary"] = summary
     log(f"phase 16: {json.dumps(summary)} in {out['seconds']:.1f} s "
         f"({card})")
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "dispatch_graph.json"),
-              "w") as f:
-        json.dump(out, f, indent=1, default=str)
+    write_dispatch_graph(out)
     return out
 
 
@@ -3722,7 +3828,7 @@ def main(argv=None) -> int:
     model_cli(device, card)
     server_path(device, card, dphy_leg)
     model_server(device, card)
-    sky = model_paths(device, card, exp_ms)
+    sky, options = model_paths(device, card, exp_ms)
     for r in records:
         if r["name"] == "sweep_chain_skygrid":
             r["launches"] = sky["staircase"]
@@ -3750,7 +3856,7 @@ def main(argv=None) -> int:
             n = rec["launch_counts"].get(r["name"], 0)
             if n:
                 r[f"launches_recovery_{tag}"] = n
-    dispatch_graph_phase(device, card)
+    dispatch_graph_phase(device, card, options)
     print(json.dumps({"kernels": records, "launch_floor_ms": floor}),
           flush=True)
     print(card, flush=True)

@@ -15,15 +15,10 @@ import torch
 
 from . import DEFAULT_DEVICE, ITYPE, float_dtype, resolve_device, resolve_dtype
 
-# transition (A<->G, C<->T) and transversion indicator matrices
-_TRANSITION = [[0.0, 0.0, 1.0, 0.0],
-               [0.0, 0.0, 0.0, 1.0],
-               [1.0, 0.0, 0.0, 0.0],
-               [0.0, 1.0, 0.0, 0.0]]
-_TRANSVERSION = [[0.0, 1.0, 0.0, 1.0],
-                 [1.0, 0.0, 1.0, 0.0],
-                 [0.0, 1.0, 0.0, 1.0],
-                 [1.0, 0.0, 1.0, 0.0]]
+# Rate matrices are made on the device from index comparisons, not copied
+# from host tables: a copy from the host synchronises the stream, and an
+# mpox boundary, which makes its matrices, runs inside a CUDA graph's
+# capture.
 
 
 def hky_q(kappa, pi):
@@ -33,8 +28,11 @@ def hky_q(kappa, pi):
     dt = float_dtype(pi, kappa)
     pi = torch.as_tensor(pi, dtype=dt)
     kappa = torch.as_tensor(kappa, dtype=dt, device=pi.device)
-    r = (torch.tensor(_TRANSVERSION, dtype=dt, device=pi.device)
-         + kappa * torch.tensor(_TRANSITION, dtype=dt, device=pi.device))
+    # transitions (A<->G, C<->T) are two states apart, transversions an odd
+    # number of states
+    a = torch.arange(4, device=pi.device)
+    apart = (a[:, None] - a[None, :]).abs()
+    r = (apart % 2 == 1).to(dt) + kappa * (apart == 2).to(dt)
     R = pi @ r @ pi
     q = r * pi[None, :] / R
     return q - torch.diag(torch.sum(q, dim=1))
@@ -106,19 +104,12 @@ def make_evo_params(num_sites: int, mu=1e-3 / 365.0, kappa=1.0,
 # run.cpp:359-433)
 # ---------------------------------------------------------------------------
 
-# APOBEC terms of Q_1 per unit rho (rows and columns A, C, G, T)
-_APOBEC = [[0.0, 0.0, 0.0, 0.0],
-           [0.0, -2.0, 0.0, 2.0],
-           [2.0, 0.0, -2.0, 0.0],
-           [0.0, 0.0, 0.0, 0.0]]
-
 
 def jc_q(device=None, dtype=None):
-    """Jukes-Cantor rate matrix (diagonal -1, off-diagonal 1/3), computed as
-    hky_q(1, uniform)."""
-    dtype = resolve_dtype(dtype)
-    return hky_q(torch.ones((), dtype=dtype, device=device),
-                 torch.full((4,), 0.25, dtype=dtype, device=device))
+    """Jukes-Cantor rate matrix (diagonal -1, off-diagonal 1/3): the bits of
+    hky_q(1, uniform), whose R is 3/4 exactly."""
+    eye = torch.eye(4, dtype=resolve_dtype(dtype), device=device)
+    return (1.0 - eye) / 3.0 - eye
 
 
 def mpox_q_tab(rho):
@@ -127,7 +118,11 @@ def mpox_q_tab(rho):
     follow the O'Toole et al convention (run.h:169-172)."""
     rho = torch.as_tensor(rho, dtype=float_dtype(rho))
     q0 = jc_q(rho.device, rho.dtype)
-    apo = torch.tensor(_APOBEC, dtype=rho.dtype, device=rho.device)
+    A, C, G, T = 0, 1, 2, 3
+    a = torch.arange(4, device=rho.device)
+    src, dst = a[:, None], a[None, :]
+    hit = ((src == C) & (dst == T)) | ((src == G) & (dst == A))
+    apo = 2.0 * (hit.to(rho.dtype) - torch.diag(hit.any(1).to(rho.dtype)))
     return torch.stack([q0, q0 + rho * apo])
 
 

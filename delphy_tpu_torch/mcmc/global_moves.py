@@ -132,9 +132,14 @@ def sample_gamma(gen: torch.Generator, shape, size=None, device=None,
     probability > 0.95), with no host synchronisation.  Shapes below 1 use
     the boost Gamma(shape + 1) U^(1/shape).  ``size`` is the shape of the
     result (default: that of ``shape``, which broadcasts to it); the
-    draws are in ``dtype``, by default the float dtype of ``shape``."""
-    shape = torch.as_tensor(shape, dtype=dtype or float_dtype(shape),
-                            device=device)
+    draws are in ``dtype``, by default the float dtype of ``shape``.  A
+    Python number ``shape`` is filled in on ``device``: a copy from the host
+    would synchronise the stream (and break a CUDA graph's capture)."""
+    dt = dtype or float_dtype(shape)
+    if isinstance(shape, torch.Tensor):
+        shape = torch.as_tensor(shape, dtype=dt, device=device)
+    else:
+        shape = torch.full((), shape, dtype=dt, device=device)
     dt = shape.dtype
     size = tuple(shape.shape) if size is None else tuple(size)
     dev = shape.device
@@ -222,8 +227,10 @@ def mpox_hack_core(evo: EvoParams, M_beta_ab, num_muts, Ttwiddle_beta_a,
             mu = g_mu[i] / (Tt + 2.0 * rho * Tt_star + hyp.mu_prior_beta)
         draws = g_rho[i] / (mu * Tt_star / 3.0)
         ok = draws >= 1.0
-        first = torch.argmax(ok.to(torch.int32))
-        k = torch.where(ok.any(), draws[first], torch.ones_like(mu))
+        # a one-element index: a 0-d index tensor reads it back to the host
+        first = torch.argmax(ok.to(torch.int32)).reshape(1)
+        k = torch.where(ok.any(), draws[first].reshape(()),
+                        torch.ones_like(mu))
         rho = torch.where(Tt_star > 0.0, (k - 1.0) / 6.0, rho)
     return evo.with_mpox_rho(mu=mu, rho=rho)
 

@@ -119,6 +119,19 @@ def run_global_moves(ts: TreeState, evo: EvoParams, pop_params,
     return ts, evo, pop_params, grid, caches, ledger, stats
 
 
+def skygrid_hmc_warm_up(ts: TreeState, pop_params: popm.SkygridPopParams,
+                        t_max_tip, hyp: PriorConfig, num_cells: int) -> None:
+    """The skygrid HMC's force, once, on ``pop_params``' gamma and the grid
+    of ``ts``, thrown away: the warm-up that PyTorch asks of autograd on a
+    stream before a CUDA graph captures a backward there
+    (``dispatch_graph``).  It draws nothing and writes nothing."""
+    t_lo, t_step = boundary_grid_bounds(ts, t_max_tip, num_cells)
+    grid = coal.make_grid(pop_params, ts.t, ts.is_tip, t_lo, t_step,
+                          num_cells)
+    gm.grad_of(gm.skygrid_hmc_potential(pop_params, grid, ts.t, ts.is_tip,
+                                        hyp), pop_params.gamma)
+
+
 # ---------------------------------------------------------------------------
 # the unpartitioned step
 # ---------------------------------------------------------------------------

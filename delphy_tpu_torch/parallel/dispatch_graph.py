@@ -18,9 +18,11 @@ static argument or an array shape changes.  Its counterpart here:
   ``nb_max``, ``param_moves``), the values the capture bakes in
   (``t_max_tip``, the cells per colour block, and the sweep's blocks,
   whose uniforms' shape depends on them: drawing at ``nb_max`` instead
-  would change the stream), and the dtype, device and shape of every
-  input.  A burst or a restencil that keeps every shape replays the same
-  graphs; one that changes a shape captures again;
+  would change the stream), the inputs' pytree structure with its static
+  parts (a skygrid's type, which picks the code of ``skygrid_log_N`` and
+  of the sweep's build), and the dtype, device and shape of every input.
+  A burst or a restencil that keeps every shape replays the same graphs;
+  one that changes a shape captures again;
 - the bound: a run's block count climbs over its first dispatches, as
   ``Run._absorb``'s rate estimate converges, and then stays on two or
   three values, so ``MAX_GRAPHS`` graphs, the least recently used
@@ -29,16 +31,26 @@ static argument or an array shape changes.  Its counterpart here:
 - the run's generator is registered with each graph: a replay draws from
   the generator's offset of the moment and advances it by the capture's
   draws, as the eager boundary does;
+- the warm-up: a skygrid boundary takes its HMC's forces from autograd,
+  whose backward runs on the autograd engine's device thread on the
+  stream of its forward ops, here the capture stream.  PyTorch asks for
+  autograd to have run on that stream before a capture: a dispatch's
+  ``warm_up`` (the force on the buffers' gamma, which draws nothing and
+  writes nothing back) runs there just before each capture;
 - the hand-off: at the dispatch's end the state the graph writes, the last
   boundary's ledger and stats and the move count are cloned out (one
   concatenation per dtype), and the host bundle (``fuse_for_host``) is
   made from them, as the JAX program returns it.  The run's state never
   aliases memory that a later replay overwrites.
 
-``graph_rule`` says which dispatches run this way; every other runs the
-eager loop of ``sweep.parts_multi_super_step``.  A capture that fails
-raises.  Captures run in thread-local mode on a side stream of the cache's
-own, so the engine server's other run can work on its thread meanwhile.
+``graph_rule`` says which dispatches run this way: the blocking driver's,
+on every model option (the exponential model, the skygrid of either type,
+alpha/nu, mpox), as the JAX program compiles each option.  The overlapped
+driver (its part-selected and globals-only dispatches), a mesh and the
+CPU run the eager loop of ``sweep.parts_multi_super_step``.  A capture
+that fails raises.  Captures run in thread-local mode on a side stream of
+the cache's own, so the engine server's other run can work on its thread
+meanwhile.
 """
 
 from __future__ import annotations
@@ -48,7 +60,6 @@ from collections import Counter, OrderedDict
 
 import torch
 
-from .. import pop as popm
 from ..state import _leaves, _rebuild, fuse_for_host
 from . import _cuda
 
@@ -62,20 +73,29 @@ MAX_GRAPHS = 4
 def graph_rule(device, pop_params, hyp, n_blocks: int, part_sel,
                mesh) -> bool:
     """Whether a dispatch runs as graph replays: on a CUDA device, with no
-    mesh and no part selection, on the main path's boundary (the
-    exponential population model, neither the alpha/nu nor the mpox moves)
-    with a sweep (``n_blocks`` > 0; the overlapped driver's globals-only
-    boundary has none).  The skygrid's HMC, alpha/nu, mpox, the overlapped
-    driver and a mesh run the eager loop."""
+    mesh and no part selection, with a sweep (``n_blocks`` > 0; the
+    overlapped driver's globals-only boundary has none), whatever the
+    population model (``pop_params``) and the moves ``hyp`` turns on.  The
+    overlapped driver and a mesh run the eager loop."""
+    del pop_params, hyp      # every model option is captured
     return (torch.device(device).type == "cuda" and mesh is None
-            and part_sel is None and n_blocks > 0
-            and isinstance(pop_params, popm.ExpPopParams)
-            and not hyp.alpha_move_enabled and not hyp.mpox_enabled)
+            and part_sel is None and n_blocks > 0)
+
+
+def structure(tree):
+    """A pytree's structure: each node's type and static parts (a
+    skygrid's type), with None at the leaves."""
+    if hasattr(tree, "tree_flatten"):
+        children, aux = tree.tree_flatten()
+        return (type(tree).__name__, aux, structure(tuple(children)))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, tuple(structure(x) for x in tree))
+    return None
 
 
 def signature(inputs) -> tuple:
-    """Type, shape, dtype and device of a dispatch's inputs."""
-    return (tuple(type(x).__name__ for x in inputs),
+    """Structure, shape, dtype and device of a dispatch's inputs."""
+    return (structure(tuple(inputs)),
             tuple((tuple(x.shape), x.dtype, str(x.device))
                   for x in _leaves(inputs)))
 
@@ -123,9 +143,10 @@ class _Graph:
     """One boundary over ``bufs``: ``body(ts, evo, pop, tin, tout, pm)`` ->
     (ts, evo, pop, ledger, stats) and its copy-back, captured on
     ``stream`` (CUDA), else (``stream`` None) run as it is at each
-    replay."""
+    replay.  ``warm_up`` (None: none), called on the buffers' inputs, runs
+    once before, on ``stream``."""
 
-    def __init__(self, bufs: _Buffers, body, gen, stream):
+    def __init__(self, bufs: _Buffers, body, gen, stream, warm_up=None):
         self.bufs = bufs
         ts, evo, pop, tin, tout, pm = bufs.inputs
         carry = bufs.leaves[:len(_leaves((ts, evo, pop)))]
@@ -157,6 +178,8 @@ class _Graph:
         self.capture_ms = 0.0
         self.pool_bytes = 0
         if stream is None:
+            if warm_up is not None:
+                warm_up(*bufs.inputs)
             self.graph = None
             self._step = step
             return
@@ -171,6 +194,9 @@ class _Graph:
         # stream: after the replays already enqueued, and before the next
         main = torch.cuda.current_stream(dev)
         stream.wait_stream(main)
+        if warm_up is not None:
+            with torch.cuda.stream(stream):
+                warm_up(*bufs.inputs)
         with torch.cuda.stream(stream), _cuda.recording() as self.record:
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
@@ -210,13 +236,14 @@ class DispatchGraphs:
         self._stream = None
 
     def dispatch(self, body, inputs, gen: torch.Generator, statics: tuple,
-                 n_blocks: int, n_boundaries: int):
+                 n_blocks: int, n_boundaries: int, warm_up=None):
         """``n_boundaries`` replays of ``body``'s graph on ``inputs`` =
         (ts, evo, pop_params, tin, tout, pm) at ``n_blocks`` blocks, keyed
         by ``statics``, ``n_blocks`` and the inputs' signature; on CPU
-        tensors the body runs as it is, through the same buffers.  Returns
-        (ts, evo, pop_params, ledger, stats, fused) as the eager loop
-        does."""
+        tensors the body runs as it is, through the same buffers.
+        ``warm_up`` (optional) runs on the buffers' inputs before a
+        capture.  Returns (ts, evo, pop_params, ledger, stats, fused) as
+        the eager loop does."""
         sig = signature(inputs)
         bufs = self.buffers.get(sig)
         if bufs is None:
@@ -225,7 +252,8 @@ class DispatchGraphs:
         key = (statics, n_blocks, sig)
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = self._capture(bufs, body, gen)
+            graph = self.graphs[key] = self._capture(bufs, body, gen,
+                                                     warm_up)
             self.captures.append({"blocks": n_blocks, "ms": graph.capture_ms,
                                   "pool_bytes": graph.pool_bytes})
             self._evict()
@@ -237,13 +265,13 @@ class DispatchGraphs:
         self.replays += n_boundaries
         return self._hand_off(graph, bufs, inputs)
 
-    def _capture(self, bufs: _Buffers, body, gen) -> _Graph:
+    def _capture(self, bufs: _Buffers, body, gen, warm_up) -> _Graph:
         dev = bufs.acc.device
         if dev.type != "cuda":
-            return _Graph(bufs, body, gen, None)
+            return _Graph(bufs, body, gen, None, warm_up)
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
-        return _Graph(bufs, body, gen, self._stream)
+        return _Graph(bufs, body, gen, self._stream, warm_up)
 
     def _evict(self) -> None:
         while len(self.graphs) > MAX_GRAPHS:

@@ -13,10 +13,11 @@ augmented coalescent prior (vsc_device) factorises per part given the
 frozen fields.  Reassembly scatter-adds the part-local deltas at owned
 indices (padding routes to a trash slot).
 
-A dispatch of boundaries (``parts_multi_super_step``) runs on the blocking
-driver's main path as replays of one boundary's CUDA graph
+A dispatch of boundaries (``parts_multi_super_step``) of the blocking
+driver runs on CUDA as replays of one boundary's CUDA graph
 (``dispatch_graph.py``, the counterpart of the JAX package's jitted scan),
-elsewhere as an eager loop of the same boundary.
+on every model option; the overlapped driver's, a mesh's and the CPU's as
+an eager loop of the same boundary.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ from typing import NamedTuple
 import torch
 
 from ..evo import EvoParams
-from ..mcmc.kernel import run_global_moves
+from ..mcmc.kernel import run_global_moves, skygrid_hmc_warm_up
 from ..mcmc.moves import Caches
+from ..pop import SkygridPopParams
 from ..state import TreeState, fuse_for_host
 from . import block_cuda as bc
 from . import dispatch_graph as dg
@@ -299,9 +301,12 @@ def parts_multi_super_step(ts: TreeState, evo, pop_params,
     _boundary_body.
 
     Where ``dispatch_graph.graph_rule`` says so (the blocking driver's
-    main path on CUDA) the boundaries are replays of one boundary's CUDA
-    graph (dispatch_graph.py) from ``graphs``, the caller's cache (a
-    ``Run``'s own; None: a cache for this call alone), else this eager
+    dispatches on CUDA, whatever the population model and the moves: the
+    exponential model, the skygrid with its HMC, alpha/nu, mpox) the
+    boundaries are replays of one boundary's CUDA graph
+    (dispatch_graph.py) from ``graphs``, the caller's cache (a ``Run``'s
+    own; None: a cache for this call alone), else (the overlapped driver's
+    ``part_sel`` and globals-only dispatches, a mesh, the CPU) this eager
     loop; both give the same bits.  Neither reads anything back to the
     host (a mesh's all-reduce over gloo stages through it): the caller's
     first read of the move count waits for the dispatch
@@ -333,9 +338,13 @@ def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
                    param_moves: bool = True, nb_max: int = NB_MAX):
     """parts_multi_super_step's graph path through ``graphs`` (a
     ``dispatch_graph.DispatchGraphs``): n_boundaries replays of one
-    _boundary_body, keyed by the arguments the JAX jit takes as static,
-    the values the capture bakes in and the block count.  On CPU tensors the body runs as it is through the same buffers (the
-    tests' check of the plumbing)."""
+    _boundary_body, keyed by the arguments the JAX jit takes as static
+    (``hyp`` holds the alpha/nu and mpox switches), the values the capture
+    bakes in and the block count; the population model's type and a
+    skygrid's knot count and type are in the inputs' signature.  A
+    skygrid's capture is warmed up by its HMC's force alone
+    (``kernel.skygrid_hmc_warm_up``).  On CPU tensors the body runs as it
+    is through the same buffers (the tests' check of the plumbing)."""
     statics = (hyp, num_cells, nb_max, param_moves, float(t_max_tip),
                CELLS_PER_BLOCK)
 
@@ -343,5 +352,11 @@ def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
         return _boundary_body(ts, evo, pop_params, gen, tin, tout, pm,
                               n_blocks, t_max_tip, hyp, num_cells,
                               param_moves=param_moves, nb_max=nb_max)
+
+    warm_up = None
+    if param_moves and isinstance(pop_params, SkygridPopParams):
+        def warm_up(ts, evo, pop_params, tin, tout, pm):
+            skygrid_hmc_warm_up(ts, pop_params, t_max_tip, hyp, num_cells)
     return graphs.dispatch(body, (ts, evo, pop_params, tin, tout, pm), gen,
-                           statics, min(n_blocks, nb_max), n_boundaries)
+                           statics, min(n_blocks, nb_max), n_boundaries,
+                           warm_up=warm_up)

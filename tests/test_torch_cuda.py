@@ -1142,17 +1142,42 @@ def test_posterior_on_card_matches_jax_reference(device):
                                              null["summaries"])
 
 
+# each model option as Run arguments, with the kernels its boundary
+# launches
+GRAPH_OPTIONS = {
+    "exp": ({}, EXP_KERNELS),
+    "skygrid staircase": ({"pop_model": "skygrid"},
+                          ("hky_chain", "sweep_chain_skygrid")),
+    "skygrid log-linear": ({"pop_model": "skygrid", "log_linear": True},
+                           ("hky_chain", "sweep_chain_skygrid")),
+    "alpha/nu": ({"alpha_move_enabled": True}, EXP_KERNELS),
+    "mpox": ({"mpox_hack": True}, ("exp_pop_chain", "sweep_chain")),
+}
+
+
+@pytest.mark.parametrize("option", list(GRAPH_OPTIONS))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_graph_dispatch_equals_eager(device, dtype, monkeypatch):
+def test_graph_dispatch_equals_eager(device, dtype, option, monkeypatch):
     """The blocking driver through CUDA graphs (parallel/dispatch_graph.py)
     against the eager loop (parts_multi_super_step's private _eager) on 20
-    Ebola tips, two dispatches with bursts: the state, every parameter,
-    the ledger, the move count and the generator's state bit-equal, the
-    same launch counts, replays on the graph path only."""
+    Ebola tips, two dispatches with bursts, on each model option: the
+    state, every parameter, the ledger, the move count and the generator's
+    state bit-equal, the same launch counts, replays on the graph path
+    only."""
+    import dataclasses
     import functools
 
+    from delphy_tpu_torch import pop as popm
     from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.mcmc.global_moves import PriorConfig
     from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.state import _leaves
+    kw, kernels = GRAPH_OPTIONS[option]
+    kw = dict(kw)
+    if kw.pop("alpha_move_enabled", False):
+        kw["hyp"] = PriorConfig(alpha_move_enabled=True)
+    if kw.pop("log_linear", False):
+        kw["skygrid_type"] = popm.LOG_LINEAR
     orig = run_mod.parts_multi_super_step
     out = []
     for eager in (False, True):
@@ -1160,7 +1185,7 @@ def test_graph_dispatch_equals_eager(device, dtype, monkeypatch):
             monkeypatch.setattr(run_mod, "parts_multi_super_step",
                                 functools.partial(orig, _eager=True))
         run = run_mod.Run(ebola_tree(20), seed=5, num_cells=256,
-                          device=device, dtype=dtype)
+                          device=device, dtype=dtype, **kw)
         run.topology_burst_chunks = 2
         _cuda.reset_launch_counts()
         run.do_mcmc_steps(4 * run.local_moves_per_global_move)
@@ -1168,12 +1193,18 @@ def test_graph_dispatch_equals_eager(device, dtype, monkeypatch):
     (a, counts_a, replays_a), (b, counts_b, replays_b) = out
     assert replays_a > 0 and replays_b == 0
     assert counts_a == counts_b
-    assert all(counts_a[k + _cuda.suffix(dtype)] > 0 for k in EXP_KERNELS)
+    sfx = _cuda.suffix(dtype)
+    assert all(counts_a[k + sfx] > 0 for k in kernels)
+    assert sum(counts_a.values()) == sum(counts_a[k + sfx] for k in kernels)
     assert a.dispatch_count == b.dispatch_count >= 2
     assert a.burst_count == b.burst_count >= 1
+    assert type(a.pop) is type(b.pop)
+    if dataclasses.is_dataclass(a.pop):
+        assert a.pop.type == b.pop.type
     for x, y in ((a.ts, b.ts), (a.evo, b.evo), (a.pop, b.pop),
                  (a.ledger, b.ledger)):
-        assert all(torch.equal(p, q) for p, q in zip(x, y))
+        assert all(torch.equal(p, q) for p, q in zip(_leaves(x),
+                                                     _leaves(y)))
     assert a.local_moves_attempted == b.local_moves_attempted
     assert torch.equal(a.gen.get_state(), b.gen.get_state())
     a.check_derived_quantities(

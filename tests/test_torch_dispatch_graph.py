@@ -9,20 +9,27 @@ on the CPU, where no graph is captured:
   copy back, clone out) gives the eager loop's bits over 6 boundaries,
   through a burst's repacked tree;
 - the cache key: equal for a repacked tree of the same capacities, apart
-  for another block count, m_cap, mutation capacity or dtype; the least
-  recently used graph dropped beyond MAX_GRAPHS; every dispatch copies
-  all its inputs in;
+  for another block count, m_cap, mutation capacity, dtype or skygrid
+  type; the least recently used graph dropped beyond MAX_GRAPHS; every
+  dispatch copies all its inputs in;
+- the model options (skygrid of each type, alpha/nu, mpox): through the
+  same buffers, the eager loop's bits; the skygrid's autograd warm-up
+  draws nothing and writes nothing; no boundary reads anything back to
+  the host or copies from it;
 - the launch tally: a capture's record counts once per replay;
-- the rule: the main path's dispatch on CUDA goes to the graph, a skygrid,
-  alpha/nu, mpox, part-selected, mesh or globals-only one to the eager loop.
+- the rule: a dispatch on CUDA goes to the graph on every model option, a
+  part-selected, mesh, globals-only or CPU one to the eager loop.
 """
 
+import dataclasses
 import functools
 import threading
+import traceback
 
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -167,11 +174,22 @@ def _tree(seed=5, T=24, L=300):
                              rng=np.random.default_rng(seed))
 
 
-def _run(dtype=torch.float64):
+def _run(dtype=torch.float64, **kw):
     run = Run(_tree(), seed=7, num_cells=NUM_CELLS, device_partitions=4,
-              local_moves_per_global_move=200, device="cpu", dtype=dtype)
+              local_moves_per_global_move=200, device="cpu", dtype=dtype,
+              **kw)
     run.do_mcmc_steps(400)
     return run
+
+
+# the model options as Run arguments
+OPTIONS = {
+    "skygrid staircase": {"pop_model": "skygrid"},
+    "skygrid log-linear": {"pop_model": "skygrid",
+                           "skygrid_type": popm.LOG_LINEAR},
+    "alpha/nu": {"hyp": PriorConfig(alpha_move_enabled=True)},
+    "mpox": {"mpox_hack": True},
+}
 
 
 def _args(run, n_blocks=3):
@@ -260,6 +278,137 @@ def test_cache_key(monkeypatch):
     assert cache.dispatches == {3: 6, 4: 1}
 
 
+def test_cache_key_separates_skygrid_types():
+    """Two skygrid dispatches of the same shapes and another type make two
+    entries: the capture bakes the type in (``skygrid_log_N``'s code and
+    the sweep's build), and it lives in the pytree's static part, not in
+    a leaf."""
+    run = _run(**OPTIONS["skygrid staircase"])
+    log_linear = dataclasses.replace(run.pop, type=popm.LOG_LINEAR)
+    assert ([(x.shape, x.dtype) for x in _leaves(run.pop)]
+            == [(x.shape, x.dtype) for x in _leaves(log_linear)])
+    cache = dg.DispatchGraphs()
+    for pop in (run.pop, log_linear, run.pop):
+        sweep.graph_dispatch(cache, run.ts, run.evo, pop, run.gen, run.tin,
+                             run.tout, run.pm, 2, run.t_max_tip, run.hyp,
+                             run.num_cells, 1, nb_max=run._nb_cap())
+    assert len(cache.captures) == len(cache.graphs) == 2
+    assert cache.replays == 3
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_option_buffers_give_the_loops_bits(option, monkeypatch):
+    """Each model option through a cache's buffers, two dispatches of 2
+    boundaries (the second on a burst's repacked tree), against the eager
+    loop from the same generator state: state, ledger, stats, host bundle
+    and generator state bit for bit, one entry, and the HMC's warm-up run
+    once before the capture on a skygrid only."""
+    run = _run(**OPTIONS[option])
+    warm = []
+    orig = kernel.skygrid_hmc_warm_up
+    monkeypatch.setattr(sweep, "skygrid_hmc_warm_up",
+                        lambda *a: warm.append(orig(*a)))
+    start = run.gen.get_state()
+    rest = (run.gen, run.tin, run.tout, run.pm, 3, run.t_max_tip, run.hyp,
+            run.num_cells, 2)
+    kw = {"nb_max": run._nb_cap()}
+    a1 = sweep.parts_multi_super_step(run.ts, run.evo, run.pop, *rest, **kw)
+    a2 = sweep.parts_multi_super_step(_repack(run, a1[0]), a1[1], a1[2],
+                                      *rest, **kw)
+    end = run.gen.get_state()
+    assert not warm
+    run.gen.set_state(start)
+    cache = dg.DispatchGraphs()
+    b1 = sweep.graph_dispatch(cache, run.ts, run.evo, run.pop, *rest, **kw)
+    _assert_same(a1, b1)
+    b2 = sweep.graph_dispatch(cache, _repack(run, b1[0]), b1[1], b1[2],
+                              *rest, **kw)
+    _assert_same(a2, b2)
+    assert torch.equal(run.gen.get_state(), end)
+    assert int(b2[4]["local_moves_attempted"]) > 0
+    assert len(cache.captures) == 1 and cache.replays == 4
+    assert len(warm) == (1 if option.startswith("skygrid") else 0)
+
+
+@pytest.mark.parametrize("option", ["skygrid staircase",
+                                    "skygrid log-linear"])
+def test_skygrid_warm_up_draws_and_writes_nothing(option):
+    """The warm-up before a skygrid capture: the run's and the default
+    generator's states and every input as they were, and a force was
+    taken (autograd ran)."""
+    run = _run(**OPTIONS[option])
+    inputs = (run.ts, run.evo, run.pop, run.tin, run.tout, run.pm)
+    before = [x.clone() for x in _leaves(inputs)]
+    gen, default = run.gen.get_state(), torch.get_rng_state()
+    calls = []
+    orig = kernel.gm.grad_of
+
+    def grad_of(U, gamma):
+        calls.append(orig(U, gamma))
+        return calls[-1]
+    try:
+        kernel.gm.grad_of = grad_of
+        kernel.skygrid_hmc_warm_up(run.ts, run.pop, run.t_max_tip, run.hyp,
+                                   run.num_cells)
+    finally:
+        kernel.gm.grad_of = orig
+    assert torch.equal(run.gen.get_state(), gen)
+    assert torch.equal(torch.get_rng_state(), default)
+    assert all(torch.equal(x, y) for x, y in zip(_leaves(inputs), before))
+    assert len(calls) == 1 and calls[0].shape == run.pop.gamma.shape
+    assert bool(torch.all(torch.isfinite(calls[0])))
+    assert not calls[0].requires_grad
+
+
+class _HostReads(TorchDispatchMode):
+    """The operations that, on CUDA tensors, read back to the host
+    (``.item()`` and 0-d index tensors) or copy from it (a tensor made
+    from Python data), each with the line of the port that made it.
+    ``F.one_hot`` reads its input's range back on the CPU only (on the
+    card the range check is the device's): its reads are not kept."""
+
+    READS = {"_local_scalar_dense", "lift_fresh", "lift_fresh_copy"}
+
+    def __init__(self):
+        super().__init__()
+        self.where = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.__name__.split(".")[0] in self.READS:
+            stack = traceback.extract_stack()
+            if not any("one_hot(" in (f.line or "") for f in stack):
+                port = [f for f in stack if "delphy_tpu_torch" in f.filename]
+                self.where.append(f"{port[-1].filename}:{port[-1].lineno}"
+                                  if port else "?")
+        return func(*args, **(kwargs or {}))
+
+
+def test_host_reads_are_seen():
+    """The detector itself: a 0-d index tensor and a tensor made from a
+    list are reads; ``F.one_hot``'s CPU range check and ``torch.full``
+    are not."""
+    x = torch.arange(5.0)
+    with _HostReads() as seen:
+        x[torch.tensor(2)]
+        torch.nn.functional.one_hot(torch.arange(3), 4)
+        torch.full((), 2.5)
+    assert len(seen.where) == 2
+
+
+@pytest.mark.parametrize("option", ["main path"] + list(OPTIONS))
+def test_boundaries_read_nothing_back(option):
+    """One boundary of each model option (and of the main path) makes no
+    host read and no host copy: a capture would fail at the first (the
+    kernels' wrappers take their plain versions here, which make
+    none either)."""
+    run = _run(**OPTIONS.get(option, {}))
+    with _HostReads() as seen:
+        sweep._boundary_body(run.ts, run.evo, run.pop, run.gen, run.tin,
+                             run.tout, run.pm, 2, run.t_max_tip, run.hyp,
+                             run.num_cells, nb_max=run._nb_cap())
+    assert seen.where == []
+
+
 def test_cache_drops_the_least_recently_used(monkeypatch):
     """MAX_GRAPHS, read at each capture, bounds the graphs kept; a count
     above nb_max is nb_max's."""
@@ -324,9 +473,11 @@ def test_tally_counts_a_capture_once_per_replay():
 
 def _pop(kind):
     f = functools.partial(torch.tensor, dtype=torch.float64)
-    if kind == "skygrid":
-        return popm.SkygridPopParams(x=torch.arange(3.0), gamma=f([1.0] * 3),
-                                     type=popm.STAIRCASE, tau=f(1.0))
+    if kind.startswith("skygrid"):
+        return popm.SkygridPopParams(
+            x=torch.arange(3.0), gamma=f([1.0] * 3),
+            type=popm.LOG_LINEAR if kind.endswith("log-linear")
+            else popm.STAIRCASE, tau=f(1.0))
     return popm.ExpPopParams(t0=f(0.0), n0=f(1000.0), g=f(0.0),
                              min_pop=f(1.0))
 
@@ -334,9 +485,10 @@ def _pop(kind):
 RULE_CASES = {
     "main path": ({}, True),
     "on the CPU": ({"device": "cpu"}, False),
-    "skygrid": ({"pop": "skygrid"}, False),
-    "alpha/nu": ({"hyp": PriorConfig(alpha_move_enabled=True)}, False),
-    "mpox": ({"hyp": PriorConfig(mpox_enabled=True)}, False),
+    "skygrid": ({"pop": "skygrid"}, True),
+    "skygrid log-linear": ({"pop": "skygrid log-linear"}, True),
+    "alpha/nu": ({"hyp": PriorConfig(alpha_move_enabled=True)}, True),
+    "mpox": ({"hyp": PriorConfig(mpox_enabled=True)}, True),
     "part_sel": ({"part_sel": torch.arange(2)}, False),
     "mesh": ({"mesh": object()}, False),
     "globals only": ({"n_blocks": 0}, False),
