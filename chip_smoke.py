@@ -70,7 +70,8 @@ Phases, each of which raises (exit code != 0) on failure:
      NC=1152, MC=3200, C=400 (8 parts of a boundary of each model padded
      to those widths), timed as in phase 3; (c) a 10,000-tip tree through
      the blocking driver, then the overlapped driver (forced on with
-     DELPHY_TPU_OVERLAP=1; its gate is at ~60k tips): moves/s of each,
+     DELPHY_TPU_OVERLAP=1; its gate is at ~60k tips), both through CUDA
+     graphs (phase 16): moves/s of each,
      each cycle's stage times, the parts each L-dispatch swept, the host
      syncs in an L-dispatch's enqueue, the device's busy share over one
      traced cycle of each driver, the sweep kernel's build, shared bytes,
@@ -83,19 +84,24 @@ Phases, each of which raises (exit code != 0) on failure:
      (a) two ranks sharing the card over gloo on the main path's Run
      (seed=1, num_cells=400; two dispatches, each ending in a burst), each
      rank bit-equal (t, mut_t, generator state, ledger, counters) to the
-     same run in this process, its ledger at 1e-6 (with the ranks' replica
-     check), the tree's integrity, every kernel of the path launched and
-     each sweep launch covering P/D parts, and the reassembly all-reduce
-     timed at that shape; (b) the counterpart of the JAX package's
-     dryrun_multichip on the same two ranks: 512 tips x 1024 sites with
-     DELPHY_TPU_PART_CAP forcing the oversized-part splitter, at least 2
-     bursts, a repartition and an overlapped mesh cycle, the ledger at 1e-5
-     and integrity; (c) where at least two cards are visible, one rank per
-     card over NCCL (D = min(4, cards)): (a)'s bit-equality, then the
-     10,000-tip tree of phase 9c through the blocking driver on one card in
-     this process and on D cards, moves/s of each, and the all-reduce's ms
-     per boundary and bytes (8 (N + M + 3P)); on one card, (c) says in a
-     line that it did not run.  The ranks' records go to
+     same run in this process (through CUDA graphs), the ranks through the
+     eager loop (no graph replay: a staged mesh's all-reduce goes through
+     the host, and the line says so), its ledger at 1e-6 (with the ranks'
+     replica check), the tree's integrity, every kernel of the path
+     launched and each sweep launch covering P/D parts, and the
+     reassembly all-reduce timed at that shape; (b) the counterpart of
+     the JAX package's dryrun_multichip on the same two ranks: 512 tips x
+     1024 sites with DELPHY_TPU_PART_CAP forcing the oversized-part
+     splitter, at least 2 bursts, a repartition and an overlapped mesh
+     cycle, the ledger at 1e-5 and integrity; (c) where at least two
+     cards are visible, one rank per card over NCCL (D = min(4, cards)),
+     every dispatch through CUDA graphs with the all-reduce inside (graph
+     replays > 0 on every rank): (a)'s bit-equality with the one-process
+     graph run, then the 10,000-tip tree of phase 9c through the blocking
+     driver on one card in this process and on D cards, moves/s of each,
+     and the all-reduce's ms per boundary, bytes (8 (N + M + 3P)) and
+     share of the wall; on one card, (c) says in a line that it did not
+     run.  The ranks' records go to
      chiprun_out/mesh.json;
  11. the unpartitioned step (mcmc/kernel.py super_step and
      multi_super_step, mcmc/moves.py): (a) the JAX package's
@@ -180,9 +186,10 @@ Phases, each of which raises (exit code != 0) on failure:
      samples, ESS and ESS per hour of the log-posterior, mu and the root
      time, their MCSE and moves/s, the float32 kernels launched in each
      window.  Record in chiprun_out/posterior.json;
- 16. the compiled dispatch (parallel/dispatch_graph.py: the blocking
-     driver's boundaries as replays of one boundary's CUDA graph, on
-     every model option, which phases 4-9c, 12(b) and 15 now run;
+ 16. the compiled dispatch (parallel/dispatch_graph.py: every dispatch of
+     both drivers as replays of one boundary's CUDA graph, on every model
+     option and on a mesh over NCCL, which phases 4-10, 12(b) and 15 now
+     run; a mesh of ranks sharing one card stays eager;
      check_counts reads the launch counts that graph replays add to and
      prints the replays beside them):
      (a) phase 4's recipe from one tree and seed through graphs and
@@ -203,7 +210,17 @@ Phases, each of which raises (exit code != 0) on failure:
      one traced call of each (busy share), the runs bit-equal, the ledger
      at 1e-6, the dispatches by block count, the graphs held and their
      pools' bytes (graph_large(device, card, tips, warm, pairs) for other
-     sizes).
+     sizes); (d) the same tree through the overlapped driver
+     (DELPHY_TPU_OVERLAP=1) on a graph Run and an eager Run of one seed,
+     twelve cycles each in turns in float64 (L's block count settles),
+     four in float32: the runs
+     bit-equal (state, ledger, move count, both generators, each cycle's
+     counts and launch counts), G's and L's replays, the ledger and
+     integrity, each cycle's stage times, L block count and captures (ms,
+     blocks, pool bytes); in float64 the G and L dispatches alone on each
+     path (ms a boundary, no host sync inside through graphs, busy share,
+     launch calls and device operations a boundary) and one traced cycle
+     of each (graph_overlap(device, card, tips, cycles) for other sizes).
      Record in chiprun_out/dispatch_graph.json.
 Phases 1-11, 13 and 14 run in float64 whatever DELPHY_TPU_F32 says (the
 script clears it and sets it only for phase 12, as bench.py sets it; phase
@@ -1841,8 +1858,13 @@ def large_tree_path(device, card: str, n_tips: int, gate: str,
         cyc_recs, tot_moves, tot_s = [], 0, 0.0
         for _ in range(cycles):
             _cuda.reset_launch_counts()
+            caps = len(run._graphs.captures)
             moves, dt = drive(run, B * lm)
-            cyc = dict(run.last_cycle, wall_s=dt, moves=moves)
+            new = run._graphs.captures[caps:]
+            cyc = dict(run.last_cycle, wall_s=dt, moves=moves,
+                       graph_replays=_cuda.graph_replays,
+                       captures=[(c["blocks"], c["ms"], c["pool_bytes"])
+                                 for c in new])
             counts, blocks = dict(_cuda.launch_counts), dict(
                 _cuda.launch_blocks)
             sweep = [k for k in counts if k.startswith("sweep_chain")
@@ -1850,7 +1872,8 @@ def large_tree_path(device, card: str, n_tips: int, gate: str,
             if (len(sweep) != 1 or counts[sweep[0]] != cyc["boundaries"]
                     or blocks[sweep[0]] != cyc["boundaries"]
                     * cyc["selection_width"]
-                    or counts["hky_chain"] != 1):
+                    or counts["hky_chain"] != 1
+                    or cyc["graph_replays"] != cyc["boundaries"] + 1):
                 raise AssertionError(f"overlapped cycle launched {counts}, "
                                      f"blocks {blocks}, cycle {cyc}")
             cyc.update(sweep_entry=sweep[0], sweep_parts=blocks[sweep[0]])
@@ -1872,11 +1895,7 @@ def large_tree_path(device, card: str, n_tips: int, gate: str,
             f"{out['torch_threads']}, cpu_count {out['cpu_count']})")
 
         # an L-dispatch's enqueue makes no host synchronisation
-        n_real = len(run._last_cuts) + 1
-        W = run.pm.node_map.shape[0] // 2
-        sel = torch.full((W,), n_real, dtype=torch.long, device=device)
-        sel[:min(W, n_real - 1)] = torch.arange(min(W, n_real - 1),
-                                                device=device)
+        sel = overlap_selection(run, device)
         sync(device)
         out["syncs_in_L_enqueue"] = syncs_in(lambda: parts_multi_super_step(
             run.ts, run.evo, run.pop, torch.Generator(device=device),
@@ -1978,7 +1997,8 @@ def ebola_mesh_case(mesh, device, out_dir: str, tag: str) -> dict:
     this process: Run(seed=1, num_cells=400) on the Ebola file, two calls
     of two boundaries each ending in a burst, the ledger at 1e-6 and the
     tree's integrity; t, mut_t and the generator state saved under
-    ``out_dir``."""
+    ``out_dir``; the graph replays and captures of its dispatches (none
+    where ``dispatch_graph.graph_rule`` sends them to the eager loop)."""
     from delphy_tpu_torch.parallel import _cuda
     from delphy_tpu_torch.run import Run
 
@@ -2009,7 +2029,8 @@ def ebola_mesh_case(mesh, device, out_dir: str, tag: str) -> dict:
             "moves": run.local_moves_attempted,
             "dispatches": run.dispatch_count, "bursts": run.burst_count,
             "parts": P, "sweep_parts_per_launch": per_launch,
-            "launch_counts": counts,
+            "launch_counts": counts, "graph_replays": _cuda.graph_replays,
+            "graph_captures": [c["blocks"] for c in run._graphs.captures],
             "N": run.ts.num_nodes, "M": int(run.ts.mut_t.shape[0])}
 
 
@@ -2069,8 +2090,10 @@ def dryrun_mesh_case(mesh, part_cap: int) -> dict:
 def large_mesh_case(mesh, device, cycles: int = 3) -> dict:
     """Phase 10(c): the 10,000-tip tree of phase 9c through the blocking
     driver (its gate is off at this size; a warm-up cycle, then ``cycles``
-    timed), under ``mesh`` or, with None, on one card; moves/s, the ledger
-    at 1e-6 and integrity."""
+    timed), under ``mesh`` or, with None, on one card; moves/s, the
+    boundaries and graph replays of the timed calls, the ledger at 1e-6
+    and integrity."""
+    from delphy_tpu_torch.parallel import _cuda
     from delphy_tpu_torch.run import Run
 
     run = Run(sim_tree(LARGE_TIPS, cache=True), seed=SEED,
@@ -2078,6 +2101,7 @@ def large_mesh_case(mesh, device, cycles: int = 3) -> dict:
     step = run.topology_burst_chunks * run.local_moves_per_global_move
     run.do_mcmc_steps(step)
     sync(run.device)
+    _cuda.reset_launch_counts()
     base = run.local_moves_attempted
     t0 = time.perf_counter()
     run.do_mcmc_steps(cycles * step)
@@ -2087,6 +2111,9 @@ def large_mesh_case(mesh, device, cycles: int = 3) -> dict:
     run.check_derived_quantities(1e-6)
     run.tree().check_integrity()
     return {"moves": moves, "s": dt, "moves_per_s": moves / dt,
+            # hky_chain runs once a boundary
+            "boundaries": _cuda.launch_counts["hky_chain"],
+            "graph_replays": _cuda.graph_replays,
             "bursts": run.burst_count, "parts": int(run.pm.node_map.shape[0]),
             "N": run.ts.num_nodes, "M": int(run.ts.mut_t.shape[0]),
             "log_posterior": run.log_posterior}
@@ -2099,9 +2126,11 @@ def mesh_rank(out_dir: str, device: str, part_cap: int, large: bool) -> int:
     from delphy_tpu_torch.parallel import distributed
     distributed.initialize_from_env()
     mesh = distributed.global_part_mesh(device=device)
+    from delphy_tpu_torch.parallel.dispatch_graph import graph_rule
     res = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
            "staged": mesh.staged,
-           "backend": str(torch.distributed.get_backend())}
+           "backend": str(torch.distributed.get_backend()),
+           "graph_rule": graph_rule(mesh.device, None, None, 1, None, mesh)}
     res["ebola"] = e = ebola_mesh_case(mesh, mesh.device, out_dir,
                                        f"ebola_{mesh.size}_r{mesh.rank}")
     n = e["N"] + e["M"] + 3 * e["parts"]
@@ -2149,7 +2178,11 @@ def mesh_paths(device, card: str) -> dict:
     out = {"card": card}
     with tempfile.TemporaryDirectory() as out_dir:
         ref = ebola_mesh_case(None, device, out_dir, "ebola_1")
-        log(f"phase 10: one process: {json.dumps(ref)}")
+        if ref["graph_replays"] <= 0:
+            raise AssertionError("phase 10: the one-process run made no "
+                                 "graph replay")
+        log(f"phase 10: one process, through CUDA graphs: "
+            f"{json.dumps(ref)}")
         D = 2
         # the cap dryrun_multichip sets on 8 devices: at D=2 it is far
         # below the mean part (~511 nodes), so the splitter always engages
@@ -2159,6 +2192,12 @@ def mesh_paths(device, card: str) -> dict:
         for r in ranks:
             same_run(f"ebola_{D}_r{r['rank']}", ref, r["ebola"], out_dir,
                      "ebola_1")
+            if not r["staged"] or r["graph_rule"] or \
+                    r["ebola"]["graph_replays"]:
+                raise AssertionError(f"phase 10(a) rank {r['rank']}: "
+                                     f"staged {r['staged']}, graph rule "
+                                     f"{r['graph_rule']}, replays "
+                                     f"{r['ebola']['graph_replays']}")
         out["shared_card"] = ranks
         log(f"phase 10(a): {D} ranks sharing {device} ({ranks[0]['backend']}"
             f", staged {ranks[0]['staged']}) bit-equal to one process: "
@@ -2166,6 +2205,11 @@ def mesh_paths(device, card: str) -> dict:
             f"{ranks[0]['ebola']['sweep_parts_per_launch']} of "
             f"{ref['parts']} parts; all-reduce "
             f"{ranks[0]['allreduce_ebola']} ({card})")
+        log(f"phase 10(a): the {D} ranks ran the eager loop (0 graph "
+            f"replays), as dispatch_graph.graph_rule says for a staged "
+            f"mesh: ranks sharing one card reduce over gloo through the "
+            f"host (PartMesh.all_reduce_sum copies the buffer to the host "
+            f"and back), which a CUDA graph capture cannot hold")
         log(f"phase 10(b): dryrun on {D} ranks: "
             f"{json.dumps(ranks[0]['dryrun'])}")
         cards = torch.cuda.device_count()
@@ -2179,15 +2223,32 @@ def mesh_paths(device, card: str) -> dict:
             for r in ranks:
                 same_run(f"ebola_{D}_r{r['rank']}", ref, r["ebola"], out_dir,
                          "ebola_1")
-            out["cards"] = {"D": D, "one_card": one, "ranks": ranks}
+                if r["staged"] or not r["graph_rule"] or min(
+                        r["ebola"]["graph_replays"],
+                        r["large"]["graph_replays"]) <= 0:
+                    raise AssertionError(
+                        f"phase 10(c) rank {r['rank']}: staged "
+                        f"{r['staged']}, graph rule {r['graph_rule']}, "
+                        f"replays {r['ebola']['graph_replays']} (Ebola), "
+                        f"{r['large']['graph_replays']} (10k)")
             g = ranks[0]
-            log(f"phase 10(c): {D} ranks on {D} cards ({g['backend']}) "
-                f"bit-equal to one process on Ebola; 10k tips blocking: one "
-                f"card {one['moves_per_s']:.1f} moves/s, {D} cards "
+            share = (g["allreduce_large"]["ms"] * g["large"]["boundaries"]
+                     / (g["large"]["s"] * 1e3))
+            out["cards"] = {"D": D, "one_card": one, "ranks": ranks,
+                            "allreduce_share_of_wall": share}
+            log(f"phase 10(c): {D} ranks on {D} cards ({g['backend']}), "
+                f"every dispatch through CUDA graphs with the all-reduce "
+                f"captured ({g['ebola']['graph_replays']} replays on "
+                f"Ebola, {g['large']['graph_replays']} at 10k tips), "
+                f"bit-equal to the one-process graph run on Ebola; 10k "
+                f"tips blocking: one card {one['moves_per_s']:.1f} moves/s "
+                f"({one['graph_replays']} replays), {D} cards "
                 f"{g['large']['moves_per_s']:.1f} moves/s; all-reduce "
                 f"{g['allreduce_large']['ms']:.4f} ms per boundary, "
-                f"{g['allreduce_large']['bytes']} bytes (Ebola: "
-                f"{g['allreduce_ebola']['ms']:.4f} ms, "
+                f"{g['allreduce_large']['bytes']} bytes, "
+                f"{g['large']['boundaries']} boundaries in "
+                f"{g['large']['s']:.3f} s: {100 * share:.2f}% of the wall "
+                f"(Ebola: {g['allreduce_ebola']['ms']:.4f} ms, "
                 f"{g['allreduce_ebola']['bytes']} bytes; {card})")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "mesh.json"), "w") as f:
@@ -3459,6 +3520,11 @@ GRAPH_PAIRS = 3          # (b): graph and eager in turns, this many pairs
 GRAPH_BOUNDARIES = 24    # (b): boundaries a reading
 GRAPH_LARGE_WARM = 6     # (c): warm-up calls of a cycle's boundaries
 GRAPH_LARGE_PAIRS = 3    # (c): then graph and eager calls in turns
+# (d): overlapped cycles of each Run, in turns: in float64 enough for L's
+# block count to settle (it climbs 51, 60, 67, 75 over the first four
+# cycles at 10,000 tips), in float32 four
+OVERLAP_CYCLES = 12
+OVERLAP_CYCLES_F32 = 4
 
 
 def graph_summary(run) -> dict:
@@ -3727,6 +3793,201 @@ def graph_large(device, card: str, tips: int = LARGE_TIPS,
     return out
 
 
+def overlap_selection(run, device) -> torch.Tensor:
+    """A selection as the overlapped driver makes it (the first parts, pad
+    rows after them where the part axis has them)."""
+    W = run.pm.node_map.shape[0] // 2
+    n_real = len(run._last_cuts) + 1
+    n_dev = min(W, max(1, n_real - 1))
+    sel = torch.full((W,), n_real, dtype=torch.long, device=device)
+    sel[:n_dev] = torch.arange(n_dev, device=device)
+    return sel
+
+
+def overlap_dispatch_readings(run, device, path: str, B: int, nb: int,
+                              what: str) -> dict:
+    """The overlapped driver's G (one globals-only boundary) and L (``B``
+    boundaries of ``nb`` blocks over half the parts) dispatched alone on
+    ``run``'s state, through its graphs or the eager loop, each after a
+    warm-up call (a capture where the last merge changed a shape): ms a
+    boundary (enqueue, wall), host syncs inside the dispatch, and under
+    torch.profiler the busy share, launch calls and device operations a
+    boundary; through graphs, no sync and no capture after the warm-up."""
+    from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
+    sel = overlap_selection(run, device)
+    kw = {"_eager": True} if path == "eager" else {"graphs": run._graphs}
+
+    def G():
+        return parts_multi_super_step(
+            run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.pm, 0,
+            run.t_max_tip, run.hyp, run.num_cells, 1, param_moves=True, **kw)
+
+    def L():
+        return parts_multi_super_step(
+            run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.pm,
+            nb, run.t_max_tip, run.hyp, run.num_cells, B, param_moves=False,
+            part_sel=sel, nb_max=run._nb_cap(overlapped=True), **kw)
+    res = {}
+    for name, fn, n in (("G", G, 1), ("L", L, B)):
+        # a warm-up: the cycle's merge may have grown a capacity, and a
+        # new shape is a new key
+        fn()
+        sync(device)
+        caps = len(run._graphs.captures)
+        t0 = time.perf_counter()
+        fn()
+        enq = time.perf_counter() - t0
+        sync(device)
+        wall = time.perf_counter() - t0
+        syncs = syncs_in(fn)
+        sync(device)
+        tr = busy_share(fn, f"{what} {path} {name}, {n} boundaries")
+        res[name] = {"boundaries": n, "enqueue_ms_per_boundary":
+                     enq * 1e3 / n, "wall_ms_per_boundary": wall * 1e3 / n,
+                     "syncs_in_dispatch": syncs,
+                     "busy_share": tr["busy_share"],
+                     "launch_calls_per_boundary": tr["launch_calls"] / n,
+                     "device_ops_per_boundary": tr["device_events"] / n}
+        if path == "graph" and (syncs or len(run._graphs.captures) != caps):
+            raise AssertionError(f"phase {what} {name}: host syncs {syncs}, "
+                                 f"captures {run._graphs.captures[caps:]} "
+                                 f"at a key captured by the warm-up")
+    return res
+
+
+def graph_overlap(device, card: str, tips: int = LARGE_TIPS,
+                  cycles: int = OVERLAP_CYCLES,
+                  cycles_f32: int = OVERLAP_CYCLES_F32,
+                  dtypes=(torch.float64, F32)) -> dict:
+    """16(d): phase 9c's ``tips``-tip tree through the overlapped driver
+    (DELPHY_TPU_OVERLAP=1) on two Runs of one seed, one through graphs and
+    one through the eager loop, ``cycles`` cycles each in turns in float64
+    and ``cycles_f32`` in float32 (``dtypes``: the precisions run): each
+    cycle's stage times, L block count, launch counts, replays and
+    captures (count, ms, blocks, pool bytes); the runs bit-equal (state,
+    ledger, move count, both generators, the cycles' counts), the same
+    launch counts, replays on the graph path only, the ledger (float64
+    1e-6, float32 the scaled bench bound) and integrity; in float64 the G
+    and L dispatches alone on each path (overlap_dispatch_readings) and
+    one traced cycle of each."""
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import _cuda
+    tree = sim_tree(tips, cache=True)
+    prev = os.environ.get("DELPHY_TPU_OVERLAP")
+    os.environ["DELPHY_TPU_OVERLAP"] = "1"
+    out = {"tips": tips}
+    counts_keys = ("boundaries", "n_blocks", "parts_swept",
+                   "selection_width", "parts_real", "burst_moves",
+                   "local_moves")
+    try:
+        for dtype in dtypes:
+            tag = "f64" if dtype == torch.float64 else "f32"
+            runs, recs = {}, {"graph": [], "eager": []}
+            for path in ("graph", "eager"):
+                with dispatch_path(path == "eager"):
+                    runs[path] = run_mod.Run(tree, seed=SEED,
+                                             num_cells=NUM_CELLS,
+                                             device=device, dtype=dtype)
+                if not runs[path]._overlap_active():
+                    raise AssertionError("phase 16(d): overlap is off")
+            lm = runs["graph"].local_moves_per_global_move
+            B = max(1, min(runs["graph"].topology_burst_chunks,
+                           run_mod.RESTENCIL_INTERVAL,
+                           run_mod.OVERLAP_DISPATCH_MOVES // lm))
+            n = cycles if dtype == torch.float64 else cycles_f32
+            for path in ("graph", "eager", "eager", "graph") * (n // 2):
+                run = runs[path]
+                caps = len(run._graphs.captures)
+                with dispatch_path(path == "eager"):
+                    _cuda.reset_launch_counts()
+                    sync(device)
+                    t0 = time.perf_counter()
+                    run.do_mcmc_steps(B * lm)
+                    sync(device)
+                    dt = time.perf_counter() - t0
+                new = run._graphs.captures[caps:]
+                recs[path].append(dict(
+                    run.last_cycle, wall_s=dt,
+                    moves_per_s=(run.last_cycle["local_moves"]
+                                 + run.last_cycle["burst_moves"]) / dt,
+                    launch_counts={k: v for k, v in
+                                   _cuda.launch_counts.items() if v},
+                    graph_replays=_cuda.graph_replays,
+                    captures=len(new),
+                    capture_ms=sum(c["ms"] for c in new),
+                    capture_blocks=[c["blocks"] for c in new],
+                    capture_pool_bytes=[c["pool_bytes"] for c in new]))
+                c = recs[path][-1]
+                log(f"16(d) {tag} {path} cycle: {c['wall_s']:.3f} s, L "
+                    f"blocks {c['n_blocks']}, captures {c['capture_blocks']}"
+                    f" in {c['capture_ms']:.1f} ms")
+            g_run, e_run = runs["graph"], runs["eager"]
+            a, b = run_leaves(g_run), run_leaves(e_run)
+            differ = [k for k in a if not torch.equal(a[k], b[k])]
+            if g_run.host_rng.bit_generator.state != \
+                    e_run.host_rng.bit_generator.state:
+                differ.append("host_rng")
+            for i, (cg, ce) in enumerate(zip(recs["graph"],
+                                             recs["eager"])):
+                if [cg[k] for k in counts_keys + ("launch_counts",)] != \
+                        [ce[k] for k in counts_keys + ("launch_counts",)]:
+                    differ.append(f"cycle {i}")
+                if cg["graph_replays"] != cg["boundaries"] + 1 or \
+                        ce["graph_replays"] != 0:
+                    differ.append(f"cycle {i} replays")
+            if differ:
+                raise AssertionError(f"phase 16(d) {tag}: graph and eager "
+                                     f"differ in {differ}")
+            tol = 1e-6 if dtype == torch.float64 else f32_tol(
+                g_run.ledger.log_G)
+            for run in (g_run, e_run):
+                run.check_derived_quantities(tol)
+                run.tree().check_integrity()
+            rec = {"boundaries_per_cycle": B, "bit_equal": sorted(a),
+                   "ledger_tol": tol, "step": g_run.step,
+                   "log_post": g_run.log_posterior,
+                   "graphs": graph_summary(g_run), **recs}
+            if dtype == torch.float64:
+                nb = recs["graph"][-1]["n_blocks"]
+                for path, run in runs.items():
+                    rec[f"{path}_dispatches"] = overlap_dispatch_readings(
+                        run, device, path, B, nb, "16(d)")
+                    with dispatch_path(path == "eager"):
+                        rec[f"{path}_traced_cycle"] = busy_share(
+                            lambda: run.do_mcmc_steps(B * lm),
+                            f"16(d) {tips:,} tips, {path}, one overlapped "
+                            f"cycle")
+                    log(f"phase 16(d) {tag} {path}: G and L alone "
+                        f"{json.dumps(rec[f'{path}_dispatches'])} ({card})")
+            out[tag] = rec
+            for path in ("graph", "eager"):
+                log(f"phase 16(d) {tips:,} tips overlapped {tag} {path}: "
+                    f"L blocks {[c['n_blocks'] for c in recs[path]]}, "
+                    f"wall s {[c['wall_s'] for c in recs[path]]}, enqueue "
+                    f"G+L s {[c['enqueue_GL_s'] for c in recs[path]]}, "
+                    f"wait G {[c['wait_G_s'] for c in recs[path]]}, burst "
+                    f"{[c['burst_s'] for c in recs[path]]}, join L "
+                    f"{[c['join_L_s'] for c in recs[path]]}, merge "
+                    f"{[c['merge_s'] for c in recs[path]]}, captures "
+                    f"{[c['captures'] for c in recs[path]]} "
+                    f"({[c['capture_ms'] for c in recs[path]]} ms, blocks "
+                    f"{[c['capture_blocks'] for c in recs[path]]}, pools "
+                    f"{[c['capture_pool_bytes'] for c in recs[path]]}) "
+                    f"({card})")
+            log(f"phase 16(d) {tag}: graph = eager bit for bit after "
+                f"{n} overlapped cycles each ({len(a)} tensors, both "
+                f"generators, each cycle's counts and launches) at step "
+                f"{g_run.step}, log_post {g_run.log_posterior:.4f}; "
+                f"graphs {json.dumps(rec['graphs'])}")
+            del runs, g_run, e_run, run
+    finally:
+        if prev is None:
+            os.environ.pop("DELPHY_TPU_OVERLAP", None)
+        else:
+            os.environ["DELPHY_TPU_OVERLAP"] = prev
+    return out
+
+
 def write_dispatch_graph(out: dict) -> None:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "dispatch_graph.json"),
@@ -3743,7 +4004,8 @@ def dispatch_graph_phase(device, card: str, options: dict) -> dict:
     out = {"card": card, "torch": torch.__version__, "options": options,
            "a": graph_against_eager(device, card),
            "b": graph_profile(device, card),
-           "c": graph_large(device, card)}
+           "c": graph_large(device, card),
+           "d": graph_overlap(device, card)}
     out["seconds"] = time.perf_counter() - t0
     summary = {
         "ms_per_boundary": {p: [r["wall_ms_per_boundary"] for r in rs]
@@ -3766,7 +4028,18 @@ def dispatch_graph_phase(device, card: str, options: dict) -> dict:
             c["captures"] for c in out["c"]["graph"]["warm"]
             + out["c"]["graph"]["calls"]],
         "tips_10k_graph_pool_bytes_held": out["c"]["graph"]["graphs"][
-            "pool_bytes_held"]}
+            "pool_bytes_held"],
+        "overlapped_10k": {
+            p: {"wall_s": [c["wall_s"] for c in out["d"]["f64"][p]],
+                "enqueue_GL_s": [c["enqueue_GL_s"]
+                                 for c in out["d"]["f64"][p]],
+                "L_blocks": [c["n_blocks"] for c in out["d"]["f64"][p]],
+                "captures": [c["captures"] for c in out["d"]["f64"][p]],
+                "L_launch_calls_per_boundary": out["d"]["f64"][
+                    f"{p}_dispatches"]["L"]["launch_calls_per_boundary"],
+                "busy_share_cycle": out["d"]["f64"][f"{p}_traced_cycle"][
+                    "busy_share"]}
+            for p in ("graph", "eager")}}
     out["summary"] = summary
     log(f"phase 16: {json.dumps(summary)} in {out['seconds']:.1f} s "
         f"({card})")

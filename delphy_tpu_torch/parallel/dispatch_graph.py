@@ -1,56 +1,72 @@
-"""The compiled dispatch: one boundary of the blocking driver captured as a
-CUDA graph and replayed once per boundary (port-only, like ``convert.py``
-and the ``*_cuda.py`` wrappers).
+"""The compiled dispatch: one boundary of a dispatch captured as a CUDA
+graph and replayed once per boundary (port-only, like ``convert.py`` and
+the ``*_cuda.py`` wrappers).
 
 The JAX package runs a dispatch as one program
-(``delphy_tpu/parallel/sweep.py:594-628``): a ``jax.jit`` of a ``lax.scan``
-of ``_boundary_body`` over the boundaries, compiled again only when a
-static argument or an array shape changes.  Its counterpart here:
+(``delphy_tpu/parallel/sweep.py:594-650``): a ``jax.jit`` of a ``lax.scan``
+of ``_boundary_body`` over the boundaries, with ``mesh``, ``part_sel`` and
+``param_moves`` among its arguments, compiled again only when a static
+argument or an array shape changes.  Its counterpart here:
 
 - static buffers: every tensor the boundary reads (``ts``, ``evo``,
-  ``pop_params``, ``tin``, ``tout``, ``pm``) gets a fixed address, and the
-  dispatch's move count an accumulator beside them.  Every dispatch copies
-  all its inputs in, so no write to an input can go unseen;
+  ``pop_params``, ``tin``, ``tout``, ``pm`` and, for the overlapped
+  driver's L boundaries, the part selection ``part_sel``) gets a fixed
+  address, and the dispatch's move count an accumulator beside them.
+  Every dispatch copies all its inputs in, so no write to an input can go
+  unseen, and a new selection of the same width replays the same graph;
 - the capture: one boundary, then in-graph copies of the state it wrote
   back into its buffers and its move count added to the accumulator, so a
   replay is one boundary and n replays are the scan;
 - the cache key: what the jit recompiles on (``hyp``, ``num_cells``,
-  ``nb_max``, ``param_moves``), the values the capture bakes in
-  (``t_max_tip``, the cells per colour block, and the sweep's blocks,
-  whose uniforms' shape depends on them: drawing at ``nb_max`` instead
-  would change the stream), the inputs' pytree structure with its static
-  parts (a skygrid's type, which picks the code of ``skygrid_log_N`` and
-  of the sweep's build), and the dtype, device and shape of every input.
-  A burst or a restencil that keeps every shape replays the same graphs;
-  one that changes a shape captures again;
+  ``nb_max``, ``param_moves``, a mesh's size and this rank), the values
+  the capture bakes in (``t_max_tip``, the cells per colour block, and the
+  sweep's blocks, whose uniforms' shape depends on them: drawing at
+  ``nb_max`` instead would change the stream), the inputs' pytree
+  structure with its static parts (a skygrid's type, which picks the code
+  of ``skygrid_log_N`` and of the sweep's build), and the dtype, device
+  and shape of every input (a selection's width among them).  A burst or
+  a restencil that keeps every shape replays the same graphs; one that
+  changes a shape captures again;
 - the bound: a run's block count climbs over its first dispatches, as
-  ``Run._absorb``'s rate estimate converges, and then stays on two or
-  three values, so ``MAX_GRAPHS`` graphs, the least recently used
-  dropped first, hold every count a run keeps using.  Each graph has its
-  own memory pool, released with it;
+  ``Run._absorb``'s rate estimate converges (the overlapped driver's L
+  count follows its own 0.7/0.3 average of the same rate), and then stays
+  on two or three values, so ``MAX_GRAPHS`` graphs, the least recently
+  used dropped first, hold every count a run keeps using beside its
+  globals-only G graph.  Each graph has its own memory pool, released
+  with it;
 - the run's generator is registered with each graph: a replay draws from
   the generator's offset of the moment and advances it by the capture's
   draws, as the eager boundary does;
-- the warm-up: a skygrid boundary takes its HMC's forces from autograd,
+- the warm-up, run on the capture stream just before a capture: a skygrid
+  boundary with parameter moves takes its HMC's forces from autograd,
   whose backward runs on the autograd engine's device thread on the
   stream of its forward ops, here the capture stream.  PyTorch asks for
-  autograd to have run on that stream before a capture: a dispatch's
-  ``warm_up`` (the force on the buffers' gamma, which draws nothing and
-  writes nothing back) runs there just before each capture;
+  autograd to have run on that stream before a capture, so the force on
+  the buffers' gamma (which draws nothing and writes nothing back) runs
+  first.  A mesh boundary's all-reduce goes over NCCL inside the graph,
+  whose communicator must exist before the capture: an eager all-reduce
+  of the boundary's buffer size runs first, on every rank at the same
+  dispatch (dispatch sizes follow a rule, so the ranks capture alike);
 - the hand-off: at the dispatch's end the state the graph writes, the last
   boundary's ledger and stats and the move count are cloned out (one
   concatenation per dtype), and the host bundle (``fuse_for_host``) is
   made from them, as the JAX program returns it.  The run's state never
-  aliases memory that a later replay overwrites.
+  aliases memory that a later replay overwrites.  Every step of a
+  dispatch (copy-in, replays, hand-off) runs on the current stream, so a
+  copy the caller starts after it (``state.fetch_later``) follows it.
 
-``graph_rule`` says which dispatches run this way: the blocking driver's,
-on every model option (the exponential model, the skygrid of either type,
-alpha/nu, mpox), as the JAX program compiles each option.  The overlapped
-driver (its part-selected and globals-only dispatches), a mesh and the
-CPU run the eager loop of ``sweep.parts_multi_super_step``.  A capture
-that fails raises.  Captures run in thread-local mode on a side stream of
-the cache's own, so the engine server's other run can work on its thread
-meanwhile.
+``graph_rule`` says which dispatches run this way: on CUDA, every one of
+both drivers, on every model option (the exponential model, the skygrid
+of either type, alpha/nu, mpox): the blocking driver's, the overlapped
+driver's globals-only G (``n_blocks`` 0: the global moves alone) and
+part-selected L boundaries, and a mesh rank's whose all-reduce stays on
+the card (NCCL).  A mesh whose ranks share one card (``staged``: its
+all-reduce copies the buffer to the host and back over gloo, which a
+capture cannot hold) and the CPU run the eager loop of
+``sweep.parts_multi_super_step``.  A capture that fails raises on the
+rank it fails on (``distributed.spawn`` then stops the others).
+Captures run in thread-local mode on a side stream of the cache's own, so
+the engine server's other run can work on its thread meanwhile.
 """
 
 from __future__ import annotations
@@ -63,23 +79,26 @@ import torch
 from ..state import _leaves, _rebuild, fuse_for_host
 from . import _cuda
 
-# graphs a cache keeps: once its rate estimate settles a run dispatches at
-# two or three block counts (10,000 and 59,000 tips, chip_smoke phase
-# 16(c)); at 59,000 tips, the largest the blocking driver takes, a graph's
-# pool holds up to ~0.6 GB (PERF.md section 6)
+# graphs a cache keeps: once its rate estimate settles a blocking run
+# dispatches at two or three block counts (10,000 and 59,000 tips,
+# chip_smoke phase 16(c)), an overlapped run at its G graph and one or two
+# L counts (10,000 tips, phase 16(d)); at 59,000 tips, the largest the
+# blocking driver takes, a graph's pool holds up to ~0.6 GB (PERF.md
+# section 6)
 MAX_GRAPHS = 4
 
 
 def graph_rule(device, pop_params, hyp, n_blocks: int, part_sel,
                mesh) -> bool:
-    """Whether a dispatch runs as graph replays: on a CUDA device, with no
-    mesh and no part selection, with a sweep (``n_blocks`` > 0; the
-    overlapped driver's globals-only boundary has none), whatever the
-    population model (``pop_params``) and the moves ``hyp`` turns on.  The
-    overlapped driver and a mesh run the eager loop."""
-    del pop_params, hyp      # every model option is captured
-    return (torch.device(device).type == "cuda" and mesh is None
-            and part_sel is None and n_blocks > 0)
+    """Whether a dispatch runs as graph replays: on a CUDA device, unless
+    its mesh is ``staged`` (ranks sharing one card reduce through the
+    host), whatever the population model (``pop_params``), the moves
+    ``hyp`` turns on, the blocks (``n_blocks`` 0: the overlapped driver's
+    globals-only boundary) and the part selection.  A staged mesh and the
+    CPU run the eager loop."""
+    del pop_params, hyp, n_blocks, part_sel      # every dispatch is captured
+    return (torch.device(device).type == "cuda"
+            and not (mesh is not None and mesh.staged))
 
 
 def structure(tree):
@@ -140,20 +159,20 @@ class _Buffers:
 
 
 class _Graph:
-    """One boundary over ``bufs``: ``body(ts, evo, pop, tin, tout, pm)`` ->
-    (ts, evo, pop, ledger, stats) and its copy-back, captured on
-    ``stream`` (CUDA), else (``stream`` None) run as it is at each
-    replay.  ``warm_up`` (None: none), called on the buffers' inputs, runs
-    once before, on ``stream``."""
+    """One boundary over ``bufs``: ``body(ts, evo, pop, tin, tout, pm,
+    *rest)`` -> (ts, evo, pop, ledger, stats) (``rest``: the inputs after
+    ``pm``, the part selection where there is one) and its copy-back,
+    captured on ``stream`` (CUDA), else (``stream`` None) run as it is at
+    each replay.  ``warm_up`` (None: none), called on the buffers' inputs,
+    runs once before, on ``stream``."""
 
     def __init__(self, bufs: _Buffers, body, gen, stream, warm_up=None):
         self.bufs = bufs
-        ts, evo, pop, tin, tout, pm = bufs.inputs
+        ts, evo, pop = bufs.inputs[:3]
         carry = bufs.leaves[:len(_leaves((ts, evo, pop)))]
 
         def step():
-            ts2, evo2, pop2, ledger, stats = body(ts, evo, pop, tin, tout,
-                                                  pm)
+            ts2, evo2, pop2, ledger, stats = body(*bufs.inputs)
             stats = dict(stats)
             bufs.acc.add_(stats.pop("local_moves_attempted"))
             outs = _leaves((ts2, evo2, pop2))
@@ -238,12 +257,12 @@ class DispatchGraphs:
     def dispatch(self, body, inputs, gen: torch.Generator, statics: tuple,
                  n_blocks: int, n_boundaries: int, warm_up=None):
         """``n_boundaries`` replays of ``body``'s graph on ``inputs`` =
-        (ts, evo, pop_params, tin, tout, pm) at ``n_blocks`` blocks, keyed
-        by ``statics``, ``n_blocks`` and the inputs' signature; on CPU
-        tensors the body runs as it is, through the same buffers.
-        ``warm_up`` (optional) runs on the buffers' inputs before a
-        capture.  Returns (ts, evo, pop_params, ledger, stats, fused) as
-        the eager loop does."""
+        (ts, evo, pop_params, tin, tout, pm[, part_sel]) at ``n_blocks``
+        blocks, keyed by ``statics``, ``n_blocks`` and the inputs'
+        signature; on CPU tensors the body runs as it is, through the same
+        buffers.  ``warm_up`` (optional) runs on the buffers' inputs
+        before a capture.  Returns (ts, evo, pop_params, ledger, stats,
+        fused) as the eager loop does."""
         sig = signature(inputs)
         bufs = self.buffers.get(sig)
         if bufs is None:

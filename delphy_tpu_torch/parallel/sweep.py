@@ -13,11 +13,12 @@ augmented coalescent prior (vsc_device) factorises per part given the
 frozen fields.  Reassembly scatter-adds the part-local deltas at owned
 indices (padding routes to a trash slot).
 
-A dispatch of boundaries (``parts_multi_super_step``) of the blocking
-driver runs on CUDA as replays of one boundary's CUDA graph
-(``dispatch_graph.py``, the counterpart of the JAX package's jitted scan),
-on every model option; the overlapped driver's, a mesh's and the CPU's as
-an eager loop of the same boundary.
+A dispatch of boundaries (``parts_multi_super_step``) runs on CUDA as
+replays of one boundary's CUDA graph (``dispatch_graph.py``, the
+counterpart of the JAX package's jitted scan): the blocking driver's, the
+overlapped driver's G and L dispatches and a mesh rank's over NCCL, on
+every model option.  A mesh whose ranks share one card and the CPU run an
+eager loop of the same boundary.
 """
 
 from __future__ import annotations
@@ -300,25 +301,27 @@ def parts_multi_super_step(ts: TreeState, evo, pop_params,
     following topology burst.  part_sel, nb_max and mesh as in
     _boundary_body.
 
-    Where ``dispatch_graph.graph_rule`` says so (the blocking driver's
-    dispatches on CUDA, whatever the population model and the moves: the
-    exponential model, the skygrid with its HMC, alpha/nu, mpox) the
-    boundaries are replays of one boundary's CUDA graph
+    Where ``dispatch_graph.graph_rule`` says so (on CUDA: the blocking
+    driver's dispatches, the overlapped driver's globals-only G
+    (``n_blocks`` 0) and part-selected L ones, a mesh rank's whose
+    all-reduce goes over NCCL; whatever the population model and the
+    moves) the boundaries are replays of one boundary's CUDA graph
     (dispatch_graph.py) from ``graphs``, the caller's cache (a ``Run``'s
-    own; None: a cache for this call alone), else (the overlapped driver's
-    ``part_sel`` and globals-only dispatches, a mesh, the CPU) this eager
-    loop; both give the same bits.  Neither reads anything back to the
-    host (a mesh's all-reduce over gloo stages through it): the caller's
-    first read of the move count waits for the dispatch
-    (``Run._absorb``).  ``_eager`` (private) forces the eager loop on
-    CUDA, for the graph-against-eager checks."""
+    own; None: a cache for this call alone), else (a ``staged`` mesh,
+    whose all-reduce goes through the host; the CPU) this eager loop; both
+    give the same bits.  Neither reads anything back to the host (a staged
+    mesh's all-reduce stages through it): the caller's first read of the
+    move count waits for the dispatch (``Run._absorb``).  ``_eager``
+    (private) forces the eager loop on CUDA, for the graph-against-eager
+    checks."""
     if not _eager and dg.graph_rule(ts.t.device, pop_params, hyp, n_blocks,
                                     part_sel, mesh):
         if graphs is None:
             graphs = dg.DispatchGraphs()
         return graph_dispatch(graphs, ts, evo, pop_params, gen,
                               tin, tout, pm, n_blocks, t_max_tip, hyp,
-                              num_cells, n_boundaries, param_moves, nb_max)
+                              num_cells, n_boundaries, param_moves, part_sel,
+                              nb_max, mesh)
     total = None
     for _ in range(n_boundaries):
         ts, evo, pop_params, ledger, stats = _boundary_body(
@@ -335,28 +338,49 @@ def parts_multi_super_step(ts: TreeState, evo, pop_params,
 def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
                    gen: torch.Generator, tin, tout, pm, n_blocks: int,
                    t_max_tip, hyp, num_cells: int, n_boundaries: int,
-                   param_moves: bool = True, nb_max: int = NB_MAX):
+                   param_moves: bool = True, part_sel=None,
+                   nb_max: int = NB_MAX, mesh=None):
     """parts_multi_super_step's graph path through ``graphs`` (a
     ``dispatch_graph.DispatchGraphs``): n_boundaries replays of one
     _boundary_body, keyed by the arguments the JAX jit takes as static
-    (``hyp`` holds the alpha/nu and mpox switches), the values the capture
-    bakes in and the block count; the population model's type and a
-    skygrid's knot count and type are in the inputs' signature.  A
-    skygrid's capture is warmed up by its HMC's force alone
-    (``kernel.skygrid_hmc_warm_up``).  On CPU tensors the body runs as it
-    is through the same buffers (the tests' check of the plumbing)."""
+    (``hyp`` holds the alpha/nu and mpox switches; ``param_moves``; a
+    mesh's size and this rank, which fix the rows a rank sweeps), the
+    values the capture bakes in and the block count; the population
+    model's type, a skygrid's knot count and type and the selection's
+    width are in the inputs' signature.  ``part_sel`` is an input like
+    ``ts``: copied into its buffer at every dispatch, never baked in.
+    Before a capture a skygrid boundary with parameter moves is warmed up
+    by its HMC's force alone (``kernel.skygrid_hmc_warm_up``), and a mesh
+    boundary with a sweep by an eager all-reduce of its reassembly
+    buffer's size (the NCCL communicator is made outside the capture).
+    On CPU tensors the body runs as it is through the same buffers (the
+    tests' check of the plumbing)."""
+    nb = min(n_blocks, nb_max)
     statics = (hyp, num_cells, nb_max, param_moves, float(t_max_tip),
-               CELLS_PER_BLOCK)
+               CELLS_PER_BLOCK,
+               None if mesh is None else (mesh.size, mesh.rank))
 
-    def body(ts, evo, pop_params, tin, tout, pm):
+    def body(ts, evo, pop_params, tin, tout, pm, part_sel=None):
         return _boundary_body(ts, evo, pop_params, gen, tin, tout, pm,
                               n_blocks, t_max_tip, hyp, num_cells,
-                              param_moves=param_moves, nb_max=nb_max)
+                              param_moves=param_moves, part_sel=part_sel,
+                              nb_max=nb_max, mesh=mesh)
 
-    warm_up = None
-    if param_moves and isinstance(pop_params, SkygridPopParams):
-        def warm_up(ts, evo, pop_params, tin, tout, pm):
+    hmc = param_moves and isinstance(pop_params, SkygridPopParams)
+    reduce = mesh is not None and nb > 0
+
+    def warm_up(ts, evo, pop_params, tin, tout, pm, part_sel=None):
+        if hmc:
             skygrid_hmc_warm_up(ts, pop_params, t_max_tip, hyp, num_cells)
-    return graphs.dispatch(body, (ts, evo, pop_params, tin, tout, pm), gen,
-                           statics, min(n_blocks, nb_max), n_boundaries,
-                           warm_up=warm_up)
+        if reduce:
+            P = (pm.node_map.shape[0] if part_sel is None
+                 else part_sel.shape[0])
+            mesh.all_reduce_sum(torch.zeros(
+                ts.num_nodes + ts.mut_t.shape[0] + 3 * P, dtype=ts.t.dtype,
+                device=ts.t.device))
+
+    inputs = (ts, evo, pop_params, tin, tout, pm)
+    if part_sel is not None:
+        inputs += (part_sel,)
+    return graphs.dispatch(body, inputs, gen, statics, nb, n_boundaries,
+                           warm_up=warm_up if hmc or reduce else None)

@@ -263,7 +263,8 @@ class Run:
 
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
-        # the blocking driver's CUDA graphs (parallel/dispatch_graph.py)
+        # the dispatches' CUDA graphs, both drivers'
+        # (parallel/dispatch_graph.py)
         self._graphs = DispatchGraphs()
         self.step = 0
         self.local_moves_attempted = 0
@@ -483,7 +484,17 @@ class Run:
         locals-only boundaries on the device half A] -> host burst on the
         other half B (while L runs) -> join L, merge -> repartition.  The
         host's draws are the reference's, in its order.  Each cycle's stage
-        times (host clock, s) are left in ``last_cycle``."""
+        times (host clock, s) are left in ``last_cycle``.
+
+        On CUDA both dispatches replay CUDA graphs from the run's cache
+        (``dispatch_graph.graph_rule``; a staged mesh runs them eagerly):
+        G's graph has no sweep, L's takes the selection as an input of its
+        static buffers, so a new selection of the same width replays it.
+        G's replay, its hand-off and the copy of its parameters
+        (``fetch_later``) run in that order on the current stream, and L's
+        copy-in of the selection follows them there, before its replays;
+        a capture of either waits for that stream and is waited for by
+        it."""
         cadence = self.local_moves_per_global_move
         max_dispatch = _env_int("DELPHY_TPU_MAX_DISPATCH_MOVES",
                                 OVERLAP_DISPATCH_MOVES)
@@ -537,7 +548,8 @@ class Run:
                 parts_multi_super_step(
                     self.ts, self.evo, self.pop, self.gen, self.tin,
                     self.tout, self.pm, 0, self.t_max_tip, self.hyp,
-                    self.num_cells, 1, param_moves=True, mesh=self.mesh)
+                    self.num_cells, 1, param_moves=True, mesh=self.mesh,
+                    graphs=self._graphs)
             g_params = fetch_later((evo_g, pop_g))
             # L: locals-only boundaries on the device half, enqueued before
             # the burst starts; the half-width sweep gets twice the blocks
@@ -550,8 +562,8 @@ class Run:
                     ts_g, evo_g, pop_g, self.gen, self.tin, self.tout,
                     self.pm, n_blocks, self.t_max_tip, self.hyp,
                     self.num_cells, boundaries, param_moves=False,
-                    part_sel=sel_t,
-                    nb_max=nb_cap, mesh=self.mesh)
+                    part_sel=sel_t, nb_max=nb_cap, mesh=self.mesh,
+                    graphs=self._graphs)
             self.dispatch_count += 2
             t1 = time.perf_counter()
 

@@ -28,7 +28,8 @@ with the native kernel forced off, and the device SPR's sweeps on the card
 equal their CPU replay with one host synchronisation a sweep.  The port's
 float64 chain at configuration S of data/jax_posterior_reference.json
 samples the JAX package's posterior on the card.  The blocking driver
-through CUDA graphs gives the eager loop's bits in both precisions.
+through CUDA graphs gives the eager loop's bits in both precisions, and
+so does the overlapped driver (its G and L dispatches).
 """
 
 import os
@@ -1210,3 +1211,83 @@ def test_graph_dispatch_equals_eager(device, dtype, option, monkeypatch):
     a.check_derived_quantities(
         1e-6 if dtype == F64
         else max(0.05 * abs(float(a.ledger.log_G)) / 4.5e4, 1e-3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_overlapped_graph_dispatch_equals_eager(device, dtype, monkeypatch):
+    """The overlapped driver (DELPHY_TPU_OVERLAP=1) through CUDA graphs
+    against the eager loop on 48 simulated tips, P=8, three cycles: the
+    state, the ledger, the move count and both generators' states
+    bit-equal, each cycle's counts equal, the same launch counts, replays
+    on the graph path only, G's graph among the captures; no host sync
+    inside a G or an L dispatch of the graph Run's cache."""
+    import functools
+    import warnings
+
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel.sweep import parts_multi_super_step
+    from delphy_tpu_torch.phylo import build_random_tree
+    from delphy_tpu_torch.sim import simulate_dataset
+    from delphy_tpu_torch.state import _leaves
+    monkeypatch.setenv("DELPHY_TPU_OVERLAP", "1")
+    ref, deltas, miss, dates, names, _ = simulate_dataset(
+        48, 400, mu=2e-3, missing_fraction=0.02, seed=13)
+    tree = build_random_tree(ref, deltas, miss, dates, names=names,
+                             rng=np.random.default_rng(13))
+    orig = run_mod.parts_multi_super_step
+    out = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setattr(run_mod, "parts_multi_super_step",
+                                functools.partial(orig, _eager=True))
+        run = run_mod.Run(tree, seed=15, num_cells=64, device_partitions=8,
+                          local_moves_per_global_move=200, device=device,
+                          dtype=dtype)
+        run.topology_burst_chunks = 2
+        assert run._overlap_active()
+        _cuda.reset_launch_counts()
+        cycles = []
+        for _ in range(3):
+            run.do_mcmc_steps(400)
+            cycles.append({k: v for k, v in run.last_cycle.items()
+                           if not k.endswith("_s")})
+        out.append((run, cycles, dict(_cuda.launch_counts),
+                    _cuda.graph_replays))
+    (a, cyc_a, counts_a, replays_a), (b, cyc_b, counts_b, replays_b) = out
+    assert replays_a > 0 and replays_b == 0
+    assert counts_a == counts_b and cyc_a == cyc_b
+    for x, y in ((a.ts, b.ts), (a.evo, b.evo), (a.pop, b.pop),
+                 (a.ledger, b.ledger)):
+        assert all(torch.equal(p, q) for p, q in zip(_leaves(x),
+                                                     _leaves(y)))
+    assert a.local_moves_attempted == b.local_moves_attempted
+    assert torch.equal(a.gen.get_state(), b.gen.get_state())
+    assert a.host_rng.bit_generator.state == b.host_rng.bit_generator.state
+    assert 0 in [c["blocks"] for c in a._graphs.captures]
+    a.check_derived_quantities(
+        1e-6 if dtype == F64
+        else max(0.05 * abs(float(a.ledger.log_G)) / 4.5e4, 1e-3))
+    a.tree().check_integrity()
+    # G and L again at the last cycle's sizes: replays, no host sync
+    nb = cyc_a[-1]["n_blocks"]
+    W = a.pm.node_map.shape[0] // 2
+    sel = torch.arange(W, device=device)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            g = parts_multi_super_step(
+                a.ts, a.evo, a.pop, a.gen, a.tin, a.tout, a.pm, 0,
+                a.t_max_tip, a.hyp, a.num_cells, 1, param_moves=True,
+                graphs=a._graphs)
+            parts_multi_super_step(
+                g[0], g[1], g[2], a.gen, a.tin, a.tout, a.pm, nb,
+                a.t_max_tip, a.hyp, a.num_cells, 2, param_moves=False,
+                part_sel=sel, nb_max=a._nb_cap(overlapped=True),
+                graphs=a._graphs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught if "called a synchronizing CUDA "
+                "operation" in str(w.message)]

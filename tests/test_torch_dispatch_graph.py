@@ -17,8 +17,15 @@ on the CPU, where no graph is captured:
   draws nothing and writes nothing; no boundary reads anything back to
   the host or copies from it;
 - the launch tally: a capture's record counts once per replay;
-- the rule: a dispatch on CUDA goes to the graph on every model option, a
-  part-selected, mesh, globals-only or CPU one to the eager loop.
+- the overlapped driver and the mesh: two overlapped cycles' G and L
+  dispatches through the same buffers give the eager loop's bits, a new
+  selection of the same width replaying L's graph; the key separates the
+  selection's width, ``param_moves`` and a mesh's size and rank; G, L and
+  a mesh boundary make no host read;
+- the rule: a dispatch on CUDA goes to the graph on every model option,
+  with a part selection, globals only or under a mesh whose all-reduce
+  stays on the card; a staged mesh (ranks sharing one card) or a CPU one
+  to the eager loop.
 """
 
 import dataclasses
@@ -50,6 +57,7 @@ from delphy_tpu_torch.ops import likelihood as lk
 from delphy_tpu_torch.parallel import _cuda
 from delphy_tpu_torch.parallel import dispatch_graph as dg
 from delphy_tpu_torch.parallel import sweep
+from delphy_tpu_torch.parallel.distributed import PartMesh
 from delphy_tpu_torch.phylo import build_random_tree
 from delphy_tpu_torch.run import Run
 from delphy_tpu_torch.sim import simulate_dataset
@@ -489,9 +497,17 @@ RULE_CASES = {
     "skygrid log-linear": ({"pop": "skygrid log-linear"}, True),
     "alpha/nu": ({"hyp": PriorConfig(alpha_move_enabled=True)}, True),
     "mpox": ({"hyp": PriorConfig(mpox_enabled=True)}, True),
-    "part_sel": ({"part_sel": torch.arange(2)}, False),
-    "mesh": ({"mesh": object()}, False),
-    "globals only": ({"n_blocks": 0}, False),
+    "part_sel": ({"part_sel": torch.arange(2)}, True),
+    # ranks on cards of their own: the all-reduce goes over NCCL on the card
+    "mesh": ({"mesh": PartMesh(size=2, rank=1, group=None,
+                               device=torch.device("cuda", 1))}, True),
+    "globals only": ({"n_blocks": 0}, True),
+    # ranks sharing one card: the all-reduce copies through the host
+    "staged mesh": ({"mesh": PartMesh(size=2, rank=1, group=None,
+                                      device=torch.device("cuda", 0),
+                                      staged=True)}, False),
+    "staged mesh, on the CPU": ({"device": "cpu", "mesh": PartMesh(
+        size=2, rank=1, group=None, device=torch.device("cpu"))}, False),
 }
 
 
@@ -515,3 +531,141 @@ def test_cpu_dispatch_runs_the_eager_loop(monkeypatch):
     monkeypatch.setattr(dg.DispatchGraphs, "dispatch", refuse)
     out = sweep.parts_multi_super_step(*_args(run), 2)
     assert int(out[4]["local_moves_attempted"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the overlapped driver's G and L dispatches, and the mesh
+# ---------------------------------------------------------------------------
+
+class _LoneMesh(PartMesh):
+    """A mesh rank without a group: its all-reduce returns its own buffer
+    (what a rank contributes; the sum over the ranks is
+    tests/test_torch_mesh.py's)."""
+
+    def all_reduce_sum(self, buf):
+        return buf
+
+
+def _lone(size, rank):
+    return _LoneMesh(size=size, rank=rank, group=None,
+                     device=torch.device("cpu"))
+
+
+def _selection(run, rows):
+    """An L-dispatch's selection of half the part axis: ``rows`` and pad
+    rows (index n_real, where the axis has them) after them."""
+    W = run.pm.node_map.shape[0] // 2
+    n_real = len(run._last_cuts) + 1
+    sel = torch.full((W,), n_real, dtype=torch.long)
+    sel[:len(rows)] = torch.as_tensor(rows)
+    return sel
+
+
+def _cycles(dispatch, run, selections):
+    """The overlapped driver's dispatches for each selection: G (one
+    globals-only boundary), then L (2 boundaries of 3 blocks over the
+    selected rows, no parameter moves) on G's state, each cycle on the
+    last's; returns every dispatch's output."""
+    outs, (ts, evo, pop) = [], (run.ts, run.evo, run.pop)
+    for sel in selections:
+        g = dispatch(ts, evo, pop, run.gen, run.tin, run.tout, run.pm, 0,
+                     run.t_max_tip, run.hyp, run.num_cells, 1,
+                     param_moves=True)
+        out = dispatch(g[0], g[1], g[2], run.gen, run.tin, run.tout, run.pm,
+                       3, run.t_max_tip, run.hyp, run.num_cells, 2,
+                       param_moves=False, part_sel=sel,
+                       nb_max=run._nb_cap(overlapped=True))
+        outs += [g, out]
+        ts, evo, pop = out[:3]
+    return outs
+
+
+@pytest.mark.parametrize("option", ["main path", "skygrid staircase"])
+def test_overlapped_buffers_give_the_loops_bits(option, monkeypatch):
+    """Two overlapped cycles' G and L dispatches through a cache's buffers
+    against the eager loop from the same generator state: every output
+    and the generator state bit for bit; one G and one L graph, the
+    second cycle's other selection of the same width copied into L's
+    buffer and replayed without a capture; the skygrid's warm-up before
+    G's capture only."""
+    run = _run(**OPTIONS.get(option, {}))
+    warm = []
+    orig = kernel.skygrid_hmc_warm_up
+    monkeypatch.setattr(sweep, "skygrid_hmc_warm_up",
+                        lambda *a: warm.append(orig(*a)))
+    n_real = len(run._last_cuts) + 1
+    assert n_real >= 3 and run.pm.node_map.shape[0] == 4
+    sels = [_selection(run, [0, n_real - 1]), _selection(run, [1, 2])]
+    start = run.gen.get_state()
+    want = _cycles(sweep.parts_multi_super_step, run, sels)
+    end = run.gen.get_state()
+    run.gen.set_state(start)
+    cache = dg.DispatchGraphs()
+    got = _cycles(functools.partial(sweep.graph_dispatch, cache), run, sels)
+    for a, b in zip(want, got):
+        _assert_same(a, b)
+    assert torch.equal(run.gen.get_state(), end)
+    assert not torch.equal(want[1][0].t, want[0][0].t)
+    assert int(got[3][4]["local_moves_attempted"]) > 0
+    assert int(got[2][4]["local_moves_attempted"]) == 0
+    assert [c["blocks"] for c in cache.captures] == [0, 3]
+    assert cache.replays == 6 and cache.dispatches == {0: 2, 3: 2}
+    assert len(warm) == (1 if option.startswith("skygrid") else 0)
+
+
+def test_cache_key_separates_overlap_and_mesh(monkeypatch):
+    """The key separates ``param_moves``, the globals-only boundary, the
+    selection's width and a mesh's size and rank; a new selection of the
+    same width, or the same mesh again, replays."""
+    monkeypatch.setattr(dg, "MAX_GRAPHS", 16)
+    run = _run()
+    cache = dg.DispatchGraphs()
+
+    def dispatch(n_blocks=3, **kw):
+        sweep.graph_dispatch(cache, run.ts, run.evo, run.pop, run.gen,
+                             run.tin, run.tout, run.pm, n_blocks,
+                             run.t_max_tip, run.hyp, run.num_cells, 1, **kw)
+        return len(cache.captures)
+
+    assert dispatch() == 1
+    assert dispatch(param_moves=False) == 2
+    assert dispatch(n_blocks=0) == 3
+    assert dispatch(param_moves=False, part_sel=torch.tensor([0, 2])) == 4
+    assert dispatch(param_moves=False, part_sel=torch.tensor([3, 1])) == 4
+    assert dispatch(param_moves=False, part_sel=torch.tensor([0, 1, 2])) == 5
+    assert dispatch(mesh=_lone(2, 0)) == 6
+    assert dispatch(mesh=_lone(2, 1)) == 7
+    assert dispatch(mesh=_lone(4, 1)) == 8
+    assert dispatch(mesh=_lone(2, 1)) == 8
+    assert len(cache.graphs) == 8
+    # the selections share one buffer set, apart from the unselected one
+    assert len(cache.buffers) == 3
+
+
+BOUNDARIES = {
+    "G": {"n_blocks": 0},
+    "L": {"param_moves": False, "sel": True},
+    "mesh": {"mesh": True},
+    "mesh, L": {"param_moves": False, "sel": True, "mesh": True},
+    "mesh, G": {"n_blocks": 0, "mesh": True},
+}
+
+
+@pytest.mark.parametrize("kind", list(BOUNDARIES))
+def test_overlap_and_mesh_boundaries_read_nothing_back(kind):
+    """The overlapped driver's G and L boundaries and a mesh rank's (its
+    all-reduce stood in for) make no host read and no host copy."""
+    run = _run()
+    kw = dict(BOUNDARIES[kind])
+    n_blocks = kw.pop("n_blocks", 2)
+    if kw.pop("sel", False):
+        kw["part_sel"] = _selection(run, [0, 1])
+    if kw.pop("mesh", False):
+        kw["mesh"] = _lone(2, 1)
+    with _HostReads() as seen:
+        out = sweep._boundary_body(
+            run.ts, run.evo, run.pop, run.gen, run.tin, run.tout, run.pm,
+            n_blocks, run.t_max_tip, run.hyp, run.num_cells,
+            nb_max=run._nb_cap(overlapped=True), **kw)
+    assert seen.where == []
+    assert (int(out[4]["local_moves_attempted"]) > 0) == (n_blocks > 0)

@@ -6,7 +6,8 @@ tests/test_overlap.py::test_overlap_mesh_matches_single_device.
 
 One group of two ranks, started under the env contract, runs every check
 that needs one (blocking and overlapped runs against the single-process
-runs, the reassembly on a JAX partition map, the replica check); a group
+runs, the overlapped run again through the static buffers of the dispatch
+graphs, the reassembly on a JAX partition map, the replica check); a group
 of four runs the blocking run again; the CLI starts its own ranks."""
 
 import inspect
@@ -38,15 +39,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 240
 
 
-def _drive(mesh, overlap: bool, P: int, out: str):
+def _drive(mesh, overlap: bool, P: int, out: str, buffers: bool = False):
     """A 48-tip run with topology moves through three dispatch calls (a
     burst and its repartition after the second), on the CPU, under ``mesh`` (None: one process):
     its ledger is checked at 1e-6, t and mut_t go to ``out`` (.npz) and its
-    counters are returned."""
+    counters are returned.  ``buffers``: every dispatch goes through the
+    static buffers of the Run's graph cache (``sweep.graph_dispatch``), as
+    on CUDA with the all-reduce on the card; its captures are returned."""
     import os
 
     import numpy as np
 
+    from delphy_tpu_torch import run as run_mod
+    from delphy_tpu_torch.parallel import sweep
     from delphy_tpu_torch.phylo import build_random_tree
     from delphy_tpu_torch.run import Run
     from delphy_tpu_torch.sim import simulate_dataset
@@ -68,10 +73,15 @@ def _drive(mesh, overlap: bool, P: int, out: str):
     run._repartition = counting
     prev = os.environ.get("DELPHY_TPU_OVERLAP")
     os.environ["DELPHY_TPU_OVERLAP"] = "1" if overlap else "0"
+    orig = run_mod.parts_multi_super_step
+    if buffers:
+        run_mod.parts_multi_super_step = (
+            lambda *a, graphs, **kw: sweep.graph_dispatch(graphs, *a, **kw))
     try:
         for _ in range(3):
             run.do_mcmc_steps(400)
     finally:
+        run_mod.parts_multi_super_step = orig
         if prev is None:
             del os.environ["DELPHY_TPU_OVERLAP"]
         else:
@@ -85,7 +95,9 @@ def _drive(mesh, overlap: bool, P: int, out: str):
             "bursts": run.burst_count, "repartitions": len(reparts),
             "moves": run.local_moves_attempted,
             "parts": int(run.pm.node_map.shape[0]),
-            "width": run.last_cycle["selection_width"] if overlap else None}
+            "width": run.last_cycle["selection_width"] if overlap else None,
+            **({"captures": [c["blocks"] for c in run._graphs.captures],
+                "replays": run._graphs.replays} if buffers else {})}
 
 
 def _reassemble(mesh, src: str, out: str):
@@ -135,6 +147,8 @@ tag = f"D{mesh.size}_r{mesh.rank}"
 res["blocking"] = _drive(mesh, False, 8, f"{out}/blocking_{tag}.npz")
 if mesh.size == 2:
     res["overlap"] = _drive(mesh, True, 16, f"{out}/overlap_{tag}.npz")
+    res["overlap_buffers"] = _drive(mesh, True, 16,
+                                    f"{out}/overlap_buffers_{tag}.npz", True)
     # P = 10: half the part axis (5) does not divide over the ranks
     res["overlap_odd"] = _drive(mesh, True, 10, f"{out}/overlap_odd_{tag}.npz")
     _reassemble(mesh, f"{out}/deltas.npz", f"{out}/reassembled_{tag}.npz")
@@ -317,6 +331,28 @@ def test_mesh_overlap_matches_single_process(out, single, group2):
     for r in group2:
         _assert_bit_equal(out, "overlap", r["overlap"], ref,
                           f"D2_r{r['rank']}")
+
+
+def test_mesh_through_buffers_matches_single_process(out, single, group2):
+    """The overlapped cycles of test_mesh_overlap_matches_single_process
+    again, every G, L and blocking dispatch of each rank through the
+    static buffers of its graph cache (the mesh's size and rank in the
+    key, the selection an input, the reassembly all-reduce warmed up once
+    before each graph with a sweep): on each rank equal to the
+    single-process eager cycles bit for bit, G's graph and L's captured
+    and replayed."""
+    ref = single["overlap"]
+    for r in group2:
+        got = dict(r["overlap_buffers"])
+        captures, replays = got.pop("captures"), got.pop("replays")
+        assert 0 in captures and any(nb > 0 for nb in captures)
+        assert replays > len(captures)
+        ta = np.load(out / f"overlap_buffers_D2_r{r['rank']}.npz")
+        tb = np.load(out / "overlap_1.npz")
+        assert np.array_equal(ta["t"], tb["t"])
+        assert np.array_equal(ta["mut_t"], tb["mut_t"])
+        assert got == ref, (got, ref)
+    assert group2[0]["overlap_buffers"] == group2[1]["overlap_buffers"]
 
 
 def test_mesh_overlap_rounds_selection_width(out, group2):

@@ -2,7 +2,9 @@
 _do_mcmc_steps_overlapped) on the CPU: the ports of tests/test_overlap.py
 (production loop, mixing like the blocking driver, a skygrid cycle), the
 host half of a cycle (A/B selection and merge) bit for bit against the JAX
-driver with the device half made the identity in both, the part-selected
+driver with the device half made the identity in both (the port's through
+the static buffers of its dispatch graphs), cycles through those buffers
+bit for bit against the eager loop, the part-selected
 sweep inputs against the reference's _boundary_body, the plain sweep on the
 selected rows against sweep_chain_jnp, and the block cap of a skygrid
 boundary (the reference's 512, not 64) against the JAX Run."""
@@ -31,7 +33,6 @@ from delphy_tpu_torch.parallel import sweep as sweep_mod
 from delphy_tpu_torch.parallel import vsc_device
 from delphy_tpu_torch.parallel.sweep import prepare_sweep, select_parts
 from delphy_tpu_torch.run import Run
-from delphy_tpu_torch.state import fuse_for_host
 
 
 def _tree(seed, T=48, L=400):
@@ -178,17 +179,28 @@ def _identity_jax(calls):
     return fake
 
 
-def _identity_port(calls):
-    def fake(ts, evo, pop, gen, tin, tout, pm, n_blocks, t_max_tip, hyp,
-             num_cells, n_boundaries, param_moves=True, part_sel=None,
-             nb_max=64, mesh=None):
-        assert mesh is None
-        calls.append((param_moves, n_boundaries, n_blocks, nb_max,
-                      None if part_sel is None else part_sel.numpy()))
+def _identity_port(calls, monkeypatch):
+    """The port's dispatch as the Run calls it on CUDA, through the static
+    buffers of its graph cache (``sweep.graph_dispatch`` with the Run's
+    ``graphs``), over an identity boundary."""
+    def boundary(ts, evo, pop, gen, tin, tout, pm, n_blocks, t_max_tip,
+                 hyp, num_cells, param_moves=True, part_sel=None, nb_max=64,
+                 mesh=None):
         led = Ledger(*(torch.tensor(v, dtype=torch.float64)
                        for v in LEDGER_L))
-        stats = {"local_moves_attempted": torch.tensor(100 * n_boundaries)}
-        return ts, evo, pop, led, stats, fuse_for_host((ts, evo, pop))
+        return ts, evo, pop, led, {"local_moves_attempted": torch.tensor(100)}
+    monkeypatch.setattr(sweep_mod, "_boundary_body", boundary)
+
+    def fake(ts, evo, pop, gen, tin, tout, pm, n_blocks, t_max_tip, hyp,
+             num_cells, n_boundaries, param_moves=True, part_sel=None,
+             nb_max=64, mesh=None, graphs=None):
+        assert mesh is None and graphs is not None
+        calls.append((param_moves, n_boundaries, n_blocks, nb_max,
+                      None if part_sel is None else part_sel.numpy()))
+        return sweep_mod.graph_dispatch(
+            graphs, ts, evo, pop, gen, tin, tout, pm, n_blocks, t_max_tip,
+            hyp, num_cells, n_boundaries, param_moves, part_sel, nb_max,
+            mesh)
     return fake
 
 
@@ -198,7 +210,8 @@ def test_overlap_host_half_matches_jax(overlap_env, monkeypatch, pop_model):
     that returns its input state in both packages: two overlapped cycles
     make the same A/B selections, burst the same parts, and merge to the
     same tree, partition maps, ledger and host generator state, bit for
-    bit."""
+    bit.  The port's device half goes through its graph cache's static
+    buffers: G's graph and L's, replayed by the second cycle."""
     kw = ({} if pop_model == "exp"
           else dict(pop_model="skygrid", skygrid_num_parameters=8))
     jrun = make_run(seed=19, cls=JRun, **kw)
@@ -212,7 +225,7 @@ def test_overlap_host_half_matches_jax(overlap_env, monkeypatch, pop_model):
     monkeypatch.setattr(jsweep, "parts_multi_super_step",
                         _identity_jax(jcalls))
     monkeypatch.setattr(run_mod, "parts_multi_super_step",
-                        _identity_port(pcalls))
+                        _identity_port(pcalls, monkeypatch))
     for r in (jrun, run):
         r.topology_burst_chunks = 2
         assert r._overlap_active()
@@ -243,6 +256,62 @@ def test_overlap_host_half_matches_jax(overlap_env, monkeypatch, pop_model):
                                       err_msg=f)
     assert run.local_moves_attempted == jrun.local_moves_attempted
     assert run._per_block_rate == jrun._per_block_rate
+    caps = run._graphs.captures
+    assert caps[0]["blocks"] == 0 and len(caps) <= 3
+    assert run._graphs.replays == 6
+    assert not np.array_equal(pcalls[1][4], pcalls[3][4])
+
+
+def test_overlap_through_buffers_equals_eager(overlap_env, monkeypatch):
+    """Two Runs of one seed, three overlapped cycles each: one through the
+    static buffers of its graph cache (the dispatches the Run makes on
+    CUDA, run as they are on the CPU), one through the eager loop.  The
+    state, every parameter, the ledger, the generator states and each
+    cycle's record are equal bit for bit; the ledger equals the
+    recompute at 1e-9; G's graph and L's were captured once for each block
+    count and replayed over the cycles' new selections."""
+    from delphy_tpu_torch.state import _leaves
+    runs, cycles = [], []
+    orig = run_mod.parts_multi_super_step
+    for buffers in (True, False):
+        sels = []
+
+        def dispatch(*a, graphs=None, **kw):
+            assert graphs is not None
+            if kw.get("part_sel") is not None:
+                sels.append((a[7], kw["part_sel"].clone()))
+            if buffers:
+                return sweep_mod.graph_dispatch(graphs, *a, **kw)
+            return orig(*a, **kw)
+        monkeypatch.setattr(run_mod, "parts_multi_super_step", dispatch)
+        run = make_run(seed=17)
+        run.topology_burst_chunks = 2
+        recs = []
+        for _ in range(3):
+            run.do_mcmc_steps(400)
+            recs.append(dict(run.last_cycle))
+        runs.append((run, sels))
+        cycles.append(recs)
+    (a, sels), (b, _sels) = runs
+    for x, y in ((a.ts, b.ts), (a.evo, b.evo), (a.pop, b.pop),
+                 (a.ledger, b.ledger)):
+        assert all(torch.equal(p, q) for p, q in zip(_leaves(x),
+                                                     _leaves(y)))
+    assert torch.equal(a.gen.get_state(), b.gen.get_state())
+    assert a.host_rng.bit_generator.state == b.host_rng.bit_generator.state
+    assert a.local_moves_attempted == b.local_moves_attempted
+    stages = ("enqueue_GL_s", "wait_G_s", "burst_s", "join_L_s", "merge_s")
+    assert [{k: v for k, v in c.items() if k not in stages}
+            for c in cycles[0]] == [
+        {k: v for k, v in c.items() if k not in stages} for c in cycles[1]]
+    a.check_derived_quantities(1e-9)
+    a.tree().check_integrity()
+    cache = a._graphs
+    blocks = {nb for nb, _sel in sels}
+    assert sorted(c["blocks"] for c in cache.captures) == sorted(
+        {0} | blocks)
+    assert cache.replays == sum(c["boundaries"] + 1 for c in cycles[0])
+    assert len({tuple(sel.tolist()) for _nb, sel in sels}) > 1
 
 
 # ---------------------------------------------------------------------------
