@@ -104,18 +104,25 @@ Phases, each of which raises (exit code != 0) on failure:
      run.  The ranks' records go to
      chiprun_out/mesh.json;
  11. the unpartitioned step (mcmc/kernel.py super_step and
-     multi_super_step, mcmc/moves.py): (a) the JAX package's
-     __graft_entry__.entry problem (8 x 64 simulated, Run(seed=0,
-     num_cells=64)), one super_step of 32 local moves, its ledger equal to
-     a from-scratch recompute; (b) the main path's Run (seed=1,
-     num_cells=400, 8,050 local moves a boundary): multi_super_step over 10
-     boundaries bit-equal to 10 super_step calls from the same generator
-     state, the ledger against the recompute, check_derived_quantities(1e-6)
-     and the tree's integrity, hky_chain and exp_pop_chain launched 10
-     times each and no sweep kernel, ms per boundary (wall and enqueue),
-     local moves attempted per second and the host syncs in one sweep's
-     enqueue; (c) one sweep's draws made on the card and the same cores run
-     on the CPU and on the card, agreeing to 1e-10;
+     multi_super_step, mcmc/moves.py; on the card replays of one
+     boundary's CUDA graph, parallel/dispatch_graph.py): (a) the JAX
+     package's __graft_entry__.entry problem (8 x 64 simulated,
+     Run(seed=0, num_cells=64)), one super_step of 32 local moves, its
+     ledger equal to a from-scratch recompute; (b) the main path's Run
+     (seed=1, num_cells=400, 8,050 local moves a boundary): multi_super_step
+     over 10 boundaries through graphs and through the eager loop (its
+     private _eager) in turns (graph, eager, eager, graph) from one
+     generator state, all bit-equal (state, ledger, move count, generator)
+     and equal to 10 super_step calls, the ledger against the recompute,
+     check_derived_quantities(1e-6) and the tree's integrity, hky_chain and
+     exp_pop_chain launched 10 times each and no sweep kernel on each path,
+     10 graph replays on the graph path only, ms per boundary (wall and
+     enqueue) of each turn, local moves attempted per second, the busy
+     share of each path over 2 boundaries under torch.profiler, the
+     captures (ms, pool bytes), no host sync inside a graph dispatch and
+     the host syncs in one sweep's eager enqueue; (c) one sweep's draws
+     made on the card and the same cores run on the CPU and on the card,
+     agreeing to 1e-10.  Record in chiprun_out/unpartitioned.json;
  12. the f32 engine (DELPHY_TPU_F32=1, the JAX package's production
      precision and bench.py's): (a) each kernel's float32 build (C entries
      *_f32) against its float32 plain version on the card, at phase 3's
@@ -152,25 +159,37 @@ Phases, each of which raises (exit code != 0) on failure:
      start plus the returned delta to 1e-6; no pool worker initialised
      CUDA; (b) ops/spr_move.py at scripts/topo_dev_bench.py's part size
      without missing data (54 tips x 29,903 sites, greedy tree, seed 3)
-     and at 300 tips: 64 spr1_sweep moves on one lane and on 8 lanes and
-     64 slide moves on the card, each replayed on the CPU from the card's
-     draws (trees equal, times and delta_log_G 1e-12), log_G recomputed
-     from each final tree equal to the start plus the summed deltas (1e-9
-     of |log_G|), integrity, moves accepted; ms per move on the card and
-     the CPU, host syncs per move; one float32 single-lane sweep held to
-     the float32 ledger scale.  Record in chiprun_out/device_spr.json;
+     and at 300 tips: 64 spr1_sweep moves on one lane, 16 on each of 8
+     lanes and 64 slide moves on the card, each through graphs (one move's
+     CUDA graph, which the lanes share, replayed) and through the eager
+     loop in turns from one generator state, bit-equal, and replayed on the CPU from the
+     card's draws (trees equal, times and delta_log_G 1e-12), log_G
+     recomputed from each final tree equal to the start plus the summed
+     deltas (1e-9 of |log_G|), integrity, moves accepted; ms per move
+     through graphs, eager and on the CPU, host syncs a sweep on each
+     path, reruns, the captures (move, ms, pool bytes); a forced case of
+     2 lanes x 4 moves with 4 history attempts a slot (32 by default), whose
+     moves run out of attempts: graph and eager bit-equal, the graph path
+     rerunning lanes (reruns and eager moves > 0), no lane left exhausted,
+     each lane's ledger; one float32 single-lane sweep through graphs held
+     to the float32 ledger scale.
+     Record in chiprun_out/device_spr.json;
  14. the missation-aware device SPR (ops/spr_miss.py; no kernel of its
      own) at scripts/topo_dev_bench.py's part (54 tips x 29,903 sites, 2%
      missing, greedy tree, seed 3; scripts/torch_topo_dev_bench.py builds
-     it): (a) 64 spr1_sweep_miss moves on one lane on the card, replayed
-     move by move on the CPU from the card's draws (packed trees equal,
-     times and delta_log_G 1e-12), log_G recomputed from the final tree
-     equal to the start plus the summed deltas (1e-9 of |log_G|), the
-     tree's integrity, the accepted, performable and multi-branch-info
-     counts, ms per move on the card and the CPU, host syncs per move and
-     the draws' bytes per lane; (b) SPR_LANES lanes of 16 moves each on
-     the card, each lane's ledger; (c) one float32 lane of 64 moves held to
-     the float32 ledger scale.  Record in chiprun_out/device_spr_miss.json;
+     it), through graphs (one move's CUDA graph, which the lanes share)
+     and through the eager loop in turns from one generator state, bit-equal: (a) 64
+     spr1_sweep_miss moves on one lane on the card, replayed move by move
+     on the CPU from the card's draws (packed trees equal, times and
+     delta_log_G 1e-12), log_G recomputed from the final tree equal to the
+     start plus the summed deltas (1e-9 of |log_G|), the tree's integrity,
+     the accepted, performable and multi-branch-info counts, ms per move
+     on each path and the CPU, host syncs a sweep, reruns and the draws'
+     bytes per lane; (b) SPR_LANES lanes of 16 moves each, each lane's
+     ledger; (b2) phase 13(b)'s forced case on this part, each lane's
+     ledger; (c) one float32 lane of 64 moves through graphs held to the
+     float32 ledger scale; the captures (move, ms, pool bytes).  Record in
+     chiprun_out/device_spr_miss.json;
  15. the posterior against the JAX package's (no kernel of its own): (a)
      configuration R of data/jax_posterior_reference.json (VALIDATION.md's
      48 tips x 6,000 sites, the JAX chains' pinned start, burn-in and
@@ -212,7 +231,7 @@ Phases, each of which raises (exit code != 0) on failure:
      pools' bytes (graph_large(device, card, tips, warm, pairs) for other
      sizes); (d) the same tree through the overlapped driver
      (DELPHY_TPU_OVERLAP=1) on a graph Run and an eager Run of one seed,
-     twelve cycles each in turns in float64 (L's block count settles),
+     ten cycles each in turns in float64 (L's block count settles),
      four in float32: the runs
      bit-equal (state, ledger, move count, both generators, each cycle's
      counts and launch counts), G's and L's replays, the ledger and
@@ -2303,6 +2322,7 @@ def unpartitioned_path(device, card: str) -> dict:
     multi_super_step, run_local_sweep; ``mcmc/moves.py``) on the card."""
     from delphy_tpu_torch.mcmc import kernel as mk
     from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import dispatch_graph as dg
     from delphy_tpu_torch.phylo import build_random_tree
     from delphy_tpu_torch.run import Run
     from delphy_tpu_torch.sim import simulate_dataset
@@ -2324,31 +2344,65 @@ def unpartitioned_path(device, card: str) -> dict:
                          stats["local_moves_attempted"])}}
     log(f"phase 11(a): entry's step: {json.dumps(out['entry'])}")
 
-    # (b) the Ebola main path's Run at full width, 10 boundaries
+    # (b) the Ebola main path's Run at full width, 10 boundaries, through
+    # graphs and through the eager loop in turns
     run = Run(load_tree(), seed=SEED, num_cells=NUM_CELLS, device=device)
     lm, K = run.local_moves_per_global_move, UNPART_BOUNDARIES
     args = (run.tin, run.tout, lm, run.t_max_tip, run.hyp, run.num_cells)
-    warm = torch.Generator(device=device).manual_seed(99)
-    mk.super_step(run.ts, run.evo, run.pop, warm, *args)     # warm-up
-    sync(device)
+    inputs = (run.ts, run.evo, run.pop)
+    # this thread's boundary graphs from here on: (b)'s alone
+    dg.clear()
+    cache = dg.thread_cache(dg.DispatchGraphs)
     gen_state = run.gen.get_state()
-    _cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    ts, evo, pop, ledger, stats = mk.multi_super_step(
-        run.ts, run.evo, run.pop, run.gen, *args, K)
-    enq = time.perf_counter() - t0
+    # warm-up: the graph's capture (keyed on run.gen) and an eager boundary
+    mk.super_step(*inputs, run.gen, *args)
+    mk.super_step(*inputs, run.gen, *args, _eager=True)
     sync(device)
-    wall = time.perf_counter() - t0
-    counts = dict(_cuda.launch_counts)
-    want = {k: (K if k in ("hky_chain", "exp_pop_chain") else 0)
-            for k in counts}
-    if counts != want:
-        raise AssertionError(f"phase 11(b): launch counts {counts}, "
-                             f"expected {want}")
+    warm_captures = list(cache.captures)
+
+    def turn(eager: bool, n: int = K):
+        run.gen.set_state(gen_state)
+        sync(device)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mk.multi_super_step(*inputs, run.gen, *args, n, _eager=eager)
+        enq = time.perf_counter() - t0
+        sync(device)
+        wall = time.perf_counter() - t0
+        return res, run.gen.get_state(), {
+            "path": "eager" if eager else "graph",
+            "ms_per_boundary": wall * 1e3 / n,
+            "enqueue_ms_per_boundary": enq * 1e3 / n,
+            "local_moves_attempted": int(res[4]["local_moves_attempted"]),
+            "moves_per_s": int(res[4]["local_moves_attempted"]) / wall,
+            "launch_counts": dict(_cuda.launch_counts),
+            "graph_replays": _cuda.graph_replays}
+
+    turns = [turn(eager) for eager in (False, True, True, False)]
+    (ts, evo, pop, ledger, stats), gen_end, _ = turns[0]
+    for res, end, rec in turns:
+        counts = rec["launch_counts"]
+        want = {k: (K if k in ("hky_chain", "exp_pop_chain") else 0)
+                for k in counts}
+        if counts != want:
+            raise AssertionError(f"phase 11(b) {rec['path']}: launch counts "
+                                 f"{counts}, expected {want}")
+        if rec["graph_replays"] != (K if rec["path"] == "graph" else 0):
+            raise AssertionError(f"phase 11(b) {rec['path']}: "
+                                 f"{rec['graph_replays']} graph replays")
+        for name, a, b in (("ts", res[0], ts), ("evo", res[1], evo),
+                           ("pop", res[2], pop), ("ledger", res[3], ledger)):
+            same_tuple(f"phase 11(b) {rec['path']} {name}", a, b)
+        if not (torch.equal(res[4]["local_moves_attempted"],
+                            stats["local_moves_attempted"])
+                and torch.equal(end, gen_end)):
+            raise AssertionError(f"phase 11(b) {rec['path']}: move count or "
+                                 f"generator state differs")
     attempted = int(stats["local_moves_attempted"])
-    # the same boundaries as K super_step calls from the same generator
+    # the same boundaries as K super_step calls (through the graph) from
+    # the same generator state
     run.gen.set_state(gen_state)
-    state, total = (run.ts, run.evo, run.pop), 0
+    state, total = inputs, 0
     for _ in range(K):
         ts_last = state[0]
         *state, led1, st1 = mk.super_step(*state, run.gen, *args)
@@ -2361,6 +2415,17 @@ def unpartitioned_path(device, card: str) -> dict:
                              f"{total} over single steps")
     err = check_step_ledger("phase 11(b)", ledger, step_ledger(
         ts_last, ts, evo, pop, run.t_max_tip, run.num_cells, run.hyp))
+    # host syncs inside a graph dispatch, and each path's busy share over
+    # 2 boundaries
+    graph_syncs = syncs_in(lambda: mk.multi_super_step(
+        *inputs, run.gen, *args, 1))
+    sync(device)
+    if graph_syncs:
+        raise AssertionError(f"phase 11(b): host syncs inside a graph "
+                             f"dispatch: {graph_syncs}")
+    busy = {path: busy_share(lambda: mk.multi_super_step(
+        *inputs, run.gen, *args, 2, _eager=path == "eager"),
+        f"11(b) {path}, 2 boundaries") for path in ("graph", "eager")}
     run.ts, run.evo, run.pop, run.ledger = ts, evo, pop, ledger
     run._fused_bundle = None
     run.check_derived_quantities(1e-6)
@@ -2375,21 +2440,36 @@ def unpartitioned_path(device, card: str) -> dict:
         run.t_max_tip))
     sync(device)
     n_blocks, k_max = mk.sweep_shape(lm, run.num_cells)
+    by_path = {p: [rec for _, _, rec in turns if rec["path"] == p]
+               for p in ("graph", "eager")}
     out["ebola"] = {
         "boundaries": K, "local_moves_per_boundary": lm,
         "n_blocks": n_blocks, "k_max": k_max,
-        "ms_per_boundary": wall * 1e3 / K,
-        "enqueue_ms_per_boundary": enq * 1e3 / K,
+        "turns": [rec for _, _, rec in turns],
+        "ms_per_boundary": {p: [r["ms_per_boundary"] for r in v]
+                            for p, v in by_path.items()},
+        "enqueue_ms_per_boundary": {
+            p: [r["enqueue_ms_per_boundary"] for r in v]
+            for p, v in by_path.items()},
+        "busy": busy, "captures_in_warm_up": warm_captures,
+        "captures": cache.captures, "replays": cache.replays,
         "local_moves_attempted": attempted,
-        "moves_per_s": attempted / wall, "launch_counts": counts,
+        "launch_counts": turns[0][2]["launch_counts"],
         "ledger_err": err, "log_posterior": float(ledger.log_posterior),
+        "syncs_in_graph_dispatch": graph_syncs,
         "syncs_in_sweep_enqueue": syncs}
     log(f"phase 11(b): {K} boundaries of {lm} local moves ({n_blocks} "
-        f"blocks, k_max {k_max}): {wall * 1e3 / K:.3f} ms per boundary "
-        f"(enqueue {enq * 1e3 / K:.3f}), {attempted / wall:.1f} local moves "
-        f"attempted per s; bit-equal to {K} super_step calls; ledger err "
-        f"{err:.3e}; launch counts {counts}; host syncs in a sweep's "
-        f"enqueue: {syncs or 'none'} ({card})")
+        f"blocks, k_max {k_max}), graph / eager in turns: ms per boundary "
+        f"{json.dumps(out['ebola']['ms_per_boundary'])}, enqueue "
+        f"{json.dumps(out['ebola']['enqueue_ms_per_boundary'])}, busy share "
+        f"graph {busy['graph']['busy_share']:.3f} / eager "
+        f"{busy['eager']['busy_share']:.3f}; graph = eager bit for bit "
+        f"(state, ledger, {attempted} moves, generator) and = {K} super_step "
+        f"calls; ledger err {err:.3e}; launch counts "
+        f"{ {k: v for k, v in turns[0][2]['launch_counts'].items() if v} } "
+        f"on each path, {K} replays on the graph path only; captures "
+        f"{json.dumps(cache.captures)}; host syncs in a graph dispatch: "
+        f"none; in a sweep's eager enqueue: {syncs or 'none'} ({card})")
 
     # (c) one sweep's draws made on the card, the cores on both devices
     draws = mk.draw_sweep(run.gen, ts_b, n_blocks, k_max)
@@ -2412,6 +2492,11 @@ def unpartitioned_path(device, card: str) -> dict:
     log(f"phase 11(c): one sweep's draws on the card, the cores on the CPU "
         f"and the card agree: max abs err {err:.3e} (t, mut_t, k_bar, "
         f"ledger; tolerance 1e-10)")
+    dg.clear()          # the boundary graphs' pools back to the allocator
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "unpartitioned.json"),
+              "w") as f:
+        json.dump(dict(out, card=card), f, indent=1, default=str)
     return out
 
 
@@ -2823,6 +2908,12 @@ SPR_TIPS = (54, 300)
 SPR_SEED = 3
 SPR_MOVES = 64
 SPR_LANES = 8
+SPR_LANE_MOVES = 16     # moves a lane of the 8-lane sweeps
+# the forced reruns: lanes, moves a lane and history attempts a slot (32 by
+# default), so that moves run out of attempts
+SPR_FORCED_LANES = 2
+SPR_FORCED_MOVES = 4
+SPR_FORCED_ATTEMPTS = 4
 # (a2): phase 9a's tree, P=4 parts, 2,000 moves
 FALLBACK_PARTS = 4
 FALLBACK_MOVES = 2000
@@ -3055,11 +3146,75 @@ def spr_ledger(what, tree, res, device, rtol=1e-9, dtype=torch.float64,
     return err
 
 
+def same_sweeps(what, got, want) -> None:
+    """Two sweeps' lane results bit for bit: every packed array, the
+    counts, delta_log_G and the exhaustion flag."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k in a.p:
+            if not torch.equal(a.p[k], b.p[k]):
+                raise AssertionError(f"{what} lane {i}: {k} differs")
+        for f in ("n_accepted", "delta_log_G", "n_eligible", "exhausted"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{what} lane {i}: {f} differs")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} lanes against "
+                             f"{len(want)}")
+
+
+def sweep_turns(what, gen, graphs, card_fn, on_card) -> tuple:
+    """``card_fn(record, eager)`` through graphs, then through the eager
+    loop from the same generator state: both bit-equal, the generator
+    left alike.  Returns (lane results, record, {graph ms, eager ms, host
+    syncs of each, reruns, eager moves and replays of the graph path})."""
+    state = gen.get_state()
+    before = (graphs.reruns, graphs.eager_moves, graphs.replays)
+    rec = []
+    res, dt_g, sync_g = on_card(lambda: card_fn(rec, False))
+    end = gen.get_state()
+    gen.set_state(state)
+    res_e, dt_e, sync_e = on_card(lambda: card_fn(None, True))
+    res = res if isinstance(res, list) else [res]
+    same_sweeps(f"{what} graph against eager", res,
+                res_e if isinstance(res_e, list) else [res_e])
+    if not torch.equal(gen.get_state(), end):
+        raise AssertionError(f"{what}: the paths left the generator apart")
+    return res, rec, {
+        "graph_s": dt_g, "eager_s": dt_e, "host_syncs_graph": sync_g,
+        "host_syncs_eager": sync_e,
+        "reruns": graphs.reruns - before[0],
+        "eager_moves_on_graph_path": graphs.eager_moves - before[1],
+        "replays": graphs.replays - before[2]}
+
+
+def forced_record(what, res, ab, moves) -> dict:
+    """The record of a sweep with exhaustion forced: the graph path reran
+    lanes and ran widened moves eagerly, and no lane is left exhausted."""
+    if not (ab["reruns"] and ab["eager_moves_on_graph_path"]):
+        raise AssertionError(f"{what} forced: no rerun on the graph path "
+                             f"({ab})")
+    if any(bool(r.exhausted) for r in res):
+        raise AssertionError(f"{what} forced: a lane is left exhausted")
+    return {"lanes": len(res), "moves": moves,
+            "attempts": SPR_FORCED_ATTEMPTS,
+            "accepted": sum(int(r.n_accepted) for r in res),
+            "graph_ms_per_move": ab["graph_s"] * 1e3 / moves,
+            "eager_ms_per_move": ab["eager_s"] * 1e3 / moves,
+            "graph_equals_eager": True,
+            "host_syncs_graph": ab["host_syncs_graph"],
+            "host_syncs_eager": ab["host_syncs_eager"],
+            "reruns": ab["reruns"],
+            "eager_moves_on_graph_path": ab["eager_moves_on_graph_path"],
+            "replays": ab["replays"]}
+
+
 def spr_sweeps(tree, device, card: str) -> dict:
     """Phase 13(b) at one shape: SPR1 sweeps on one lane and on 8 lanes,
-    a slide sweep, each on the card from a card generator and replayed on
-    the CPU from the same draws; then the single lane in float32."""
+    a slide sweep, each on the card through graphs and through the eager
+    loop in turns (bit-equal) and replayed on the CPU from the same draws;
+    then the single lane in float32."""
+    from delphy_tpu_torch.ops import history as hh
     from delphy_tpu_torch.ops import spr_move as sm
+    from delphy_tpu_torch.parallel import dispatch_graph as dg
     cpu = torch.device("cpu")
     p = sm.pack_tree(tree, device=device)
     p_cpu = sm.pack_tree(tree, device=cpu)
@@ -3071,8 +3226,16 @@ def spr_sweeps(tree, device, card: str) -> dict:
            "mutations": tree.num_mutations()}
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    sm.spr1_sweep(gen, p, args[0], args[1], 4, *args[2:])   # warm-up
+    dg.clear()          # this thread's move graphs from here on: this tree's
+    graphs = dg.thread_cache(sm.MoveGraphs)
+    # warm-up: the graphs captured (one a move, which the lanes share), and
+    # the eager path's first run
+    sm.spr1_sweep_lanes(gen, [p] * SPR_LANES, args[0], args[1], 1,
+                        *args[2:])
+    sm.slide_sweep(gen, p, args[0], args[1], 1, *args[2:])
+    sm.spr1_sweep(gen, p, args[0], args[1], 4, *args[2:], _eager=True)
     sync(device)
+    out["captures_in_warm_up"] = list(graphs.captures)
 
     sources = {}
 
@@ -3091,21 +3254,23 @@ def spr_sweeps(tree, device, card: str) -> dict:
         return r, time.perf_counter() - t0
 
     cases = (
-        ("spr1", 1, lambda rec: sm.spr1_sweep(
-            gen, p, args[0], args[1], SPR_MOVES, *args[2:], record=rec),
+        ("spr1", 1, SPR_MOVES, lambda rec, eager: sm.spr1_sweep(
+            gen, p, args[0], args[1], SPR_MOVES, *args[2:], record=rec,
+            _eager=eager),
          lambda d: sm.spr1_sweep_core(p_cpu, *args_cpu, d)),
-        ("spr1_lanes", SPR_LANES, lambda rec: sm.spr1_sweep_lanes(
-            gen, [p] * SPR_LANES, args[0], args[1], SPR_MOVES, *args[2:],
-            record=rec),
+        ("spr1_lanes", SPR_LANES, SPR_LANE_MOVES,
+         lambda rec, eager: sm.spr1_sweep_lanes(
+             gen, [p] * SPR_LANES, args[0], args[1], SPR_LANE_MOVES,
+             *args[2:], record=rec, _eager=eager),
          lambda d: sm.spr1_sweep_core(p_cpu, *args_cpu, d)),
-        ("slide", 1, lambda rec: sm.slide_sweep(
-            gen, p, args[0], args[1], SPR_MOVES, *args[2:], record=rec),
+        ("slide", 1, SPR_MOVES, lambda rec, eager: sm.slide_sweep(
+            gen, p, args[0], args[1], SPR_MOVES, *args[2:], record=rec,
+            _eager=eager),
          lambda d: sm.slide_sweep_core(p_cpu, *args_cpu, d)))
     err = 0.0
-    for name, lanes, card_fn, cpu_fn in cases:
-        rec = []
-        res, dt, n_sync = on_card(lambda: card_fn(rec))
-        res = res if isinstance(res, list) else [res]
+    for name, lanes, n, card_fn, cpu_fn in cases:
+        res, rec, ab = sweep_turns(f"phase 13(b) {name}", gen, graphs,
+                                   card_fn, on_card)
         got_cpu, dt_cpu = [], 0.0
         for lane, draws in zip(res, rec):
             r, t = on_cpu(lambda: cpu_fn(to_device(draws, cpu)))
@@ -3113,17 +3278,43 @@ def spr_sweeps(tree, device, card: str) -> dict:
             dt_cpu += t
             err = max(err, same_spr_result(f"phase 13(b) {name}", lane, r))
             spr_ledger(f"phase 13(b) {name}", tree, lane, device)
-        moves = SPR_MOVES * lanes
+        moves = n * lanes
         out[name] = {
             "lanes": lanes, "moves": moves,
             "accepted": sum(int(r.n_accepted) for r in res),
             "eligible": sum(int(r.n_eligible) for r in res),
-            "card_ms_per_move": dt * 1e3 / moves,
+            "graph_ms_per_move": ab["graph_s"] * 1e3 / moves,
+            "eager_ms_per_move": ab["eager_s"] * 1e3 / moves,
             "cpu_ms_per_move": dt_cpu * 1e3 / moves,
-            "host_syncs": n_sync, "host_syncs_per_move": n_sync / moves}
+            "graph_equals_eager": True,
+            "host_syncs_graph": ab["host_syncs_graph"],
+            "host_syncs_eager": ab["host_syncs_eager"],
+            "reruns": ab["reruns"],
+            "eager_moves_on_graph_path": ab["eager_moves_on_graph_path"],
+            "replays": ab["replays"]}
         log(f"phase 13(b) {tree.num_tips} tips {name}: "
             f"{json.dumps(out[name])} ({card})")
     out["max_card_cpu_err"] = err
+
+    # (forced) SPR_FORCED_ATTEMPTS history attempts a slot: moves run out
+    # of attempts, and the graph path reruns lanes from their first trees,
+    # the widened moves run eagerly on the graph's buffers between replays
+    attempts, hh.ATTEMPTS = hh.ATTEMPTS, SPR_FORCED_ATTEMPTS
+    try:
+        res, _, ab = sweep_turns(
+            "phase 13(b) spr1_lanes forced", gen, graphs,
+            lambda rec, eager: sm.spr1_sweep_lanes(
+                gen, [p] * SPR_FORCED_LANES, args[0], args[1],
+                SPR_FORCED_MOVES, *args[2:], record=rec, _eager=eager),
+            on_card)
+    finally:
+        hh.ATTEMPTS = attempts
+    for lane in res:
+        spr_ledger("phase 13(b) spr1_lanes forced", tree, lane, device)
+    out["spr1_lanes_forced"] = forced_record(
+        "phase 13(b)", res, ab, SPR_FORCED_LANES * SPR_FORCED_MOVES)
+    log(f"phase 13(b) {tree.num_tips} tips spr1_lanes forced: "
+        f"{json.dumps(out['spr1_lanes_forced'])} ({card})")
     out["host_sync_sources"] = dict(sources)
 
     p32 = sm.pack_tree(tree, device=device, dtype=F32)
@@ -3137,12 +3328,17 @@ def spr_sweeps(tree, device, card: str) -> dict:
     out["spr1_f32"] = {"moves": SPR_MOVES,
                        "accepted": int(res.n_accepted),
                        "eligible": int(res.n_eligible),
-                       "card_ms_per_move": dt * 1e3 / SPR_MOVES,
+                       "graph_ms_per_move": dt * 1e3 / SPR_MOVES,
                        "host_syncs_per_move": n_sync / SPR_MOVES,
                        "ledger_err": e32,
                        "ledger_tol": f32_tol(card_log_G(start, device))}
     log(f"phase 13(b) {tree.num_tips} tips spr1 float32: "
         f"{json.dumps(out['spr1_f32'])} ({card})")
+    out["captures"] = graphs.captures
+    out["graphs_held"] = len(graphs.graphs)
+    log(f"phase 13(b) {tree.num_tips} tips: captures (move, ms, pool bytes) "
+        f"{json.dumps(graphs.captures)}")
+    dg.clear()
     return out
 
 
@@ -3280,7 +3476,10 @@ def spr_miss_phase(device, card: str) -> dict:
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import torch_topo_dev_bench as tdb
 
+    from delphy_tpu_torch.ops import history as hh
     from delphy_tpu_torch.ops import spr_miss as sm
+    from delphy_tpu_torch.ops.spr_move import MoveGraphs
+    from delphy_tpu_torch.parallel import dispatch_graph as dg
     log("phase 14: the missation-aware device SPR")
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
@@ -3297,8 +3496,17 @@ def spr_miss_phase(device, card: str) -> dict:
     log(f"phase 14: {json.dumps(out)}")
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    sm.spr1_sweep_miss(gen, p, L, 2, c, t_max_tip, WRB, WH_)    # warm-up
+    dg.clear()          # this thread's move graphs from here on: phase 14's
+    graphs = dg.thread_cache(MoveGraphs)
+    # warm-up: the graph captured (one a move, which the lanes share), and
+    # the eager path's first run
+    sm.spr1_sweep_miss_lanes(gen, [p] * SPR_LANES, L, 1, c, t_max_tip, WRB,
+                             WH_)
+    sm.spr1_sweep_miss(gen, p, L, 2, c, t_max_tip, WRB, WH_, _eager=True)
     sync(device)
+    out["captures_in_warm_up"] = list(graphs.captures)
+    log(f"phase 14: captures (move, ms, pool bytes) "
+        f"{json.dumps(graphs.captures)}")
     sources = {}
 
     def on_card(fn):
@@ -3310,10 +3518,23 @@ def spr_miss_phase(device, card: str) -> dict:
             sources[k] = sources.get(k, 0) + v
         return box[0], time.perf_counter() - t0, sum(where.values())
 
-    # (a) one lane, 64 moves, replayed on the CPU from the card's draws
-    rec = []
-    res, dt, n_sync = on_card(lambda: sm.spr1_sweep_miss(
-        gen, p, L, SPR_MISS_MOVES, c, t_max_tip, WRB, WH_, record=rec))
+    def ab_record(ab, moves) -> dict:
+        return {"graph_ms_per_move": ab["graph_s"] * 1e3 / moves,
+                "eager_ms_per_move": ab["eager_s"] * 1e3 / moves,
+                "graph_equals_eager": True,
+                "host_syncs_graph": ab["host_syncs_graph"],
+                "host_syncs_eager": ab["host_syncs_eager"],
+                "reruns": ab["reruns"],
+                "eager_moves_on_graph_path": ab["eager_moves_on_graph_path"],
+                "replays": ab["replays"]}
+
+    # (a) one lane, 64 moves through graphs and eager in turns, replayed on
+    # the CPU from the card's draws
+    res, rec, ab = sweep_turns(
+        "phase 14(a)", gen, graphs, lambda rec, eager: sm.spr1_sweep_miss(
+            gen, p, L, SPR_MISS_MOVES, c, t_max_tip, WRB, WH_, record=rec,
+            _eager=eager), on_card)
+    res = res[0]
     got_cpu, dt_cpu, multi = replay_on_cpu(
         sm, p_cpu, L, c_cpu, t_max_tip, to_device(rec[0], cpu), WRB)
     err = same_miss_result("phase 14(a)", res, got_cpu)
@@ -3321,35 +3542,53 @@ def spr_miss_phase(device, card: str) -> dict:
     if int(res.n_accepted) < 1 or multi < 1:
         raise AssertionError(f"phase 14(a): {int(res.n_accepted)} accepted, "
                              f"{multi} multi-branch-info moves")
-    out["a"] = {"moves": SPR_MISS_MOVES,
-                "accepted": int(res.n_accepted),
-                "performable": int(res.n_eligible),
-                "multi_branch_info": multi,
-                "card_ms_per_move": dt * 1e3 / SPR_MISS_MOVES,
-                "cpu_ms_per_move": dt_cpu * 1e3 / SPR_MISS_MOVES,
-                "host_syncs": n_sync,
-                "host_syncs_per_move": n_sync / SPR_MISS_MOVES,
-                "max_card_cpu_err": err, "ledger_err": led,
-                "draw_bytes_per_lane": sm.draw_bytes(rec[0]),
-                "draw_bytes_per_move": sm.draw_bytes(rec[0][0])}
+    out["a"] = dict({"moves": SPR_MISS_MOVES,
+                     "accepted": int(res.n_accepted),
+                     "performable": int(res.n_eligible),
+                     "multi_branch_info": multi,
+                     "cpu_ms_per_move": dt_cpu * 1e3 / SPR_MISS_MOVES,
+                     "max_card_cpu_err": err, "ledger_err": led,
+                     "draw_bytes_per_lane": sm.draw_bytes(rec[0]),
+                     "draw_bytes_per_move": sm.draw_bytes(rec[0][0])},
+                    **ab_record(ab, SPR_MISS_MOVES))
     log(f"phase 14(a) one lane: {json.dumps(out['a'])} ({card})")
     del rec
 
-    # (b) SPR_LANES lanes interleaved, each lane's ledger
-    res_l, dt, n_sync = on_card(lambda: sm.spr1_sweep_miss_lanes(
-        gen, [p] * SPR_LANES, L, SPR_MISS_LANE_MOVES, c, t_max_tip, WRB,
-        WH_))
+    # (b) SPR_LANES lanes interleaved through graphs and eager in turns,
+    # each lane's ledger
+    res_l, _, ab = sweep_turns(
+        "phase 14(b)", gen, graphs,
+        lambda rec, eager: sm.spr1_sweep_miss_lanes(
+            gen, [p] * SPR_LANES, L, SPR_MISS_LANE_MOVES, c, t_max_tip, WRB,
+            WH_, _eager=eager), on_card)
     led = max(miss_ledger(f"phase 14(b) lane {i}", tree, r.p,
                           r.delta_log_G, device)
               for i, r in enumerate(res_l))
     moves = SPR_LANES * SPR_MISS_LANE_MOVES
-    out["b"] = {"lanes": SPR_LANES, "moves": moves,
-                "accepted": sum(int(r.n_accepted) for r in res_l),
-                "performable": sum(int(r.n_eligible) for r in res_l),
-                "card_ms_per_move": dt * 1e3 / moves,
-                "host_syncs": n_sync, "host_syncs_per_move": n_sync / moves,
-                "ledger_err": led}
+    out["b"] = dict({"lanes": SPR_LANES, "moves": moves,
+                     "accepted": sum(int(r.n_accepted) for r in res_l),
+                     "performable": sum(int(r.n_eligible) for r in res_l),
+                     "ledger_err": led}, **ab_record(ab, moves))
     log(f"phase 14(b) {SPR_LANES} lanes: {json.dumps(out['b'])} ({card})")
+
+    # (b2) SPR_FORCED_ATTEMPTS history attempts a slot: moves run out of
+    # attempts, and the graph path reruns lanes as in phase 13(b)'s forced
+    # case
+    attempts, hh.ATTEMPTS = hh.ATTEMPTS, SPR_FORCED_ATTEMPTS
+    try:
+        res_f, _, ab = sweep_turns(
+            "phase 14(b2) forced", gen, graphs,
+            lambda rec, eager: sm.spr1_sweep_miss_lanes(
+                gen, [p] * SPR_FORCED_LANES, L, SPR_FORCED_MOVES, c,
+                t_max_tip, WRB, WH_, _eager=eager), on_card)
+    finally:
+        hh.ATTEMPTS = attempts
+    out["b2_forced"] = dict(forced_record(
+        "phase 14(b2)", res_f, ab, SPR_FORCED_LANES * SPR_FORCED_MOVES),
+        ledger_err=max(miss_ledger(f"phase 14(b2) lane {i}", tree, r.p,
+                                   r.delta_log_G, device)
+                       for i, r in enumerate(res_f)))
+    log(f"phase 14(b2) forced: {json.dumps(out['b2_forced'])} ({card})")
 
     # (c) one float32 lane, held to the float32 ledger scale
     p32, c32, _, _, _ = tdb.move_args(tree, device, F32)
@@ -3362,12 +3601,15 @@ def spr_miss_phase(device, card: str) -> dict:
     out["c_f32"] = {"moves": SPR_MISS_MOVES,
                     "accepted": int(res.n_accepted),
                     "performable": int(res.n_eligible),
-                    "card_ms_per_move": dt * 1e3 / SPR_MISS_MOVES,
+                    "graph_ms_per_move": dt * 1e3 / SPR_MISS_MOVES,
                     "host_syncs_per_move": n_sync / SPR_MISS_MOVES,
                     "ledger_err": e32,
                     "ledger_tol": f32_tol(card_log_G(start, device))}
     log(f"phase 14(c) float32: {json.dumps(out['c_f32'])} ({card})")
     out["host_sync_sources"] = sources
+    out["captures"] = graphs.captures
+    out["graphs_held"] = len(graphs.graphs)
+    dg.clear()
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "device_spr_miss.json"),
               "w") as f:
@@ -3523,7 +3765,7 @@ GRAPH_LARGE_PAIRS = 3    # (c): then graph and eager calls in turns
 # (d): overlapped cycles of each Run, in turns: in float64 enough for L's
 # block count to settle (it climbs 51, 60, 67, 75 over the first four
 # cycles at 10,000 tips), in float32 four
-OVERLAP_CYCLES = 12
+OVERLAP_CYCLES = 10
 OVERLAP_CYCLES_F32 = 4
 
 

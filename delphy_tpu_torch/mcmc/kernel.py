@@ -5,7 +5,9 @@ mu/rho moves in their place), alpha and nu, then the population model's
 moves (the exponential chain, or the skygrid's tau, zero-mode and HMC);
 and the unpartitioned step: ``super_step`` (a boundary and a sweep of local
 moves over the whole tree, ``run_local_sweep``) and ``multi_super_step``
-(several in a row).  The partitioned path (``parallel/sweep.py``) runs the
+(several in a row), on CUDA as replays of one boundary's CUDA graph
+(``parallel/dispatch_graph.py``), the counterpart of the JAX package's
+jitted programs.  The partitioned path (``parallel/sweep.py``) runs the
 same boundary before its part sweep."""
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .. import pop as popm
 from ..evo import EvoParams
 from ..ops import coalescent as coal
 from ..ops import likelihood as lk
+from ..parallel import dispatch_graph as dg
 from ..parallel import hky_cuda
 from ..state import TreeState
 from . import global_moves as gm
@@ -138,6 +141,8 @@ def skygrid_hmc_warm_up(ts: TreeState, pop_params: popm.SkygridPopParams,
 
 REFORM_BATCH = 48
 SEQ_DISP_PER_BLOCK = 2
+# cells per colour block of the unpartitioned sweep's batched displacement
+CELLS_PER_BLOCK = 4
 
 
 def sweep_shape(n_moves: int, num_cells: int):
@@ -167,7 +172,8 @@ class SweepDraws(NamedTuple):
 
 
 def draw_sweep(gen: torch.Generator, ts: TreeState, n_blocks: int,
-               k_max: int, cells_per_block: int = 4) -> SweepDraws:
+               k_max: int,
+               cells_per_block: int = CELLS_PER_BLOCK) -> SweepDraws:
     """Every random number of a sweep, drawn from ``gen`` on the state's
     device in a dozen calls before the block loop."""
     dev, dt = ts.t.device, ts.t.dtype
@@ -243,12 +249,9 @@ def run_local_sweep(ts: TreeState, caches: Caches, grid, ledger: Ledger, evo,
                             t_max_tip)
 
 
-def super_step(ts: TreeState, evo: EvoParams, pop_params,
-               gen: torch.Generator, tin, tout, n_local_moves: int,
-               t_max_tip, hyp: PriorConfig, num_cells: int):
-    """One global boundary and ``n_local_moves`` local moves over the whole
-    tree.  Returns (ts, evo, pop_params, ledger, stats), with the attempted
-    move count in ``stats["local_moves_attempted"]``."""
+def _super_step(ts: TreeState, evo: EvoParams, pop_params,
+                gen: torch.Generator, tin, tout, n_local_moves: int,
+                t_max_tip, hyp: PriorConfig, num_cells: int):
     ts, evo, pop_params, grid, caches, ledger, stats = run_global_moves(
         ts, evo, pop_params, gen, tin, tout, t_max_tip, hyp, num_cells)
     ts, grid, ledger, count = run_local_sweep(
@@ -258,18 +261,82 @@ def super_step(ts: TreeState, evo: EvoParams, pop_params,
                                              local_moves_attempted=count)
 
 
+def super_step(ts: TreeState, evo: EvoParams, pop_params,
+               gen: torch.Generator, tin, tout, n_local_moves: int,
+               t_max_tip, hyp: PriorConfig, num_cells: int,
+               _eager: bool = False):
+    """One global boundary and ``n_local_moves`` local moves over the whole
+    tree.  Returns (ts, evo, pop_params, ledger, stats), with the attempted
+    move count in ``stats["local_moves_attempted"]``.  On CUDA one replay
+    of the boundary's CUDA graph, as the JAX ``super_step`` is a jitted
+    program of its own (``multi_super_step`` with one boundary; ``_eager``
+    as there)."""
+    return multi_super_step(ts, evo, pop_params, gen, tin, tout,
+                            n_local_moves, t_max_tip, hyp, num_cells, 1,
+                            _eager=_eager)
+
+
 def multi_super_step(ts: TreeState, evo: EvoParams, pop_params,
                      gen: torch.Generator, tin, tout, n_local_moves: int,
                      t_max_tip, hyp: PriorConfig, num_cells: int,
-                     n_boundaries: int):
+                     n_boundaries: int, _eager: bool = False):
     """``n_boundaries`` super-steps in a row: the same state and draws as
     that many ``super_step`` calls.  Returns the last ledger and stats, with
-    ``local_moves_attempted`` summed over the boundaries."""
+    ``local_moves_attempted`` summed over the boundaries.
+
+    On CUDA (``dispatch_graph.captures_on``) the boundaries are replays of
+    one boundary's CUDA graph from this thread's
+    ``dispatch_graph.DispatchGraphs`` (``dispatch_graph.thread_cache``,
+    emptied by ``dispatch_graph.clear``), the counterpart of the JAX
+    ``multi_super_step``'s ``lax.scan``: the inputs are copied into static
+    buffers, the move count adds up in the graph, and the result is cloned
+    out.  The graph is keyed by what the JAX jit takes as static (``hyp``,
+    ``num_cells``), by what the capture bakes in (``t_max_tip``, the
+    sweep's ``sweep_shape`` and ``CELLS_PER_BLOCK``, the generator object
+    it draws from) and by the inputs' signature.  The JAX
+    ``n_local_moves`` is traced (its ``fori_loop`` bound is dynamic, so one
+    compile serves any count); here the block count it gives is in the key,
+    as for ``Run``'s graphs, and a new count captures again.  A capture
+    that fails raises.  On the CPU, or with ``_eager`` (private: the
+    graph-against-eager checks), the eager loop runs; both give the same
+    bits."""
+    if not _eager and dg.captures_on(ts.t.device):
+        return _graph_steps(ts, evo, pop_params, gen, tin, tout,
+                            n_local_moves, t_max_tip, hyp, num_cells,
+                            n_boundaries)
     counts = []
     for _ in range(n_boundaries):
-        ts, evo, pop_params, ledger, stats = super_step(
+        ts, evo, pop_params, ledger, stats = _super_step(
             ts, evo, pop_params, gen, tin, tout, n_local_moves, t_max_tip,
             hyp, num_cells)
         counts.append(stats["local_moves_attempted"])
     stats = dict(stats, local_moves_attempted=torch.stack(counts).sum())
     return ts, evo, pop_params, ledger, stats
+
+
+def _graph_steps(ts: TreeState, evo: EvoParams, pop_params,
+                 gen: torch.Generator, tin, tout, n_local_moves: int,
+                 t_max_tip, hyp: PriorConfig, num_cells: int,
+                 n_boundaries: int):
+    """multi_super_step's graph path through this thread's
+    ``DispatchGraphs``: ``n_boundaries`` replays of one super-step over static buffers of (ts, evo, pop_params,
+    tin, tout).  A skygrid boundary is warmed up by its HMC's force alone
+    before a capture (``skygrid_hmc_warm_up``).  On CPU tensors the body
+    runs as it is through the same buffers (the tests' check of the
+    plumbing)."""
+    n_blocks, k_max = sweep_shape(n_local_moves, num_cells)
+    statics = ("super_step", gen, hyp, num_cells, float(t_max_tip), k_max,
+               CELLS_PER_BLOCK)
+
+    def body(ts, evo, pop_params, tin, tout):
+        return _super_step(ts, evo, pop_params, gen, tin, tout,
+                           n_local_moves, t_max_tip, hyp, num_cells)
+
+    def warm_up(ts, evo, pop_params, tin, tout):
+        skygrid_hmc_warm_up(ts, pop_params, t_max_tip, hyp, num_cells)
+
+    hmc = isinstance(pop_params, popm.SkygridPopParams)
+    graphs = dg.thread_cache(dg.DispatchGraphs)
+    return graphs.dispatch(body, (ts, evo, pop_params, tin, tout), gen,
+                           statics, n_blocks, n_boundaries,
+                           warm_up=warm_up if hmc else None)

@@ -1527,7 +1527,11 @@ def _draw_hist_miss(gen, S: int, A: int, dtype, device) -> HistDraws:
 
 def draw_spr1_miss(gen, N: int, L: int, WH_: int, dtype, device,
                    H_RT_: int = H_RT_MISS,
-                   attempts: int = _hist.ATTEMPTS) -> Spr1MissDraws:
+                   attempts: int | None = None) -> Spr1MissDraws:
+    """A move's draws, ``attempts`` (None: ``history.ATTEMPTS``, read at
+    the call) candidate attempts per history slot."""
+    attempts = _hist.ATTEMPTS if attempts is None else attempts
+
     def u(n=1):
         return torch.rand((n,), generator=gen, dtype=dtype, device=device)
     return Spr1MissDraws(
@@ -1540,9 +1544,12 @@ def draw_spr1_miss(gen, N: int, L: int, WH_: int, dtype, device,
 
 
 def more_attempts_miss(gen, draws: Spr1MissDraws,
-                       attempts: int = _hist.ATTEMPTS) -> Spr1MissDraws:
-    """``draws`` with ``attempts`` more candidate attempts per history slot
-    appended (the earlier attempts keep their places)."""
+                       attempts: int | None = None) -> Spr1MissDraws:
+    """``draws`` with ``attempts`` (None: ``history.ATTEMPTS``) more
+    candidate attempts per history slot appended (the earlier attempts keep
+    their places)."""
+    attempts = _hist.ATTEMPTS if attempts is None else attempts
+
     def ext(h: HistDraws) -> HistDraws:
         more = _draw_hist_miss(gen, h.u_k.shape[1], attempts, h.u_k.dtype,
                                h.u_k.device)
@@ -1685,27 +1692,35 @@ def spr1_sweep_miss_core(p, L: int, c, t_max_tip, draws_seq, WRB: int,
         pp, L, c, t_max_tip, d, WRB, H_RT_, f), p, draws_seq)
 
 
+def _miss_move(p, draws, L, c, t_max_tip, WRB, H_RT_, f):
+    return spr1_miss_core(p, L, c, t_max_tip, draws, WRB, H_RT_, f)
+
+
 def spr1_sweep_miss(gen, p, L: int, n_moves: int, c, t_max_tip, WRB: int,
                     WH_: int, H_RT_: int = H_RT_MISS, f: float = 0.8,
-                    record=None) -> SweepResult:
+                    record=None, _eager: bool = False) -> SweepResult:
     """n_moves sequential missation-aware SPR1 moves on draws from ``gen``,
     one host sync.  ``record`` (a list) receives the list of the draws the
-    moves used, which ``spr1_sweep_miss_core`` replays."""
+    moves used, which ``spr1_sweep_miss_core`` replays.  On CUDA the moves
+    replay one move's CUDA graph (``spr_move._sweeps``: ``_eager`` as
+    there)."""
     return spr1_sweep_miss_lanes(gen, [p], L, n_moves, c, t_max_tip, WRB,
-                                 WH_, H_RT_, f, record)[0]
+                                 WH_, H_RT_, f, record, _eager)[0]
 
 
 def spr1_sweep_miss_lanes(gen, ps, L: int, n_moves: int, c, t_max_tip,
                           WRB: int, WH_: int, H_RT_: int = H_RT_MISS,
-                          f: float = 0.8, record=None) -> list:
+                          f: float = 0.8, record=None,
+                          _eager: bool = False) -> list:
     """spr1_sweep_miss on each packed tree of ``ps`` (lanes of one shape,
     the counterpart of the JAX bench's vmap over lanes): the lanes' moves
     interleaved and their flags read together, one host sync for all the
     lanes.  Each lane equals spr1_sweep_miss_core on its own draws
-    (``record`` receives one list per lane)."""
+    (``record`` receives one list per lane); on CUDA the lanes replay one
+    move's graph, each lane's tree copied in for its move."""
     dtype, dev = ps[0]["t"].dtype, ps[0]["t"].device
     N = ps[0]["parent"].shape[0]
     return _sweeps(
-        lambda pp, d: spr1_miss_core(pp, L, c, t_max_tip, d, WRB, H_RT_, f),
+        _miss_move, (L, c, t_max_tip, WRB, H_RT_, f),
         lambda: draw_spr1_miss(gen, N, L, WH_, dtype, dev, H_RT_), gen, ps,
-        n_moves, record, more=more_attempts_miss)
+        n_moves, record, more=more_attempts_miss, _eager=_eager)

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE, resolve_device, resolve_dtype
+from ..parallel import dispatch_graph as dg
 from ..phylo import FlatTree, Mutation
 from . import history as _hist
 from . import spr_study as _study
@@ -634,7 +635,11 @@ def _draw_hist(gen, S: int, A: int, dtype, device) -> HistDraws:
 
 
 def draw_spr1(gen, N: int, L: int, dtype, device,
-              attempts: int = _hist.ATTEMPTS) -> Spr1Draws:
+              attempts: int | None = None) -> Spr1Draws:
+    """A move's draws, ``attempts`` (None: ``history.ATTEMPTS``, read at
+    the call) candidate attempts per history slot."""
+    attempts = _hist.ATTEMPTS if attempts is None else attempts
+
     def u(n=1):
         return torch.rand((n,), generator=gen, dtype=dtype, device=device)
     return Spr1Draws(
@@ -645,7 +650,10 @@ def draw_spr1(gen, N: int, L: int, dtype, device,
 
 
 def draw_slide(gen, N: int, L: int, dtype, device,
-               attempts: int = _hist.ATTEMPTS) -> SlideDraws:
+               attempts: int | None = None) -> SlideDraws:
+    """A move's draws (``attempts`` as in ``draw_spr1``)."""
+    attempts = _hist.ATTEMPTS if attempts is None else attempts
+
     def u(n=1):
         return torch.rand((n,), generator=gen, dtype=dtype, device=device)
     return SlideDraws(
@@ -656,9 +664,12 @@ def draw_slide(gen, N: int, L: int, dtype, device,
         r=_draw_hist(gen, H_RT, attempts, dtype, device), u_mh=u())
 
 
-def more_attempts(gen, draws, attempts: int = _hist.ATTEMPTS):
-    """``draws`` with ``attempts`` more candidate attempts per history slot
-    appended (the earlier attempts keep their places)."""
+def more_attempts(gen, draws, attempts: int | None = None):
+    """``draws`` with ``attempts`` (None: ``history.ATTEMPTS``) more
+    candidate attempts per history slot appended (the earlier attempts keep
+    their places)."""
+    attempts = _hist.ATTEMPTS if attempts is None else attempts
+
     def ext(h: HistDraws) -> HistDraws:
         u_k, steps = _hist.draw_attempts(gen, h.u_k.shape[0], attempts,
                                          h.u_k.dtype, h.u_k.device)
@@ -1022,14 +1033,25 @@ def slide_sweep_core(p, ref_seq, L: int, mu, nu, qtab, qatab, part,
         p, draws_seq)
 
 
-def _sweeps(core, draw, gen, ps, n_moves: int, record,
-            more=more_attempts) -> list:
-    """n_moves of ``core`` on each packed tree of ``ps`` (lanes interleaved
-    move by move), on draws made up front by ``draw()``.  The moves run
-    without a host sync; all the lanes' exhaustion flags are read once at
-    the end, and a lane whose move lacked attempts reruns from that move
-    with more attempts (``more(gen, draws)``: the same samples as a
-    move-by-move loop)."""
+def _sweeps(core, args: tuple, draw, gen, ps, n_moves: int, record,
+            more=more_attempts, _eager: bool = False) -> list:
+    """n_moves of ``core(p, draws, *args)`` -> (p, accept, delta_log_G,
+    eligible, diag) on each packed tree of ``ps`` (lanes interleaved move
+    by move), on draws made up front by ``draw()``.  The moves run without
+    a host sync; all the lanes' exhaustion flags are read once at the end,
+    and a lane whose move lacked attempts reruns from that move with more
+    attempts (``more(gen, draws)``: the same samples as a move-by-move
+    loop).
+
+    On CUDA (``dispatch_graph.captures_on``) the moves are replays of one
+    move's CUDA graph (``_graph_sweeps``, through this thread's
+    ``MoveGraphs``), the counterpart of the JAX sweep's ``lax.scan``; on
+    the CPU, or with ``_eager`` (private: the graph-against-eager checks),
+    this eager loop, which keeps the tree before every move.  Both give
+    the same bits."""
+    if n_moves and not _eager and dg.captures_on(ps[0]["t"].device):
+        return _graph_sweeps(core, args, draw, gen, ps, n_moves, record,
+                             more)
     draws = [[draw() for _ in range(n_moves)] for _ in ps]
     start = [0] * len(ps)           # each lane's first move still to run
     states = [[p] for p in ps]      # states[lane][m]: the tree before move m
@@ -1043,60 +1065,201 @@ def _sweeps(core, draw, gen, ps, n_moves: int, record,
             for lane in todo:
                 if m >= start[lane]:
                     p_out, acc, g, el, diag = core(states[lane][-1],
-                                                   draws[lane][m])
+                                                   draws[lane][m], *args)
                     states[lane].append(p_out)
                     moves[lane].append((acc, g, el, diag["exhausted"]))
-        flags = torch.stack([torch.cat([mv[3] for mv in moves[lane]])
-                             for lane in todo])
-        rerun = []
-        # the sweep's one host sync (and one more per rerun, ~1e-5 a move)
-        for lane, bad, fl in zip(todo, flags.any(1).tolist(), flags):
-            if bad:
-                first = int(torch.argmax(fl.to(torch.int8)))
-                draws[lane][first] = more(gen, draws[lane][first])
-                start[lane] = first
-                rerun.append(lane)
-        todo = rerun
+        todo = _reruns(todo, moves, draws, start, gen, more)
     if record is not None:
         record.extend(draws)
     return [_sum_moves(st[-1], mv) for st, mv in zip(states, moves)]
 
 
+def _reruns(todo, moves, draws, start, gen, more) -> list:
+    """The lanes of ``todo`` to run again: each one whose flags say a move
+    lacked attempts gets that move's draws widened (``more``) and starts
+    again there."""
+    flags = torch.stack([torch.cat([mv[3] for mv in moves[lane]])
+                         for lane in todo])
+    rerun = []
+    # the sweep's one host sync (and one more per rerun, ~1e-5 a move)
+    for lane, bad, fl in zip(todo, flags.any(1).tolist(), flags):
+        if bad:
+            first = int(torch.argmax(fl.to(torch.int8)))
+            draws[lane][first] = more(gen, draws[lane][first])
+            start[lane] = first
+            rerun.append(lane)
+    return rerun
+
+
+# move graphs a thread's MoveGraphs keeps, one per core and input
+# signature, which the lanes of a sweep share, whatever their count
+# (chip_smoke phase 13(b) holds 4 at each tree: SPR1, the slide, SPR1 on
+# the forced reruns' fewer attempts, a float32 SPR1; phase 14 holds 3)
+MAX_MOVE_GRAPHS = 8
+
+
+class MoveGraphs(dg.GraphCache):
+    """A cache of SPR move graphs (``_graph_sweeps``): one graph of
+    ``core(p, draws, *args)`` a core and input signature, over buffers of
+    one packed tree, one move's draws and the move's constants, which the
+    lanes of a sweep share.  It keeps ``MAX_MOVE_GRAPHS`` graphs.
+    ``captures`` lists each capture's move, ms and pool bytes; ``replays``
+    counts the replays, ``eager_moves`` the moves run eagerly on the
+    buffers (a rerun's widened draws, whose shape is not the graph's) and
+    ``reruns`` the lanes rerun from their first tree."""
+
+    def __init__(self):
+        super().__init__()
+        self.eager_moves = 0
+        self.reruns = 0
+
+    @property
+    def limit(self) -> int:
+        return MAX_MOVE_GRAPHS
+
+    def graph(self, core, p: dict, draws, args: tuple):
+        """The graph of one ``core`` move on inputs of the signature of
+        (``p``, ``draws``, ``args``; the values of ``args`` that are not
+        tensors among it).  It carries the tree; its ``out`` holds (accept,
+        delta_log_G, eligible, diag["exhausted"])."""
+        inputs = (p, draws, args)
+        sig = dg.signature(inputs)
+        bufs = self._buffers(sig, inputs)
+
+        def move(p, draws, args):
+            p_out, acc, g, el, diag = core(p, draws, *args)
+            return ({k: p_out[k] for k in p},
+                    (acc, g, el, diag["exhausted"]))
+
+        return self._graph((core, sig), bufs, move, 1, None, kernels=False,
+                           move=core.__name__)
+
+    def replay(self, graph) -> None:
+        graph.replay()
+        self.replays += 1
+
+
+def _graph_sweeps(core, args: tuple, draw, gen, ps, n_moves: int, record,
+                  more) -> list:
+    """_sweeps' graph path: every move of every lane replays one graph
+    (``MoveGraphs.graph``) over buffers of (tree, one move's draws,
+    ``args``).  Each replay follows a copy of that move's draws into their
+    buffers, and the lane's tree when another lane's move ran last (the
+    other lane's tree cloned out first); it is followed by a copy out of
+    its (accept, delta_log_G, eligible, exhausted).  A lane that must
+    rerun from move m starts again from its first tree: moves before m
+    replay (deterministic, the same bits), and a move whose draws were
+    widened (not the graph's shape) runs eagerly on the buffers.  On CPU
+    tensors the move runs as it is through the same buffers (the tests'
+    check of the plumbing)."""
+    tree_sig = dg.signature(ps[0])
+    if any(dg.signature(p) != tree_sig for p in ps[1:]):
+        raise ValueError("the lanes of a sweep must be trees of one shape")
+    graphs = dg.thread_cache(MoveGraphs)
+    draws = [[draw() for _ in range(n_moves)] for _ in ps]
+    shape = dg.signature(draws[0][0])
+    graph = graphs.graph(core, ps[0], draws[0][0], args)
+    bufs = graph.bufs
+    bufs.copy_in(args, at=2)
+    tree = dg.leaves(bufs.inputs[0])
+    trees = [None] * len(ps)        # a lane's tree while out of the buffers
+    start = [0] * len(ps)
+    moves = [[] for _ in ps]
+    todo = list(range(len(ps)))
+    while todo:
+        for lane in todo:
+            del moves[lane][start[lane]:]
+            trees[lane] = dg.leaves(ps[lane])
+        held = None                 # the lane whose tree is in the buffers
+        for m in range(n_moves):
+            for lane in todo:
+                if held != lane:
+                    if held is not None:
+                        trees[held] = dg.clone_out(tree)
+                    bufs.copy_in(trees[lane], at=0)
+                    held = lane
+                out = _graph_move(graphs, graph, core, draws[lane][m], shape)
+                if m >= start[lane]:
+                    moves[lane].append(tuple(dg.clone_out(list(out))))
+        trees[held] = dg.clone_out(tree)
+        todo = _reruns(todo, moves, draws, start, gen, more)
+        graphs.reruns += len(todo)
+    if record is not None:
+        record.extend(draws)
+    return [_sum_moves(dg.rebuild(bufs.inputs[0], iter(t)), mv)
+            for t, mv in zip(trees, moves)]
+
+
+def _graph_move(graphs: MoveGraphs, graph, core, draws, shape) -> tuple:
+    """One move on the buffers: a replay of ``graph`` on ``draws``, or,
+    where they are not of the graph's ``shape`` (a rerun's widened
+    draws), the move run eagerly on the buffers.  Returns (accept,
+    delta_log_G, eligible, exhausted), to be cloned out before the next
+    move."""
+    bufs = graph.bufs
+    if dg.signature(draws) == shape:
+        bufs.copy_in(draws, at=1)
+        graphs.replay(graph)
+        return graph.out
+    p, _, args = bufs.inputs
+    p_out, acc, g, el, diag = core(p, draws, *args)
+    dg.copy_back([p_out[k] for k in p], list(p.values()))
+    graphs.eager_moves += 1
+    return acc, g, el, diag["exhausted"]
+
+
+def _spr1_move(p, draws, ref_seq, L, mu, nu, qtab, qatab, part, lambda_ref,
+               t_max_tip, f):
+    return spr1_core(p, ref_seq, L, mu, nu, qtab, qatab, part, lambda_ref,
+                     t_max_tip, draws, f)
+
+
+def _slide_move(p, draws, ref_seq, L, mu, nu, qtab, qatab, part,
+                lambda_ref, t_max_tip):
+    return slide_core(p, ref_seq, L, mu, nu, qtab, qatab, part, lambda_ref,
+                      t_max_tip, draws)
+
+
 def spr1_sweep(gen, p, ref_seq, L: int, n_moves: int, mu, nu, qtab, qatab,
                part, lambda_ref, t_max_tip, f: float = 0.8,
-               record=None) -> SweepResult:
+               record=None, _eager: bool = False) -> SweepResult:
     """n_moves sequential SPR1 moves on draws from ``gen`` — the production
     dispatch shape: a whole topology sweep per call, one host sync.
     ``record`` (a list) receives the list of the draws the moves used,
-    which ``spr1_sweep_core`` replays."""
+    which ``spr1_sweep_core`` replays.  On CUDA the moves replay one
+    move's CUDA graph (``_eager`` as in ``_sweeps``)."""
     return spr1_sweep_lanes(gen, [p], ref_seq, L, n_moves, mu, nu, qtab,
-                            qatab, part, lambda_ref, t_max_tip, f, record)[0]
+                            qatab, part, lambda_ref, t_max_tip, f, record,
+                            _eager)[0]
 
 
 def spr1_sweep_lanes(gen, ps, ref_seq, L: int, n_moves: int, mu, nu, qtab,
                      qatab, part, lambda_ref, t_max_tip, f: float = 0.8,
-                     record=None) -> list:
+                     record=None, _eager: bool = False) -> list:
     """spr1_sweep on each packed tree of ``ps`` (lanes of one shape, the
     counterpart of the JAX package's vmap over chains): the lanes' moves
     interleaved and their exhaustion flags read together, one host sync
     for all the lanes.  Each lane equals spr1_sweep_core on its own draws
-    (``record`` receives one list per lane)."""
+    (``record`` receives one list per lane); on CUDA the lanes replay one
+    move's graph, each lane's tree copied in for its move."""
     dtype, dev = ps[0]["t"].dtype, ps[0]["t"].device
     N = ps[0]["parent"].shape[0]
     return _sweeps(
-        lambda pp, d: spr1_core(pp, ref_seq, L, mu, nu, qtab, qatab, part,
-                                lambda_ref, t_max_tip, d, f),
-        lambda: draw_spr1(gen, N, L, dtype, dev), gen, ps, n_moves, record)
+        _spr1_move, (ref_seq, L, mu, nu, qtab, qatab, part, lambda_ref,
+                     t_max_tip, f),
+        lambda: draw_spr1(gen, N, L, dtype, dev), gen, ps, n_moves, record,
+        _eager=_eager)
 
 
 def slide_sweep(gen, p, ref_seq, L: int, n_moves: int, mu, nu, qtab, qatab,
-                part, lambda_ref, t_max_tip, record=None) -> SweepResult:
+                part, lambda_ref, t_max_tip, record=None,
+                _eager: bool = False) -> SweepResult:
     """n_moves sequential subtree-slide moves on draws from ``gen``, one
     host sync (as ``spr1_sweep``)."""
     dtype, dev = p["t"].dtype, p["t"].device
     N = p["parent"].shape[0]
     return _sweeps(
-        lambda pp, d: slide_core(pp, ref_seq, L, mu, nu, qtab, qatab, part,
-                                 lambda_ref, t_max_tip, d),
+        _slide_move, (ref_seq, L, mu, nu, qtab, qatab, part, lambda_ref,
+                      t_max_tip),
         lambda: draw_slide(gen, N, L, dtype, dev), gen, [p], n_moves,
-        record)[0]
+        record, _eager=_eager)[0]

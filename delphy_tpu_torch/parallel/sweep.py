@@ -354,7 +354,8 @@ def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
     boundary with a sweep by an eager all-reduce of its reassembly
     buffer's size (the NCCL communicator is made outside the capture).
     On CPU tensors the body runs as it is through the same buffers (the
-    tests' check of the plumbing)."""
+    tests' check of the plumbing).  Returns (ts, evo, pop_params, ledger,
+    stats, fused) as parts_multi_super_step does."""
     nb = min(n_blocks, nb_max)
     statics = (hyp, num_cells, nb_max, param_moves, float(t_max_tip),
                CELLS_PER_BLOCK,
@@ -382,5 +383,6 @@ def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
     inputs = (ts, evo, pop_params, tin, tout, pm)
     if part_sel is not None:
         inputs += (part_sel,)
-    return graphs.dispatch(body, inputs, gen, statics, nb, n_boundaries,
-                           warm_up=warm_up if hmc or reduce else None)
+    out = graphs.dispatch(body, inputs, gen, statics, nb, n_boundaries,
+                          warm_up=warm_up if hmc or reduce else None)
+    return (*out, fuse_for_host(out[:3]))

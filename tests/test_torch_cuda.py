@@ -29,7 +29,9 @@ equal their CPU replay with one host synchronisation a sweep.  The port's
 float64 chain at configuration S of data/jax_posterior_reference.json
 samples the JAX package's posterior on the card.  The blocking driver
 through CUDA graphs gives the eager loop's bits in both precisions, and
-so does the overlapped driver (its G and L dispatches).
+so does the overlapped driver (its G and L dispatches), the unpartitioned
+step's multi_super_step and the device SPR sweeps, these also where moves
+run out of attempts and lanes rerun.
 """
 
 import os
@@ -1291,3 +1293,120 @@ def test_overlapped_graph_dispatch_equals_eager(device, dtype, monkeypatch):
             torch.cuda.set_sync_debug_mode("default")
     assert not [w for w in caught if "called a synchronizing CUDA "
                 "operation" in str(w.message)]
+
+
+def _graph_or_eager_call(what, device, gen, n_moves):
+    """``call(eager)`` of the unpartitioned step (``multi_super_step``, 3
+    boundaries on 30 Ebola tips) or of a lanes sweep (3 lanes of
+    ``n_moves`` on 16 tips x 3,000 sites): a flat list of its tensors."""
+    import sys
+
+    from delphy_tpu_torch.mcmc import kernel as mk
+    from delphy_tpu_torch.ops import spr_miss as pm
+    from delphy_tpu_torch.ops import spr_move as sm
+    from delphy_tpu_torch.run import Run
+    from delphy_tpu_torch.state import _leaves
+    if what == "multi_super_step":
+        run = Run(ebola_tree(30), seed=3, num_cells=128, device=device,
+                  topology_moves_enabled=False)
+        args = (run.ts, run.evo, run.pop, gen, run.tin, run.tout, 1000,
+                run.t_max_tip, run.hyp, run.num_cells, 3)
+
+        def call(eager):
+            out = mk.multi_super_step(*args, _eager=eager)
+            return _leaves(out[:4]) + [out[4]["local_moves_attempted"]]
+        return call
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_topo_dev_bench as tdb
+    from delphy_tpu_torch.phylo import (build_greedy_tree,
+                                        rereference_to_root_sequence)
+    from delphy_tpu_torch.sim import simulate_dataset
+    miss = what == "spr1_sweep_miss_lanes"
+    ref, deltas, gaps, dates, names, _ = simulate_dataset(
+        16, 3000, mu=tdb.MU, sample_window_days=700.0,
+        missing_fraction=0.02 if miss else 0.0, seed=3)
+    tree = build_greedy_tree(ref, deltas, gaps, dates, names=names,
+                             rng=np.random.default_rng(3))
+    rereference_to_root_sequence(tree)
+    p, c, t_max_tip, WRB, WH_ = tdb.move_args(tree, device, F64)
+
+    def call(eager):
+        if miss:
+            res = pm.spr1_sweep_miss_lanes(
+                gen, [p] * 3, tree.num_sites, n_moves, c, t_max_tip, WRB,
+                WH_, _eager=eager)
+        else:
+            res = sm.spr1_sweep_lanes(
+                gen, [sm.pack_tree(tree, device=device)] * 3,
+                c["ref_seq"], tree.num_sites, n_moves, c["mu"], c["nu"],
+                c["qtab"], c["qatab"], c["part"], c["lambda_ref"],
+                t_max_tip, _eager=eager)
+        return [x for r in res for x in
+                [r.p[k] for k in sorted(r.p)] + list(r[1:])]
+    return call
+
+
+def _graph_against_eager(call, gen, monkeypatch):
+    """``call`` through graphs, then eager, from one generator state, each
+    on fresh thread caches: the tensors and the generator's end state
+    bit-equal, replays on the graph path only, launch counts alike.
+    Returns the graph path's tensors and move cache."""
+    import threading
+
+    from delphy_tpu_torch.ops import spr_move as sm
+    from delphy_tpu_torch.parallel import _cuda
+    from delphy_tpu_torch.parallel import dispatch_graph as dg
+    state = gen.get_state()
+    out = []
+    for eager in (False, True):
+        gen.set_state(state)
+        _cuda.reset_launch_counts()
+        monkeypatch.setattr(dg, "_THREAD", threading.local())
+        got = call(eager)
+        torch.cuda.synchronize()
+        out.append((got, gen.get_state(), _cuda.graph_replays,
+                    dict(_cuda.launch_counts)))
+        if not eager:
+            moves = dg.thread_cache(sm.MoveGraphs)
+    (a, end_a, rep_a, cnt_a), (b, end_b, rep_b, cnt_b) = out
+    assert len(a) == len(b)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(end_a, end_b)
+    assert rep_a > 0 and rep_b == 0 and cnt_a == cnt_b
+    return a, moves
+
+
+@pytest.mark.parametrize("what", ["multi_super_step", "spr1_sweep_lanes",
+                                  "spr1_sweep_miss_lanes"])
+def test_step_and_sweep_graphs_equal_eager(device, what, monkeypatch):
+    """The unpartitioned step and the device SPR sweeps through CUDA graphs
+    (parallel/dispatch_graph.py) against their eager loops (the private
+    _eager) from one generator state: the state, the ledger and the move
+    count, or each lane's tree, counts and delta_log_G, and the generator's
+    state bit-equal; replays on the graph path only."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    n = 6 if what == "spr1_sweep_miss_lanes" else 8
+    _graph_against_eager(_graph_or_eager_call(what, device, gen, n), gen,
+                         monkeypatch)
+
+
+@pytest.mark.parametrize("what", ["spr1_sweep_lanes",
+                                  "spr1_sweep_miss_lanes"])
+def test_exhausted_sweep_graphs_equal_eager(device, what, monkeypatch):
+    """With 2 history attempts a slot (``history.ATTEMPTS``) moves run out
+    of attempts on the card: the graph path reruns lanes from their first
+    trees, replaying and running the widened moves eagerly on the graph's
+    buffers between replays, and still equals the eager loop bit for bit
+    (trees, counts, delta_log_G, generator state); no lane is left
+    exhausted."""
+    from delphy_tpu_torch.ops import history as hh
+    monkeypatch.setattr(hh, "ATTEMPTS", 2)
+    gen = torch.Generator(device=device).manual_seed(5)
+    flat, moves = _graph_against_eager(
+        _graph_or_eager_call(what, device, gen, 4), gen, monkeypatch)
+    assert moves.reruns > 0 and moves.eager_moves > 0
+    assert moves.replays > 0 and len(moves.captures) == 1
+    # each of the 3 lanes' tensors ends (n_accepted, delta_log_G,
+    # n_eligible, exhausted)
+    lane = len(flat) // 3
+    assert not any(bool(x) for x in flat[lane - 1::lane])
