@@ -819,7 +819,7 @@ def check_counts(what: str, path=EXP_PATH, graphs=None) -> dict:
     through CUDA graphs (replays > 0); False: through the eager loop (no
     replay); None: either."""
     from delphy_tpu_torch.parallel import _cuda
-    counts = dict(_cuda.launch_counts)
+    counts = _cuda.kernel_counts()
     replays = _cuda.graph_replays
     for k, v in counts.items():
         if k in path and v <= 0:
@@ -2375,7 +2375,7 @@ def unpartitioned_path(device, card: str) -> dict:
             "enqueue_ms_per_boundary": enq * 1e3 / n,
             "local_moves_attempted": int(res[4]["local_moves_attempted"]),
             "moves_per_s": int(res[4]["local_moves_attempted"]) / wall,
-            "launch_counts": dict(_cuda.launch_counts),
+            "launch_counts": _cuda.kernel_counts(),
             "graph_replays": _cuda.graph_replays}
 
     turns = [turn(eager) for eager in (False, True, True, False)]
@@ -3843,7 +3843,8 @@ def main_recipe(device, dtype, eager: bool, kw=None, boundaries=None):
     return run, {
         "path": "eager" if eager else "graph",
         "moves_per_s": (run.local_moves_attempted - base) / dt, "s": dt,
-        "launch_counts": {k: v for k, v in _cuda.launch_counts.items() if v},
+        "launch_counts": {k: v for k, v in _cuda.kernel_counts().items()
+                          if v},
         "graph_replays": _cuda.graph_replays, "step": run.step,
         "log_post": run.log_posterior, "ledger_tol": tol,
         "graphs_after_first_call": first, "graphs": graph_summary(run)}
@@ -4153,7 +4154,7 @@ def graph_overlap(device, card: str, tips: int = LARGE_TIPS,
                     moves_per_s=(run.last_cycle["local_moves"]
                                  + run.last_cycle["burst_moves"]) / dt,
                     launch_counts={k: v for k, v in
-                                   _cuda.launch_counts.items() if v},
+                                   _cuda.kernel_counts().items() if v},
                     graph_replays=_cuda.graph_replays,
                     captures=len(new),
                     capture_ms=sum(c["ms"] for c in new),

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from .. import pop as popm
+from .. import tracing
 from ..evo import EvoParams
 from ..ops import coalescent as coal
 from ..ops import likelihood as lk
@@ -48,13 +49,17 @@ def run_global_moves(ts: TreeState, evo: EvoParams, pop_params,
     (ts, evo, pop_params, grid, caches, ledger, stats).
 
     param_moves=False skips every parameter move but keeps the grid rebuild,
-    the caches and the full ledger recompute (deterministic)."""
+    the caches and the full ledger recompute (deterministic).  The device
+    sections (``tracing.section``): global.stats, global.evo_moves,
+    global.pop_moves (the grid, then the population moves), global.ledger."""
+    tracing.section("global.stats")
     cnt, nucum = lk.calc_ref_state_prefix(ts, evo)
     root_freq = lk.calc_root_state_frequencies(ts, evo, cnt)
     num_muts = lk.calc_num_muts(ts)
     M_ab = lk.calc_num_muts_ab(ts)
     Ttwiddle_a = lk.calc_Ttwiddle_a(ts, evo, tin, tout, nucum)
 
+    tracing.section("global.evo_moves")
     if not param_moves:
         pass
     elif hyp.mpox_enabled:
@@ -82,6 +87,7 @@ def run_global_moves(ts: TreeState, evo: EvoParams, pop_params,
         evo = gm.alpha_and_nu_moves(gen, evo, Ttwiddle_l, M_l, hyp)
 
     # 4-pre. rebuild the coalescent grid around the current tree span
+    tracing.section("global.pop_moves")
     t_lo, t_step = boundary_grid_bounds(ts, t_max_tip, num_cells)
     is_tip = ts.is_tip
     grid = coal.make_grid(pop_params, ts.t, is_tip, t_lo, t_step, num_cells)
@@ -113,6 +119,7 @@ def run_global_moves(ts: TreeState, evo: EvoParams, pop_params,
         grid = refresh(grid, pop_params)
 
     # final ledger: full recompute under the accepted parameters
+    tracing.section("global.ledger")
     caches = gm.compute_caches(ts, evo)
     log_G = lk.calc_log_G(ts, evo, caches.lambda_i, caches.root_freq)
     log_coal = coal.calc_log_prior(grid, pop_params, ts.t, is_tip)
@@ -244,9 +251,13 @@ def run_local_sweep(ts: TreeState, caches: Caches, grid, ledger: Ledger, evo,
     nominal moves need, on draws from ``gen``.  Returns (ts, grid, ledger,
     count)."""
     n_blocks, k_max = sweep_shape(n_moves, grid.num_cells)
+    tracing.section("sweep.prep")
     draws = draw_sweep(gen, ts, n_blocks, k_max)
-    return local_sweep_core(ts, caches, grid, ledger, evo, pop_params, draws,
-                            t_max_tip)
+    tracing.section("sweep.kernel")
+    out = local_sweep_core(ts, caches, grid, ledger, evo, pop_params, draws,
+                           t_max_tip)
+    tracing.section("sweep.update")
+    return out
 
 
 def _super_step(ts: TreeState, evo: EvoParams, pop_params,

@@ -27,6 +27,14 @@ capture, and launches nothing then: inside ``recording()`` its count goes
 to the capture's record instead, and each replay of the graph adds that
 record (``tally``), so the counts mean launches on the card either way.
 ``graph_replays`` counts the replays.
+
+``launch_counts`` also holds ``ops.<section>`` for each of
+``tracing.SECTIONS``: the device operations (kernels, memcpys, memsets)
+that ran in that section of a boundary, every operation of the graph and
+not only this module's kernels.  A capture counts its graph's nodes in
+each section (``tracing.section``) into its record's ``sections``, and
+each replay adds them as it adds the launches; the eager loop counts
+none.
 """
 
 from __future__ import annotations
@@ -42,6 +50,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -56,7 +66,8 @@ _KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain",
             "sweep_chain_skygrid", "sweep_chain_global",
             "sweep_chain_skygrid_global")
 launch_counts = dict.fromkeys(
-    list(_KERNELS) + [k + "_f32" for k in _KERNELS], 0)
+    list(_KERNELS) + [k + "_f32" for k in _KERNELS]
+    + ["ops." + s for s in tracing.SECTIONS], 0)
 launch_blocks = dict.fromkeys(launch_counts, 0)
 graph_replays = 0
 
@@ -120,6 +131,12 @@ def reset_launch_counts() -> None:
         graph_replays = 0
 
 
+def kernel_counts() -> dict:
+    """``launch_counts`` of the kernels alone, without ``ops.<section>``."""
+    return {k: v for k, v in launch_counts.items()
+            if not k.startswith("ops.")}
+
+
 def suffix(dtype) -> str:
     """The C entry suffix of a kernel's build for ``dtype``: "" (float64)
     or "_f32" (float32)."""
@@ -140,13 +157,23 @@ def count_launch(name: str, blocks: int = 1) -> None:
         launch_blocks[name] += blocks
 
 
+class Record(list):
+    """A capture's launches, (name, blocks) each, and ``sections``: the
+    graph's device nodes in each section it marked (``ops.<section>`` ->
+    nodes, filled by ``tracing.counting``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.sections = {}
+
+
 @contextlib.contextmanager
 def recording():
     """Within the block, this thread's ``count_launch`` calls append
-    (name, blocks) to the list it yields instead of counting: a graph's
-    capture, whose launches happen at its replays."""
+    (name, blocks) to the ``Record`` it yields instead of counting: a
+    graph's capture, whose launches happen at its replays."""
     prev = getattr(_RECORD, "launches", None)
-    _RECORD.launches = record = []
+    _RECORD.launches = record = Record()
     try:
         yield record
     finally:
@@ -155,12 +182,15 @@ def recording():
 
 def tally(record, replays: int = 1) -> None:
     """Count ``replays`` replays of a graph whose capture recorded
-    ``record``: each of its launches, that many times."""
+    ``record``: each of its launches, and each section's nodes, that many
+    times."""
     global graph_replays
     with _COUNT_LOCK:
         for name, blocks in record:
             launch_counts[name] += replays
             launch_blocks[name] += replays * blocks
+        for key, n in record.sections.items():
+            launch_counts[key] += replays * n
         graph_replays += replays
 
 

@@ -69,7 +69,18 @@ Each step is a body over static buffers (``_Graph``):
   later replay overwrites.  Every step of a call (copy-in, replays,
   hand-off) runs on the current stream, so a copy the caller starts after
   it (``state.fetch_later``) follows it.  ``Run`` makes its host bundle
-  (``fuse_for_host``) from what the hand-off returns.
+  (``fuse_for_host``) from what the hand-off returns;
+- the record: a capture runs inside ``_cuda.recording()``, so the
+  launches of the port's kernels go to the graph's ``record``, and inside
+  ``tracing.counting``, so the boundary's section marks
+  (``tracing.section``: global statistics, evolutionary and population
+  moves, ledger, sweep preparation, kernel and update) count the graph's
+  device nodes into ``record.sections``.  Each replay adds the record to
+  ``_cuda.launch_counts`` (``_cuda.tally``): the kernels' launches and
+  ``ops.<section>``, a boundary's device operations section by section;
+- the spans: a dispatch's copy-in, capture, replays and hand-off are
+  ``tracing.span`` ranges (``delphy.dispatch.*``), seen by a profiler
+  and nothing else.
 
 ``captures_on`` says where a loop runs this way: on a CUDA device.  There
 ``graph_rule`` sends every dispatch of both drivers, on every model
@@ -107,6 +118,7 @@ from collections import Counter, OrderedDict
 
 import torch
 
+from .. import tracing
 from . import _cuda
 
 # graphs a dispatch cache keeps (a Run's own, or a thread's for
@@ -319,7 +331,9 @@ class _Graph:
         with torch.cuda.stream(stream), _cuda.recording() as self.record:
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
-                self.written, self.out = step()
+                with tracing.counting(self.record.sections,
+                                      tracing.DeviceNodes(stream)):
+                    self.written, self.out = step()
             except BaseException:
                 _end_failed_capture(self.graph)
                 raise
@@ -370,8 +384,9 @@ class GraphCache:
             if self._stream is None:
                 self._stream = torch.cuda.Stream(bufs.device)
             stream = self._stream
-        graph = self.graphs[key] = _Graph(bufs, body, n_carry, gen, stream,
-                                          warm_up, kernels)
+        with tracing.span("delphy.dispatch.capture"):
+            graph = self.graphs[key] = _Graph(bufs, body, n_carry, gen,
+                                              stream, warm_up, kernels)
         self.captures.append(dict(info, ms=graph.capture_ms,
                                   pool_bytes=graph.pool_bytes))
         self._evict()
@@ -414,21 +429,25 @@ class DispatchGraphs(GraphCache):
         eager loop does, the move count summed over the boundaries."""
         sig = signature(inputs)
         bufs = self._buffers(sig, inputs, _StepBuffers)
-        bufs.copy_in(inputs)
+        with tracing.span("delphy.dispatch.copy_in"):
+            bufs.copy_in(inputs)
 
         def boundary(*inputs):
             ts, evo, pop_params, ledger, stats = body(*inputs)
             stats = dict(stats)
+            tracing.section("sweep.update")
             bufs.acc.add_(stats.pop("local_moves_attempted"))
             return (ts, evo, pop_params), (ledger, stats)
 
         graph = self._graph((statics, n_blocks, sig), bufs, boundary, 3, gen,
                             warm_up, blocks=n_blocks)
-        bufs.acc.zero_()
-        graph.replay(n_boundaries)
+        with tracing.span("delphy.dispatch.replay"):
+            bufs.acc.zero_()
+            graph.replay(n_boundaries)
         self.dispatches[n_blocks] += 1
         self.replays += n_boundaries
-        return self._hand_off(graph, bufs, inputs)
+        with tracing.span("delphy.dispatch.hand_off"):
+            return self._hand_off(graph, bufs, inputs)
 
     @staticmethod
     def _hand_off(graph: _Graph, bufs: _StepBuffers, inputs):

@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..evo import EvoParams
 from ..mcmc.kernel import run_global_moves, skygrid_hmc_warm_up
 from ..mcmc.moves import Caches
@@ -249,6 +250,7 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
         param_moves=param_moves)
     nb = min(n_blocks, nb_max)
     if nb == 0:
+        tracing.section("sweep.update")
         return ts, evo, pop_params, ledger, dict(
             stats, local_moves_attempted=torch.zeros(
                 (), dtype=torch.int64, device=ts.t.device))
@@ -257,6 +259,7 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
     if mesh is not None:
         shard = mesh.shard_rows(P)
         rows = shard if part_sel is None else part_sel[shard]
+    tracing.section("sweep.prep")
     stat, ctx_arrs, shared, t_p, mut_t_p = prepare_sweep(
         ts, evo, pop_params, grid, caches, pm, gen, t_max_tip, num_cells,
         rows)
@@ -266,8 +269,12 @@ def _boundary_body(ts: TreeState, evo, pop_params, gen: torch.Generator, tin,
                               ts.t.dtype)
     if mesh is not None:
         u = select_parts(u, shard)
+    # the kernel closes its section: the wrapper packs before the launch
+    # and returns views of its outputs
+    tracing.section("sweep.kernel")
     t_new, mut_new, _kp, dG_p, dC_p, cnt_p = bc.sweep_chain_kernel(
         stat, nb, ctx_arrs, shared, u)
+    tracing.section("sweep.update")
     P_run = t_p.shape[0]
     dt_p = t_new.reshape(P_run, stat.NC) - t_p
     dmut_p = mut_new.reshape(P_run, stat.MC) - mut_t_p
@@ -385,4 +392,5 @@ def graph_dispatch(graphs, ts: TreeState, evo, pop_params,
         inputs += (part_sel,)
     out = graphs.dispatch(body, inputs, gen, statics, nb, n_boundaries,
                           warm_up=warm_up if hmc or reduce else None)
-    return (*out, fuse_for_host(out[:3]))
+    with tracing.span("delphy.dispatch.hand_off"):
+        return (*out, fuse_for_host(out[:3]))

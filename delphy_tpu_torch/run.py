@@ -47,6 +47,7 @@ import torch
 
 from . import DEFAULT_DEVICE, resolve_device, resolve_dtype
 from . import pop as popm
+from . import tracing
 from .convert import part_maps_to_torch
 from .evo import EvoParams, apobec_context_partition, make_evo_params
 from .mcmc import global_moves as gm
@@ -317,12 +318,14 @@ class Run:
     def _absorb(self, arr, boundaries: int, n_blocks: int):
         """Count one dispatch's attempted moves (a host sync) and feed the
         measured moves-per-block rate that sizes later dispatches."""
-        attempted = int(arr)
+        with tracing.span("delphy.wait"):
+            attempted = int(arr)
         self.local_moves_attempted += attempted
         measured = attempted / (boundaries * n_blocks)
         self._per_block_rate = max(
             1.0, 0.7 * self._per_block_rate + 0.3 * measured)
 
+    @tracing.spanned("delphy.repartition")
     def _repartition(self, sync_times: bool = False):
         """(Re)build the device partition maps from the current tree
         (Run::repartition, run.cpp:110-190), with the same host draws and
@@ -415,12 +418,13 @@ class Run:
             nb_cap = self._nb_cap()
             n_blocks = max(1, min(nb_cap,
                                   round(per_boundary / self._per_block_rate)))
-            (self.ts, self.evo, self.pop, self.ledger, self.last_stats,
-             self._fused_bundle) = parts_multi_super_step(
-                self.ts, self.evo, self.pop, self.gen, self.tin, self.tout,
-                self.pm, n_blocks, self.t_max_tip, self.hyp, self.num_cells,
-                boundaries, nb_max=nb_cap, mesh=self.mesh,
-                graphs=self._graphs)
+            with tracing.span("delphy.dispatch"):
+                (self.ts, self.evo, self.pop, self.ledger, self.last_stats,
+                 self._fused_bundle) = parts_multi_super_step(
+                    self.ts, self.evo, self.pop, self.gen, self.tin,
+                    self.tout, self.pm, n_blocks, self.t_max_tip, self.hyp,
+                    self.num_cells, boundaries, nb_max=nb_cap,
+                    mesh=self.mesh, graphs=self._graphs)
             self.dispatch_count += 1
             # every dispatch's count feeds the next dispatch's size, waiting
             # for the card's tail of it: a rule, not a question of whether
@@ -660,25 +664,54 @@ class Run:
         return max(1, min(2 * (os.cpu_count() or 1), T // 10),
                    min(1024, T // 100))
 
+    @tracing.spanned("delphy.burst")
     def _topology_burst(self, n_moves: int):
         # one fused device->host transfer for everything the burst needs
-        if self._fused_bundle is not None:
-            ints, flts = self._fused_bundle
-            ts_h, evo_h, pop_h = split_for_host(
-                (self.ts, self.evo, self.pop), ints.cpu(), flts.cpu())
-        else:
-            ts_h, evo_h, pop_h = fetch_fused((self.ts, self.evo, self.pop))
-        tree = unpack_state(ts_h, names=self.names)
-        if isinstance(pop_h, popm.SkygridPopParams):
-            host_pop = HostSkygridPop(pop_h.x, pop_h.gamma, pop_h.type)
-        else:
-            host_pop = HostExpPop(pop_h.t0, pop_h.n0, pop_h.g, pop_h.min_pop)
-        mu, nu, q, pi = (float(evo_h.mu), np.asarray(evo_h.nu),
-                         np.asarray(evo_h.q), np.asarray(evo_h.pi))
-        part, q_tab = np.asarray(evo_h.part), np.asarray(evo_h.q_tab)
-        num_cells = min(self.num_cells, 400)
+        with tracing.span("delphy.burst.fetch"):
+            if self._fused_bundle is not None:
+                ints, flts = self._fused_bundle
+                ts_h, evo_h, pop_h = split_for_host(
+                    (self.ts, self.evo, self.pop), ints.cpu(), flts.cpu())
+            else:
+                ts_h, evo_h, pop_h = fetch_fused(
+                    (self.ts, self.evo, self.pop))
+        with tracing.span("delphy.burst.unpack"):
+            tree = unpack_state(ts_h, names=self.names)
+            if isinstance(pop_h, popm.SkygridPopParams):
+                host_pop = HostSkygridPop(pop_h.x, pop_h.gamma, pop_h.type)
+            else:
+                host_pop = HostExpPop(pop_h.t0, pop_h.n0, pop_h.g,
+                                      pop_h.min_pop)
+            mu, nu, q, pi = (float(evo_h.mu), np.asarray(evo_h.nu),
+                             np.asarray(evo_h.q), np.asarray(evo_h.pi))
+            part, q_tab = np.asarray(evo_h.part), np.asarray(evo_h.q_tab)
         self.burst_count += 1
+        with tracing.span("delphy.burst.moves"):
+            self._burst_moves(tree, n_moves, host_pop, mu, nu, q, pi, part,
+                              q_tab)
+        with tracing.span("delphy.burst.chains"):
+            # joint redraw of same-site mutation chains, the one slot class
+            # the device reform cannot touch
+            qa_tab = -np.diagonal(q_tab, axis1=1, axis2=2)
+            window = n_moves * 30.0 / 2.0
+            rounds = max(1, round(
+                window / max(1, self.local_moves_per_global_move)))
+            dlg_chains = resample_multi_site_chains(
+                tree, self.host_rng, mu, nu, part, qa_tab, rounds=rounds)
+            if self.ledger is not None and dlg_chains != 0.0:
+                self.ledger = self.ledger._replace(
+                    log_G=self.ledger.log_G + dlg_chains)
+            # keep the reference sequence anchored at the root (log_G
+            # invariant)
+            rereference_to_root_sequence(tree)
+        with tracing.span("delphy.burst.adopt"):
+            self._adopt_tree(tree)
 
+    def _burst_moves(self, tree: FlatTree, n_moves: int, host_pop, mu, nu, q,
+                     pi, part, q_tab):
+        """The burst's topology moves on the host ``tree``, partitioned or
+        whole, and the ledger's update by their deltas."""
+        num_cells = min(self.num_cells, 400)
         P = self._topology_num_parts()
         if os.environ.get("DELPHY_TPU_TOPO_SINGLE", "0") == "1":
             P = 1
@@ -720,19 +753,6 @@ class Run:
                     log_coal=self.ledger.log_coal + dlc)
         self.topology_accepted += acc
         self.topology_proposed += prop
-        # joint redraw of same-site mutation chains, the one slot class the
-        # device reform cannot touch
-        qa_tab = -np.diagonal(q_tab, axis1=1, axis2=2)
-        window = n_moves * 30.0 / 2.0
-        rounds = max(1, round(window / max(1, self.local_moves_per_global_move)))
-        dlg_chains = resample_multi_site_chains(tree, self.host_rng, mu, nu,
-                                                part, qa_tab, rounds=rounds)
-        if self.ledger is not None and dlg_chains != 0.0:
-            self.ledger = self.ledger._replace(
-                log_G=self.ledger.log_G + dlg_chains)
-        # keep the reference sequence anchored at the root (log_G invariant)
-        rereference_to_root_sequence(tree)
-        self._adopt_tree(tree)
 
     def _adopt_tree(self, tree: FlatTree):
         """Make the host tree after a burst the run's state: grow the pool

@@ -918,7 +918,7 @@ def test_f32_kernels_match_plain(run32, boundary32, device):
     got = bc.sweep_chain_kernel(stat, 32, ctx, shared, u)
     _close_sweep32(got, bc.sweep_chain_torch(stat, 32, ctx, shared, u))
     assert float(got[5].sum()) > 0
-    launched = {k for k, v in _cuda.launch_counts.items() if v}
+    launched = {k for k, v in _cuda.kernel_counts().items() if v}
     assert launched == {"hky_chain_f32", "exp_pop_chain_f32",
                         "sweep_chain_f32"}, launched
 
@@ -1011,7 +1011,7 @@ def test_f32_run_repeats_itself_bit_for_bit(device):
               dtype=F32)
     _cuda.reset_launch_counts()
     run.do_mcmc_steps(2 * run.local_moves_per_global_move)
-    launched = {k for k, v in _cuda.launch_counts.items() if v}
+    launched = {k for k, v in _cuda.kernel_counts().items() if v}
     assert launched and all(k.endswith("_f32") for k in launched), launched
     run.check_derived_quantities(
         max(0.05 * abs(float(run.ledger.log_G)) / 4.5e4, 1e-3))
@@ -1192,7 +1192,7 @@ def test_graph_dispatch_equals_eager(device, dtype, option, monkeypatch):
         run.topology_burst_chunks = 2
         _cuda.reset_launch_counts()
         run.do_mcmc_steps(4 * run.local_moves_per_global_move)
-        out.append((run, dict(_cuda.launch_counts), _cuda.graph_replays))
+        out.append((run, _cuda.kernel_counts(), _cuda.graph_replays))
     (a, counts_a, replays_a), (b, counts_b, replays_b) = out
     assert replays_a > 0 and replays_b == 0
     assert counts_a == counts_b
@@ -1254,7 +1254,7 @@ def test_overlapped_graph_dispatch_equals_eager(device, dtype, monkeypatch):
             run.do_mcmc_steps(400)
             cycles.append({k: v for k, v in run.last_cycle.items()
                            if not k.endswith("_s")})
-        out.append((run, cycles, dict(_cuda.launch_counts),
+        out.append((run, cycles, _cuda.kernel_counts(),
                     _cuda.graph_replays))
     (a, cyc_a, counts_a, replays_a), (b, cyc_b, counts_b, replays_b) = out
     assert replays_a > 0 and replays_b == 0
@@ -1365,7 +1365,7 @@ def _graph_against_eager(call, gen, monkeypatch):
         got = call(eager)
         torch.cuda.synchronize()
         out.append((got, gen.get_state(), _cuda.graph_replays,
-                    dict(_cuda.launch_counts)))
+                    _cuda.kernel_counts()))
         if not eager:
             moves = dg.thread_cache(sm.MoveGraphs)
     (a, end_a, rep_a, cnt_a), (b, end_b, rep_b, cnt_b) = out
