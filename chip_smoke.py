@@ -19,9 +19,13 @@ Phases, each of which raises (exit code != 0) on failure:
      each kernel's bound (bytes over HBM rate, operations over the FP64
      rate, the larger, operations counted from this run's work); the same
      for the skygrid build of the sweep kernel on a real skygrid boundary of
-     each type; with --baseline, time DIR's kernels on the same arguments in
-     turns: baseline, this tree, this tree, baseline (and give the largest
-     difference of their outputs from this tree's);
+     each type; and the fixed-order prefix scan (cumsum0) at the main
+     path's lengths, the sites' n = L (ref_cum_Q) and L + 1 (Ttwiddle_l's
+     interval sums), held to the float64 sequential scan and timed beside
+     the 1-D torch.cumsum (plain) and the stacked (n, 2) torch.cumsum it
+     replaced (library); with --baseline, time DIR's kernels on the same
+     arguments in turns: baseline, this tree, this tree, baseline (and
+     give the largest difference of their outputs from this tree's);
   4. drive the main path: read data/ebola2014_like_81x18959.maple, build the
      initial tree, Run(tree, seed=1, num_cells=400) on the card, several
      dispatches of do_mcmc_steps with topology bursts; then the ledger check
@@ -428,9 +432,10 @@ def build_all(baseline):
 # SASS opcodes of float64 work: arithmetic, compares, min/max, and any
 # conversion to or from float64
 F64_OPCODE = re.compile(r"^(DADD|DMUL|DFMA|DSETP|DMNMX|DMMA|DRCP)|\.F64")
-# the float32 instantiations of the three kernel templates (hky 1, exp_pop
-# 2, sweep 3 models x 2 builds): mangled names with the float argument
-N_F32_KERNELS = 9
+# the float32 instantiations of the kernel templates (hky 1, exp_pop 2,
+# sweep 3 models x 2 builds, prefix scan 1): mangled names with the float
+# argument
+N_F32_KERNELS = 10
 
 
 def check_f32_sass(lib_path: str) -> None:
@@ -661,6 +666,7 @@ def compare_kernels(run, device, base, floor_so, dtype=torch.float64):
         device))
     records.append(rec)
     records.append(compare_skygrid_sweep(device, base, dtype))
+    records.append(compare_prefix_scan(run, device, dtype))
     if floor_so is None:
         return records, None
     floor = launch_floor_ms(floor_so)
@@ -747,6 +753,77 @@ def compare_skygrid_sweep(device, base, dtype=torch.float64) -> dict:
     return rec
 
 
+def scan_bound(x) -> torch.Tensor:
+    """A bound on |kernel - float64 sequential scan| at each output of the
+    prefix scan of ``x``: the kernel's additions nest at most ITEMS + 12 +
+    (i // TILE) deep (csrc/prefix_scan.cu), the sequential scan's i deep,
+    each error at most that depth x the unit roundoff of its precision x
+    the sum of |x| up to i (the float64 scan's own unit for a float64 x,
+    float32's for a float32 x, beside which float64's is negligible)."""
+    from delphy_tpu_torch.parallel import scan_cuda
+    n = x.shape[0]
+    i = torch.arange(n, dtype=torch.float64, device=x.device)
+    tile = scan_cuda.THREADS * scan_cuda.items(x.dtype)
+    depth = scan_cuda.items(x.dtype) + 12 + torch.floor(i / tile)
+    if x.dtype == torch.float64:
+        depth = depth + i
+    unit = torch.finfo(x.dtype).eps / 2
+    return 2.0 * depth * unit * torch.cumsum(x.double().abs(), 0)
+
+
+def compare_prefix_scan(run, device, dtype=torch.float64) -> dict:
+    """Phase 3 (and 12a in float32): the prefix-scan kernel at the main
+    path's lengths, on the boundary's own inputs: the sites' rates (n = L,
+    calc_ref_cum_Q's) and the missing intervals' T_below difference array
+    (n = L + 1, calc_Ttwiddle_l's).  Each held to the float64 sequential
+    scan within ``scan_bound``, bit-equal over repeated launches, and
+    timed: the bare kernel, the wrapper, the plain 1-D torch.cumsum
+    (``plain_ms``; its tiles combine in finishing order) and the stacked
+    (n, 2) torch.cumsum that cumsum0 took before the kernel
+    (``library_ms``).  Bound: 2 n elements of bytes, n - 1 additions."""
+    from delphy_tpu_torch.ops import likelihood as lk
+    from delphy_tpu_torch.parallel import _cuda, scan_cuda
+
+    sfx = _cuda.suffix(dtype)
+    ts, evo = run.ts, run.evo
+    site_Q = evo.mu * evo.nu * evo.qa_tab[evo.part.long(), ts.ref_seq.long()]
+    T_below = lk.calc_T_below(ts, run.tin, run.tout)
+    Tb = lk._miss_T_below(ts, T_below, ts.miss_node)
+    Tb = torch.where(ts.miss_node >= 0, Tb, torch.zeros_like(Tb))
+    diff = lk._scatter_add(ts.num_sites + 1, ts.miss_start, Tb)
+    diff = lk.add_at(diff, lk._c0(ts.miss_end), -Tb)
+    rec = dict(name=SCAN + sfx, route="cuda",
+               source="delphy_tpu_torch/csrc/prefix_scan.cu",
+               replaces="none (the JAX package leaves jnp.cumsum to XLA)")
+    err = 0.0
+    for tag, x in (("L", site_Q.to(dtype).contiguous()),
+                   ("L+1", diff.to(dtype).contiguous())):
+        name = f"{SCAN}{sfx} n={x.shape[0]}"
+        got = scan_cuda.prefix_scan(x)
+        want = torch.cumsum(x.double().cpu(), 0).to(device)
+        e = (got.double() - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (e > scan_bound(x)).any()):
+            raise AssertionError(f"{name}: max |err| {float(e.max()):.3e} "
+                                 f"beyond the scan's bound")
+        if not all(torch.equal(scan_cuda.prefix_scan(x), got)
+                   for _ in range(20)):
+            raise AssertionError(f"{name}: launches differ")
+        err = max(err, float(e.max()))
+        m = measure(name, "delphy_" + SCAN + sfx, scan_cuda.pack_launch(x),
+                    lambda: scan_cuda.prefix_scan(x),
+                    lambda: scan_cuda.prefix_scan_torch(x),
+                    x.shape[0] - 1, None, [(0.0, 0.0)], device)
+        m["library_ms"] = time_ms(
+            lambda: torch.cumsum(torch.stack([x, x], 1), 0)[:, 0], device)
+        log(f"{name}: stacked torch.cumsum {m['library_ms']:.4f} ms, max "
+            f"|err| against the float64 sequential scan {float(e.max())!r}")
+        rec["n=" + tag] = dict(n=x.shape[0], max_abs_err=float(e.max()), **m)
+    rec.update(rec["n=L"])
+    rec["max_abs_err"] = err
+    return rec
+
+
 def main_path(device, card: str):
     """Phase 4: the main path through the user-facing entry points."""
     from delphy_tpu_torch.parallel import _cuda
@@ -806,19 +883,25 @@ def have_flatbuffers() -> bool:
     return True
 
 
-# the kernels each path launches every boundary (and no other)
+# the kernels each path launches every boundary (and no other), beside
+# the prefix scan, which every path launches (SCAN)
 EXP_PATH = ("hky_chain", "exp_pop_chain", "sweep_chain")
 SKYGRID_PATH = ("hky_chain", "sweep_chain_skygrid")
 MPOX_PATH = ("exp_pop_chain", "sweep_chain")
+# cumsum0 on the card: ref_cum_Q and T_below at every boundary
+SCAN = "prefix_scan"
 
 
 def check_counts(what: str, path=EXP_PATH, graphs=None) -> dict:
     """The kernels' launch counts since the last reset, graph replays
     included (each replay adds its capture's launches): every kernel of
-    ``path`` launched, no other.  ``graphs`` True: the launches came
-    through CUDA graphs (replays > 0); False: through the eager loop (no
-    replay); None: either."""
+    ``path`` and the prefix scan (of the path's precision) launched, no
+    other.  ``graphs`` True: the launches came through CUDA graphs
+    (replays > 0); False: through the eager loop (no replay); None:
+    either."""
     from delphy_tpu_torch.parallel import _cuda
+    f32 = all(k.endswith("_f32") for k in path)
+    path = tuple(path) + (SCAN + ("_f32" if f32 else ""),)
     counts = _cuda.kernel_counts()
     replays = _cuda.graph_replays
     for k, v in counts.items():
@@ -2382,8 +2465,9 @@ def unpartitioned_path(device, card: str) -> dict:
     (ts, evo, pop, ledger, stats), gen_end, _ = turns[0]
     for res, end, rec in turns:
         counts = rec["launch_counts"]
-        want = {k: (K if k in ("hky_chain", "exp_pop_chain") else 0)
-                for k in counts}
+        # the prefix scan twice a boundary: T_below and ref_cum_Q
+        want = {k: (K if k in ("hky_chain", "exp_pop_chain") else
+                    2 * K if k == SCAN else 0) for k in counts}
         if counts != want:
             raise AssertionError(f"phase 11(b) {rec['path']}: launch counts "
                                  f"{counts}, expected {want}")
@@ -2705,7 +2789,7 @@ def bench_recipe(device, card) -> dict:
         run.do_mcmc_steps(10)
         run.do_mcmc_steps(n)
     tot = {"f64": [0, 0.0], "f32": [0, 0.0]}
-    launches = dict.fromkeys(F32_EXP_PATH, 0)
+    launches = dict.fromkeys(F32_EXP_PATH + (SCAN + "_f32",), 0)
     for tag in ("f64", "f32", "f32", "f64"):
         run = run32 if tag == "f32" else run64
         _cuda.reset_launch_counts()

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..evo import EvoParams
+from ..parallel import scan_cuda
 from ..state import TreeState
 
 
@@ -44,12 +45,10 @@ def add_at(x, idx, vals):
 def cumsum0(x):
     """torch.cumsum(x, 0) of a 1-D x, in a fixed order on the card: CUDA
     scans a 1-D tensor in tiles combined in whatever order they finish, so
-    a long float scan does not repeat itself bit for bit.  Taken along the
-    first axis of an (n, 2) tensor it is a sequential scan per column, the
-    CPU's order."""
-    if not x.is_cuda:
-        return torch.cumsum(x, 0)
-    return torch.cumsum(torch.stack([x, x], 1), 0)[:, 0]
+    a long float scan does not repeat itself bit for bit.  On the card the
+    prefix-scan kernel, whose order of additions follows the index alone
+    (``parallel/scan_cuda.py``); torch.cumsum on the CPU."""
+    return scan_cuda.prefix_scan(x)
 
 
 def _scatter_add(n: int, idx, vals):

@@ -1131,7 +1131,7 @@ class MoveGraphs(dg.GraphCache):
             return ({k: p_out[k] for k in p},
                     (acc, g, el, diag["exhausted"]))
 
-        return self._graph((core, sig), bufs, move, 1, None, kernels=False,
+        return self._graph((core, sig), bufs, move, 1, None,
                            move=core.__name__)
 
     def replay(self, graph) -> None:

@@ -55,7 +55,8 @@ from .. import tracing
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("hky_chain.cu", "exp_pop_chain.cu", "sweep_chain.cu")
+SOURCES = ("hky_chain.cu", "exp_pop_chain.cu", "sweep_chain.cu",
+           "prefix_scan.cu")
 # headers the sources include (hashed with them)
 HEADERS = ("real.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,7 +65,7 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain",
             "sweep_chain_skygrid", "sweep_chain_global",
-            "sweep_chain_skygrid_global")
+            "sweep_chain_skygrid_global", "prefix_scan")
 launch_counts = dict.fromkeys(
     list(_KERNELS) + [k + "_f32" for k in _KERNELS]
     + ["ops." + s for s in tracing.SECTIONS], 0)
@@ -92,6 +93,7 @@ _ARGTYPES = {
     "delphy_sweep_chain_skygrid": _SWEEP + [_I, _I, _P, _P, _P],
     "delphy_sweep_chain_global": _SWEEP + [_P, _P],
     "delphy_sweep_chain_skygrid_global": _SWEEP + [_I, _I, _P, _P, _P, _P],
+    "delphy_prefix_scan": [_P, _P, _I, _P],
 }
 _ARGTYPES.update({k + "_f32": v for k, v in _ARGTYPES.items()})
 # the shape queries: (argument count, result type)

@@ -291,11 +291,11 @@ class _Graph:
     results (the capture's tensors, rewritten by every replay).  ``gen``
     (None: the step draws nothing) is registered with the graph.
     ``warm_up`` (None: none), called on the buffers' inputs, runs once
-    before, on ``stream``; ``kernels`` builds and loads the CUDA kernels
-    first."""
+    before, on ``stream``.  The CUDA kernels are built and loaded before
+    a capture."""
 
     def __init__(self, bufs: _Buffers, body, n_carry: int, gen, stream,
-                 warm_up=None, kernels: bool = True):
+                 warm_up=None):
         self.bufs = bufs
         carry = leaves(bufs.inputs[:n_carry])
 
@@ -313,8 +313,7 @@ class _Graph:
             self._step = step
             return
         dev = bufs.device
-        if kernels:
-            _cuda.lib()     # built and loaded before the capture
+        _cuda.lib()     # built and loaded before the capture
         self.graph = torch.cuda.CUDAGraph()
         if gen is not None:
             self.graph.register_generator_state(gen)
@@ -374,7 +373,7 @@ class GraphCache:
         return bufs
 
     def _graph(self, key, bufs: _Buffers, body, n_carry: int, gen,
-               warm_up=None, kernels: bool = True, **info) -> _Graph:
+               warm_up=None, **info) -> _Graph:
         graph = self.graphs.get(key)
         if graph is not None:
             self.graphs.move_to_end(key)
@@ -386,7 +385,7 @@ class GraphCache:
             stream = self._stream
         with tracing.span("delphy.dispatch.capture"):
             graph = self.graphs[key] = _Graph(bufs, body, n_carry, gen,
-                                              stream, warm_up, kernels)
+                                              stream, warm_up)
         self.captures.append(dict(info, ms=graph.capture_ms,
                                   pool_bytes=graph.pool_bytes))
         self._evict()
