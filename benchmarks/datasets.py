@@ -1,6 +1,8 @@
 """A configuration's dataset, made or read by the benchmark's own frozen
 code: a MAPLE file under the benchmark's folder, or a simulation at the
-configuration's parameters, made once per checkout and then read back from
+configuration's parameters (``simulated``: HKY, ``frozen/sim.py``;
+``simulated_apobec``: the mpox model's two partitions,
+``frozen/sim_apobec.py``), made once per checkout and then read back from
 ``benchmarks/_cache/`` (named after the configuration and a hash of its
 parameters)."""
 
@@ -12,7 +14,7 @@ import os
 
 import numpy as np
 
-from .frozen import maple, sim
+from .frozen import maple, sim, sim_apobec
 
 CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_cache")
 
@@ -21,7 +23,7 @@ def load(cfg: dict, root: str) -> maple.Dataset:
     spec = cfg["dataset"]
     if spec["kind"] == "maple":
         return maple.read_maple(os.path.join(root, spec["file"]))
-    if spec["kind"] == "simulated":
+    if spec["kind"] in ("simulated", "simulated_apobec"):
         return _simulated(cfg["name"], spec)
     raise ValueError(f"unknown dataset kind {spec['kind']!r}")
 
@@ -31,12 +33,20 @@ def _simulated(name: str, spec: dict) -> maple.Dataset:
     path = os.path.join(CACHE_DIR, f"{name}-{key.hexdigest()[:12]}.npz")
     if os.path.exists(path):
         return _read(path)
-    ref, deltas, miss, dates, names = sim.simulate_dataset(
-        spec["num_tips"], spec["num_sites"], mu=spec["mu"],
-        kappa=spec.get("kappa", 2.0), pi=spec.get("pi", (0.25,) * 4),
-        sample_window_days=spec["sample_window_days"],
-        coalescent_n0=spec.get("coalescent_n0", 200.0),
-        missing_fraction=spec["missing_fraction"], seed=spec["seed"])
+    if spec["kind"] == "simulated":
+        ref, deltas, miss, dates, names = sim.simulate_dataset(
+            spec["num_tips"], spec["num_sites"], mu=spec["mu"],
+            kappa=spec.get("kappa", 2.0), pi=spec.get("pi", (0.25,) * 4),
+            sample_window_days=spec["sample_window_days"],
+            coalescent_n0=spec.get("coalescent_n0", 200.0),
+            missing_fraction=spec["missing_fraction"], seed=spec["seed"])
+    else:
+        ref, deltas, miss, dates, names = sim_apobec.simulate_apobec_dataset(
+            spec["num_tips"], spec["num_sites"], mu=spec["mu"],
+            rho=spec["rho"], pi=spec["pi"],
+            sample_window_days=spec["sample_window_days"],
+            coalescent_n0=spec["coalescent_n0"],
+            missing_fraction=spec["missing_fraction"], seed=spec["seed"])
     ds = maple.Dataset(ref_seq=np.asarray(ref, dtype=np.int8), names=names,
                        dates=dates, deltas=deltas, miss=miss)
     os.makedirs(CACHE_DIR, exist_ok=True)

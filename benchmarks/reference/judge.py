@@ -14,8 +14,14 @@ The program's final state is judged against the plain reference of
 - ``tree_faults``: a tree that is not one binary tree over the dataset's
   tips, each tip once, with parents before children;
 - ``tip_date_faults``: tips whose time lies outside their sampling dates;
-- ``params_unmoved``: parameters (mu, kappa and the population model's)
-  that the window left exactly as it found them;
+- ``partition_faults``: sites whose partition in the program's table is
+  not the reference's: every site in partition 0 under the one-partition
+  model, and under the mpox model (the traffic's ``run.mpox_hack``) the
+  table that ``ledger.mpox_partition`` reads off the first tip, at every
+  site that the tip's observed bases decide;
+- ``params_unmoved``: parameters (mu, kappa and the population model's;
+  under the mpox model mu and rho in place of kappa) that the window left
+  exactly as it found them;
 - ``nodes_unmoved``: the most inner nodes that one dispatch of the judged
   calls after the window left bit for bit at the time it found them.  A
   dispatch runs on one partition of the tree, whose cut nodes the local
@@ -34,7 +40,7 @@ import numpy as np
 from . import ledger as ref
 
 COUNTS = ("tip_mismatches", "mutation_faults", "tree_faults",
-          "tip_date_faults", "params_unmoved")
+          "tip_date_faults", "partition_faults", "params_unmoved")
 GAPS = ("log_G_gap", "log_coal_gap", "log_other_gap")
 LIMITED = GAPS + ("nodes_unmoved",)
 
@@ -70,11 +76,27 @@ def tip_date_faults(state: dict, ds) -> int:
                for n, k in ref.tip_maps(state, ds).items() if k is not None)
 
 
-def unmoved(start: dict, end: dict, priors: dict) -> int:
+def partition(params: dict, ds, mpox: bool) -> tuple:
+    """(faults, part): the sites where the program's table differs from the
+    reference's, and the table that ``log_G`` applies under the mpox model
+    (None under one partition): the reference's where the first tip decides
+    a site, else the program's."""
+    got = np.asarray(params["part"])
+    L = ds.num_sites
+    if not mpox:
+        return (L if got.shape != (L,) else int(np.count_nonzero(got))), None
+    want, decided = ref.mpox_partition(ds)
+    if got.shape != (L,):
+        return L, want
+    faults = int(np.count_nonzero((got != want) & decided))
+    return faults, np.where(decided, want, got).astype(np.int8)
+
+
+def unmoved(start: dict, end: dict, priors: dict, mpox: bool = False) -> int:
     """Parameters that the analysis moves, equal bit for bit at the
     window's start and end."""
     h = dict(ref.DEFAULT_PRIORS, **priors)
-    keys = [("mu",), ("kappa",)]
+    keys = [("mu",), ("rho",)] if mpox else [("mu",), ("kappa",)]
     if h.get("alpha_move_enabled"):
         keys += [("alpha",), ("nu",)]
     if end["pop"]["model"] == "exp":
@@ -100,11 +122,15 @@ def gap(got: float, want: float) -> float:
 def numbers(state: dict, params: dict, ledger: dict, ds, settings: dict,
             params_at_start: dict, nodes_unmoved: list) -> dict:
     """The compared numbers of one run's final state; ``nodes_unmoved``
-    holds each judged dispatch's count of inner nodes it left unmoved."""
+    holds each judged dispatch's count of inner nodes it left unmoved;
+    ``settings["mpox"]`` says whether the cell runs the mpox model."""
+    mpox = bool(settings.get("mpox"))
+    faults, part = partition(params, ds, mpox)
     out = {"tree_faults": tree_faults(state, ds),
            "tip_date_faults": tip_date_faults(state, ds),
+           "partition_faults": faults,
            "params_unmoved": unmoved(params_at_start, params,
-                                     settings["priors"]),
+                                     settings["priors"], mpox),
            "nodes_unmoved": max(nodes_unmoved, default=math.inf)}
     if out["tree_faults"]:
         # a broken tree has no sequences to walk
@@ -116,11 +142,13 @@ def numbers(state: dict, params: dict, ledger: dict, ds, settings: dict,
     walked = ref.walk(state, ds, bad)
     out["mutation_faults"] = sum(bad.values())
     out["tip_mismatches"] = ref.tip_mismatches(state, ds, walked[0], walked[1])
-    out["log_G_gap"] = gap(ledger["log_G"], ref.log_G(state, params, walked))
+    out["log_G_gap"] = gap(ledger["log_G"],
+                           ref.log_G(state, params, walked, part))
     out["log_coal_gap"] = gap(ledger["log_coal"], ref.log_coal(
         state, params["pop"], settings["t_max_tip"], settings["num_cells"]))
     out["log_other_gap"] = gap(ledger["log_other"],
-                               ref.log_other(params, settings["priors"]))
+                               ref.log_other(params, settings["priors"],
+                                             mpox))
     return out
 
 

@@ -23,6 +23,36 @@ nothing of the program it judges.
   population model's (exponential: 1/n0 inverse-gamma and g Laplace;
   skygrid: tau Gamma, the GMRF on gamma, the 1/Nbar prior and the
   low-population barrier).
+
+Under Delphy's mpox model (``--v0-mpox-hack``, run.h:134-178,
+run.cpp:359-433 and 823-952; O'Toole et al. 2023, Science 382:595) the
+sites fall into two partitions, and ``log_G`` takes each site's rates from
+its own:
+
+- The partition table is read off the first tip of the input, which the
+  program's initial tree holds as node 0: site l is in partition 1 (an
+  APOBEC3 context) iff the base before it is T and it is C or T, or the base
+  after it is A and it is G or A (``apobec_partition``).  Delphy reads that
+  tip's sequence as the initial tree carries it, so at a site the tip is
+  missing the base is the one its ancestors carry in that tree, which the
+  seed's tree builder chose.  ``mpox_partition`` works the table out from
+  the tip's observed bases and says which sites it cannot decide: those
+  whose label turns on a missing base (inside or next to the first tip's
+  missing intervals).  The benchmark's generator (``frozen/sim_apobec.py``)
+  gives the first tip no missing interval, so there it decides every site.
+- ``Q_0`` is Jukes-Cantor (1/3 off the diagonal, -1 on it) and ``Q_1`` is
+  ``Q_0`` with ``2 rho`` more on C->T and on G->A, its diagonal balanced
+  (rho = mu* / mu; the 2 is O'Toole et al.'s convention, run.h:169-172).
+  The root's prior takes JC's uniform pi, whatever ``pi`` the program holds.
+- ``log_other`` counts the one-partition terms, with kappa at the 1 that
+  the model fixes it at and pi not a parameter; rho's prior is flat on
+  [0, inf) (the move's truncated draw of 1 + 6 rho is that conditional), so
+  it adds 0 there and -inf below.  These are the terms the port's ledger
+  counts.  Delphy's C++ source is not at hand, so where the port departs
+  from it shows only against the port's citations of it.  One place: the
+  port's mu move under the model (run.cpp:823-952 by its citation) draws
+  from Gamma(M + a - 1, b + ...), mu's conditional under a prior one power
+  of mu below the Gamma(a, b) that the ledger counts.
 """
 
 from __future__ import annotations
@@ -33,6 +63,7 @@ import math
 import numpy as np
 
 STAIRCASE, LOG_LINEAR = 1, 2
+A, C, G, T = 0, 1, 2, 3
 
 # Delphy's default hyperparameters (core/run.cpp), the ones the program runs
 # unless the traffic sets others
@@ -66,6 +97,51 @@ def hky_q(kappa: float, pi) -> np.ndarray:
     for a in range(4):
         q[a, a] = -(q[a].sum() - q[a, a])
     return q
+
+
+def mpox_q_tab(rho: float) -> np.ndarray:
+    """[Q_0, Q_1] of the mpox model: Jukes-Cantor, and Jukes-Cantor with
+    2 rho more on C->T and G->A, rows summing to zero."""
+    q0 = np.full((4, 4), 1.0 / 3.0)
+    np.fill_diagonal(q0, -1.0)
+    q1 = q0.copy()
+    for a, b in ((C, T), (G, A)):
+        q1[a, b] += 2.0 * rho
+        q1[a, a] -= 2.0 * rho
+    return np.stack([q0, q1])
+
+
+def apobec_partition(seq) -> np.ndarray:
+    """Each site's partition by its APOBEC3 context in ``seq`` (A C G T as
+    0-3, -1 where the base is not known): 1 iff the base before is T and
+    this one C or T, or the base after is A and this one G or A."""
+    seq = np.asarray(seq)
+    ctx = np.zeros(len(seq), dtype=bool)
+    ctx[1:] |= (seq[:-1] == T) & ((seq[1:] == C) | (seq[1:] == T))
+    ctx[:-1] |= (seq[1:] == A) & ((seq[:-1] == G) | (seq[:-1] == A))
+    return ctx.astype(np.int8)
+
+
+def mpox_partition(ds) -> tuple:
+    """(part, decided): the partition table from the first tip's observed
+    bases, and which sites those bases decide (a site is undecided where it
+    is missing in the tip, or where its label turns on a missing
+    neighbour)."""
+    seq = np.asarray(ds.ref_seq, dtype=np.int8).copy()
+    for site, b in ds.deltas[0]:
+        seq[site] = b
+    known = np.ones(len(seq), dtype=bool)
+    for s, e in ds.miss[0]:
+        known[s:e] = False
+    seq[~known] = -1
+    before = np.zeros(len(seq), dtype=bool)
+    before[1:] = ~known[:-1]
+    after = np.zeros(len(seq), dtype=bool)
+    after[:-1] = ~known[1:]
+    ct = (seq == C) | (seq == T)
+    ga = (seq == G) | (seq == A)
+    decided = known & ~(ct & before) & ~(ga & after)
+    return apobec_partition(seq), decided
 
 
 # -- intervals -----------------------------------------------------------------
@@ -191,15 +267,22 @@ def tip_mismatches(state: dict, ds, root_seq, diffs) -> int:
 
 # -- log_G ---------------------------------------------------------------------
 
-def log_G(state: dict, params: dict, walked) -> float:
-    """``walked`` is what ``walk`` returns for this state."""
+def log_G(state: dict, params: dict, walked, part=None) -> float:
+    """``walked`` is what ``walk`` returns for this state.  With ``part``,
+    each site's partition, the mpox model at ``params["rho"]``; without,
+    one HKY partition at ``params``' kappa and pi."""
     root_seq, diffs, miss = walked
     mu = float(params["mu"])
     nu = np.asarray(params["nu"], dtype=np.float64)
-    pi = np.asarray(params["pi"], dtype=np.float64)
-    q = hky_q(float(params["kappa"]), pi)
-    qa = -np.diagonal(q)
-    W = np.concatenate([[0.0], np.cumsum(nu * qa[root_seq])])
+    if part is None:
+        pi = np.asarray(params["pi"], dtype=np.float64)
+        q_tab = hky_q(float(params["kappa"]), pi)[None]
+        part = np.zeros(len(root_seq), dtype=np.int8)
+    else:
+        pi = np.full(4, 0.25)
+        q_tab = mpox_q_tab(float(params["rho"]))
+    qa_tab = -np.diagonal(q_tab, axis1=1, axis2=2)
+    W = np.concatenate([[0.0], np.cumsum(nu * qa_tab[part, root_seq])])
     root, parent, t = state["root"], state["parent"], state["t"]
 
     # the root sequence's prior over the sites present in some tip
@@ -219,12 +302,14 @@ def log_G(state: dict, params: dict, walked) -> float:
         lam = W[-1] - sum(W[e] - W[s] for s, e in ivs)
         for site, st in diffs[n].items():
             if not inside(ivs, starts, site):
+                qa = qa_tab[part[site]]
                 lam += nu[site] * (qa[st] - qa[root_seq[site]])
         t_p = t[parent[n]]
         integral = mu * lam * (t[n] - t_p)
         for site, frm, to, tm in state["mutations"][n]:
+            qa = qa_tab[part[site]]
             integral -= mu * nu[site] * (qa[to] - qa[frm]) * (tm - t_p)
-            total += math.log(mu * nu[site] * q[frm, to])
+            total += math.log(mu * nu[site] * q_tab[part[site], frm, to])
         total -= integral
     return total
 
@@ -326,12 +411,17 @@ def log_coal(state: dict, pop: dict, t_max_tip: float, num_cells: int) -> float:
 
 # -- log_other -----------------------------------------------------------------
 
-def log_other(params: dict, priors: dict) -> float:
+def log_other(params: dict, priors: dict, mpox: bool = False) -> float:
+    """With ``mpox``, kappa is the model's 1 and rho's flat prior on
+    [0, inf) is counted."""
     h = dict(DEFAULT_PRIORS, **priors)
     mu, alpha, kappa = (float(params[k]) for k in ("mu", "alpha", "kappa"))
     nu = np.asarray(params["nu"], dtype=np.float64)
     L = len(nu)
     lp = (h["mu_prior_alpha"] - 1.0) * math.log(mu) - h["mu_prior_beta"] * mu
+    if mpox:
+        kappa = 1.0
+        lp += 0.0 if float(params["rho"]) >= 0.0 else -math.inf
     m = h["alpha_prior_mean"]
     lp += -alpha / m - math.log(m)
     lp += L * (alpha * math.log(alpha) - math.lgamma(alpha))

@@ -19,11 +19,11 @@ import json
 import sys
 
 from benchmarks import run as br
-from benchmarks.tests.faults import FAULTS, planted
+from benchmarks.tests.faults import ALL_FAULTS, planted
 
 
 def one(spec: dict, seed: int, seconds: float, what: str) -> dict:
-    ctx = (planted(what) if what in FAULTS else contextlib.nullcontext())
+    ctx = (planted(what) if what in ALL_FAULTS else contextlib.nullcontext())
     with ctx:
         res = br.run_cell(spec, seed, seconds, False,
                           control=(what == "control"))
@@ -39,7 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--sound", type=int, nargs="*", default=[])
     ap.add_argument("--control", type=int, nargs="*", default=[])
-    ap.add_argument("--fault", nargs="*", default=[], choices=sorted(FAULTS))
+    ap.add_argument("--fault", nargs="*", default=[],
+                    choices=sorted(ALL_FAULTS))
     ap.add_argument("--fault-seed", type=int, nargs="*", default=[])
     ap.add_argument("--out")
     args = ap.parse_args(argv)

@@ -3,7 +3,9 @@ fails each one: on the CPU in ``test_bench_control.py``, and on the card at
 a cell's own size in ``chip_faults.py``.
 
 Each fault is a function of the original that returns its stand-in;
-``FAULTS`` names each with the module attribute of the program it replaces.
+``FAULTS`` names each with the module attribute of the program it replaces,
+and ``MPOX_FAULTS`` those of the mpox model, which only a cell that runs it
+can have.
 """
 
 from __future__ import annotations
@@ -114,6 +116,36 @@ def sweep_half_parts(orig):
     return _sweep_rows_left(orig, lambda P: P // 2)
 
 
+def partition_flipped(orig):
+    """The program's partition table with its first APOBEC3-context site
+    put in partition 0."""
+    @functools.wraps(orig)
+    def f(seq):
+        part = orig(seq).copy()
+        part[int(part.argmax())] = 0
+        return part
+    return f
+
+
+def rho_off(orig):
+    """The dispatch reports rho one part in 10^6 above the rho its ledger
+    was worked out with."""
+    @functools.wraps(orig)
+    def f(*a, **k):
+        ts, evo, pop, led, stats, _fused = orig(*a, **k)
+        evo = evo._replace(mpox_rho=evo.mpox_rho * (1.0 + 1e-6))
+        return (ts, evo, pop, led, stats, None)
+    return f
+
+
+def rho_unmoved(orig):
+    """The mpox rounds move mu and leave rho where they found it."""
+    @functools.wraps(orig)
+    def f(gen, evo, *a, **k):
+        return orig(gen, evo, *a, **k).with_mpox_rho(rho=evo.mpox_rho)
+    return f
+
+
 FAULTS = {
     "unchanged": (unchanged, "run.parts_multi_super_step"),
     "root_moved": (root_moved, "run.parts_multi_super_step"),
@@ -124,11 +156,18 @@ FAULTS = {
                          "parallel.block_cuda.sweep_chain_kernel"),
 }
 
+MPOX_FAULTS = {
+    "partition_flipped": (partition_flipped, "run.apobec_context_partition"),
+    "rho_off": (rho_off, "run.parts_multi_super_step"),
+    "rho_unmoved": (rho_unmoved, "mcmc.global_moves.mpox_hack_moves"),
+}
+ALL_FAULTS = {**FAULTS, **MPOX_FAULTS}
+
 
 @contextmanager
 def planted(name: str):
     """The program with fault ``name`` in place of its target."""
-    fault, target = FAULTS[name]
+    fault, target = ALL_FAULTS[name]
     mod_name, attr = target.rsplit(".", 1)
     mod = importlib.import_module("delphy_tpu_torch." + mod_name)
     orig = getattr(mod, attr)

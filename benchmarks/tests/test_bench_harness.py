@@ -16,7 +16,7 @@ import sys
 import pytest
 
 from benchmarks import run as br
-from benchmarks.tests.tiny import TINY_DATA, tiny_run
+from benchmarks.tests.tiny import TINY_DATA, TINY_MPOX_DATA, tiny_run
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -136,14 +136,24 @@ def read(rec):
 '''
 
 
-def test_a_new_cell_is_new_files_and_entries(tmp_path):
+def checkout(tmp_path):
+    """A copy of ``BENCHMARK.json`` and the benchmark's folder, and the
+    hashes of the folder's files."""
     root = tmp_path / "checkout"
     root.mkdir()
     shutil.copy(os.path.join(br.ROOT, "BENCHMARK.json"), root)
     shutil.copytree(br.HERE, root / "benchmarks",
                     ignore=shutil.ignore_patterns("_cache", "__pycache__"))
-    before = tree_hashes(str(root / "benchmarks"))
+    return root, tree_hashes(str(root / "benchmarks"))
 
+
+def unchanged(root, before: dict) -> bool:
+    after = tree_hashes(str(root / "benchmarks"))
+    return not [p for p in before if after.get(p) != before[p]]
+
+
+def test_a_new_cell_is_new_files_and_entries(tmp_path):
+    root, before = checkout(tmp_path)
     here = root / "benchmarks"
     (here / "configs" / "tiny-sim-30x600.json").write_text(json.dumps(
         {"name": "tiny-sim-30x600", "source": "a CPU test's dataset",
@@ -182,9 +192,56 @@ def test_a_new_cell_is_new_files_and_entries(tmp_path):
                                                "unit": "calls"}}
     res = br.run_cell(spec, 2 ** 31 + 99, 0.3, False, device="cpu")
     assert set(res["metrics"]) == {"steps_per_s.tiny", "setup_s"}
-    after = tree_hashes(str(root / "benchmarks"))
-    changed = [p for p in before if after.get(p) != before[p]]
-    assert not changed
+    assert unchanged(root, before)
+
+
+def test_an_mpox_cell_is_new_files_and_entries(tmp_path):
+    """A configuration of APOBEC3-shaped genomes and a traffic mix with the
+    mpox model on: new files and entries only, judged by the mpox oracle."""
+    root, before = checkout(tmp_path)
+    here = root / "benchmarks"
+    (here / "configs" / "tiny-apobec-30x600.json").write_text(json.dumps(
+        {"name": "tiny-apobec-30x600", "source": "a CPU test's dataset",
+         "dataset": TINY_MPOX_DATA, "precision": "float64",
+         "num_cells": 400, "reduced": []}))
+    (here / "traffic" / "mpox-short.json").write_text(json.dumps(
+        {"run": {"pop_model": "exp", "mpox_hack": True}, "priors": {},
+         "call_boundaries": 3, "warmup_quiet_calls": 1,
+         "warmup_max_calls": 3, "trace_calls": 2}))
+    (here / "metrics" / "calls_traced.py").write_text(NEW_METRIC)
+    (here / "limits" / "tiny-mpox.json").write_text(json.dumps(
+        {"log_G_gap": 1e-11, "log_coal_gap": 1e-11, "log_other_gap": 1e-11,
+         "nodes_unmoved": 10}))
+    b = bench(str(root))
+    b["configs"].append({"name": "tiny-apobec-30x600", "source": "a test",
+                         "file": "benchmarks/configs/tiny-apobec-30x600.json",
+                         "reduced": [], "why": "a CPU test's dataset"})
+    b["workloads"].append({"name": "tiny-mpox",
+                           "config": "tiny-apobec-30x600",
+                           "traffic": "mpox-short", "chips": 1,
+                           "why": "a CPU dry run of the mpox model"})
+    b["end_to_end"].append({"name": "steps_per_s.mpox", "unit": "steps/s",
+                            "better": "higher", "bound": 0.25,
+                            "source": "host_clock",
+                            "workloads": ["tiny-mpox"]})
+    b["per_layer"].append({"name": "calls_traced", "unit": "calls",
+                           "better": "higher", "source": "program_counter",
+                           "layer": "driver", "moves": "steps_per_s.mpox",
+                           "workloads": ["tiny-mpox"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+
+    spec = br.load_spec(str(root), "tiny-mpox")
+    br.isolate_environment()
+    res = br.run_cell(spec, 2 ** 31 + 98, 0.3, True, device="cpu")
+    assert res["correct"], res["checks"]
+    assert res["metrics"] == {"calls_traced": {"value": 2.0,
+                                               "unit": "calls"}}
+    res = br.run_cell(spec, 2 ** 31 + 98, 0.3, False, device="cpu")
+    assert res["correct"], res["checks"]
+    assert set(res["metrics"]) == {"steps_per_s.mpox", "setup_s"}
+    assert res["checks"]["partition_faults"]["value"] == 0
+    assert res["checks"]["params_unmoved"]["value"] == 0
+    assert unchanged(root, before)
 
 
 def test_the_result_line_holds_the_contracts_keys():
@@ -196,6 +253,11 @@ def test_the_result_line_holds_the_contracts_keys():
     assert {"platform", "kind", "count", "memory_peak_bytes", "busy_s",
             "window_s"} <= set(line["device"])
     assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
+    assert list(line["checks"]) == [
+        "tip_mismatches", "mutation_faults", "tree_faults", "tip_date_faults",
+        "partition_faults", "params_unmoved", "log_G_gap", "log_coal_gap",
+        "log_other_gap", "nodes_unmoved"]
+    assert line["checks"]["partition_faults"] == {"value": 0.0, "limit": 0}
     assert json.loads(json.dumps(line)) == line
 
 

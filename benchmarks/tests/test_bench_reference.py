@@ -1,6 +1,7 @@
 """The NumPy reference against the port's own from-scratch ledger, and its
-refusal of tampered states.  These tests import the port; the reference
-does not."""
+refusal of tampered states, under one partition and under the mpox model;
+its one-partition path gives the bits of the formulas it had before the
+mpox model.  These tests import the port; the reference does not."""
 
 from __future__ import annotations
 
@@ -10,12 +11,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from benchmarks import datasets
 from benchmarks import run as br
 from benchmarks.reference import judge
 from benchmarks.reference import ledger as ref
-from benchmarks.tests.tiny import TINY_DATA
+from benchmarks.tests import parent_ledger
+from benchmarks.tests.tiny import TINY_DATA, TINY_MPOX_DATA
 
 VARIANTS = {
     "exp": ({"pop_model": "exp"}, {}),
@@ -25,6 +28,10 @@ VARIANTS = {
                     "skygrid_num_parameters": 12},
                    {"skygrid_tau_move_enabled": True}),
     "alpha-nu": ({"pop_model": "exp"}, {"alpha_move_enabled": True}),
+    "mpox": ({"pop_model": "exp", "mpox_hack": True}, {}),
+    # the first tip has missing intervals here: the program's labels stand
+    # where its observed bases decide nothing
+    "mpox-hky-data": ({"pop_model": "exp", "mpox_hack": True}, {}),
 }
 
 
@@ -45,7 +52,8 @@ def finished(request):
     from delphy_tpu_torch.run import Run
 
     kw, priors = VARIANTS[request.param]
-    ds = datasets.load({"name": "tiny-sim-30x600", "dataset": TINY_DATA},
+    data = TINY_MPOX_DATA if request.param == "mpox" else TINY_DATA
+    ds = datasets.load({"name": "tiny-sim-30x600", "dataset": data},
                        br.ROOT)
     tree = build_initial_tree(ds.ref_seq, ds.deltas, ds.miss, ds.dates,
                               names=ds.names, rng=np.random.default_rng(3))
@@ -59,28 +67,61 @@ def finished(request):
     port = {k: float(getattr(mine, k))
             for k in ("log_G", "log_coal", "log_other")}
     settings = {"num_cells": 400, "t_max_tip": max(h for _, h in ds.dates),
-                "priors": priors}
+                "priors": priors, "mpox": kw.get("mpox_hack", False)}
     return {"ds": ds, "state": br.state_of(run.tree()),
             "params": br.params_of(hv), "ledger": br.ledger_of(hv),
-            "port": port, "settings": settings, "start": start}
+            "port": port, "settings": settings, "start": start,
+            "variant": request.param}
+
+
+def walked(f):
+    bad = {"mutation_state": 0, "mutation_time": 0,
+           "mutation_at_missing_site": 0}
+    out = ref.walk(f["state"], f["ds"], bad)
+    assert bad == dict.fromkeys(bad, 0)
+    return out
 
 
 def ref_terms(f) -> dict:
-    bad = {"mutation_state": 0, "mutation_time": 0,
-           "mutation_at_missing_site": 0}
-    walked = ref.walk(f["state"], f["ds"], bad)
-    assert bad == dict.fromkeys(bad, 0)
     s = f["settings"]
-    return {"log_G": ref.log_G(f["state"], f["params"], walked),
+    faults, part = judge.partition(f["params"], f["ds"], s["mpox"])
+    assert faults == 0
+    return {"log_G": ref.log_G(f["state"], f["params"], walked(f), part),
             "log_coal": ref.log_coal(f["state"], f["params"]["pop"],
                                      s["t_max_tip"], s["num_cells"]),
-            "log_other": ref.log_other(f["params"], s["priors"])}
+            "log_other": ref.log_other(f["params"], s["priors"], s["mpox"])}
 
 
 def test_ledger_agrees_with_the_ports_recompute(finished):
     got = ref_terms(finished)
     for k, want in finished["port"].items():
         assert got[k] == pytest.approx(want, rel=1e-11, abs=1e-9), k
+
+
+def test_one_partition_path_keeps_its_bits(finished):
+    """On every state, the mpox model's too, the one-partition formulas."""
+    f = finished
+    w = walked(f)
+    p, h = f["params"], f["settings"]["priors"]
+    assert (ref.log_G(f["state"], p, w).hex()
+            == parent_ledger.log_G(f["state"], p, w).hex())
+    assert ref.log_other(p, h).hex() == parent_ledger.log_other(p, h).hex()
+
+
+def test_the_oracle_applies_the_cells_model(finished):
+    """One partition: the program's table is all 0 and rho 0.  The mpox
+    model: rho has moved off its start of 0, and the one-partition formulas
+    miss the ledger by far more than any limit."""
+    f = finished
+    if not f["settings"]["mpox"]:
+        assert not f["params"]["part"].any() and f["params"]["rho"] == 0.0
+        return
+    assert f["params"]["rho"] > 0.0 and f["start"]["rho"] == 0.0
+    one = ref.log_G(f["state"], f["params"], walked(f))
+    assert judge.gap(f["port"]["log_G"], one) > 1e-6
+    if f["variant"] == "mpox":
+        part, decided = ref.mpox_partition(f["ds"])
+        assert decided.all() and 0.2 < part.mean() < 0.5
 
 
 def test_sound_state_is_correct(finished):
@@ -132,6 +173,20 @@ def test_rejects_a_dispatch_that_left_the_tree(finished, unmoved):
     the cell's limit."""
     nums = judged(finished, unmoved=unmoved)
     assert nums["nodes_unmoved"] > limits()["nodes_unmoved"]
+
+
+def test_mpox_tables_match_the_ports():
+    from delphy_tpu_torch.evo import apobec_context_partition, mpox_q_tab
+    for rho in (0.0, 0.37, 41.5):
+        assert np.allclose(ref.mpox_q_tab(rho),
+                           mpox_q_tab(torch.tensor(rho,
+                                                   dtype=torch.float64)),
+                           rtol=1e-15, atol=1e-15)
+    rng = np.random.default_rng(8)
+    for _ in range(5):
+        seq = rng.choice(4, size=500, p=[0.33, 0.17, 0.17, 0.33])
+        assert np.array_equal(ref.apobec_partition(seq),
+                              apobec_context_partition(seq))
 
 
 def test_hky_matches_the_simulators_matrix():
