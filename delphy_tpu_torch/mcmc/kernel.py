@@ -51,7 +51,10 @@ def run_global_moves(ts: TreeState, evo: EvoParams, pop_params,
     param_moves=False skips every parameter move but keeps the grid rebuild,
     the caches and the full ledger recompute (deterministic).  The device
     sections (``tracing.section``): global.stats, global.evo_moves,
-    global.pop_moves (the grid, then the population moves), global.ledger."""
+    global.pop_moves (the grid, then the population moves), global.ledger;
+    under the mpox model global.evo_moves holds two subcounts
+    (``tracing.subcount``): mpox.stats, the partitioned statistics, and
+    mpox.rounds, the draws and the ten (mu, rho) rounds."""
     tracing.section("global.stats")
     cnt, nucum = lk.calc_ref_state_prefix(ts, evo)
     root_freq = lk.calc_root_state_frequencies(ts, evo, cnt)
@@ -65,12 +68,14 @@ def run_global_moves(ts: TreeState, evo: EvoParams, pop_params,
     elif hyp.mpox_enabled:
         # 1 & 2. Gibbs sampling of mu and mu_star under the two-partition
         # APOBEC model (run.cpp:720-724, 823-952)
-        M_beta_ab = lk.calc_num_muts_beta_ab(ts, evo)
-        nu_prefix_pa = lk.calc_ref_state_prefix_beta(ts, evo)
-        Ttwiddle_beta_a = lk.calc_Ttwiddle_beta_a(ts, evo, tin, tout,
-                                                  nu_prefix_pa)
-        evo = gm.mpox_hack_moves(gen, evo, M_beta_ab, num_muts,
-                                 Ttwiddle_beta_a, hyp)
+        with tracing.subcount("mpox.stats"):
+            M_beta_ab = lk.calc_num_muts_beta_ab(ts, evo)
+            nu_prefix_pa = lk.calc_ref_state_prefix_beta(ts, evo)
+            Ttwiddle_beta_a = lk.calc_Ttwiddle_beta_a(ts, evo, tin, tout,
+                                                      nu_prefix_pa)
+        with tracing.subcount("mpox.rounds"):
+            evo = gm.mpox_hack_moves(gen, evo, M_beta_ab, num_muts,
+                                     Ttwiddle_beta_a, hyp)
     else:
         # 1. Gibbs sampling of mu (run.cpp:704-709)
         if hyp.mu_move_enabled and not hyp.mu_fixed:

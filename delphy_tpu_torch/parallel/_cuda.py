@@ -34,7 +34,11 @@ that ran in that section of a boundary, every operation of the graph and
 not only this module's kernels.  A capture counts its graph's nodes in
 each section (``tracing.section``) into its record's ``sections``, and
 each replay adds them as it adds the launches; the eager loop counts
-none.
+none.  ``ops.<subcount>`` of each of ``tracing.SUBCOUNTS`` counts the
+nodes of a block inside a section (``tracing.subcount``; the capture
+record's ``subcounts``), so the ``ops.<section>`` counts still add up to
+a boundary graph's device nodes.  Both sets of keys are registered here,
+at import, so a difference of two snapshots of the counts carries them.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ _KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain",
             "sweep_chain_skygrid_global", "prefix_scan")
 launch_counts = dict.fromkeys(
     list(_KERNELS) + [k + "_f32" for k in _KERNELS]
-    + ["ops." + s for s in tracing.SECTIONS], 0)
+    + ["ops." + s for s in tracing.SECTIONS + tracing.SUBCOUNTS], 0)
 launch_blocks = dict.fromkeys(launch_counts, 0)
 graph_replays = 0
 
@@ -134,7 +138,8 @@ def reset_launch_counts() -> None:
 
 
 def kernel_counts() -> dict:
-    """``launch_counts`` of the kernels alone, without ``ops.<section>``."""
+    """``launch_counts`` of the kernels alone, without ``ops.<section>``
+    and ``ops.<subcount>``."""
     return {k: v for k, v in launch_counts.items()
             if not k.startswith("ops.")}
 
@@ -160,13 +165,15 @@ def count_launch(name: str, blocks: int = 1) -> None:
 
 
 class Record(list):
-    """A capture's launches, (name, blocks) each, and ``sections``: the
+    """A capture's launches, (name, blocks) each, ``sections``: the
     graph's device nodes in each section it marked (``ops.<section>`` ->
-    nodes, filled by ``tracing.counting``)."""
+    nodes, filled by ``tracing.counting``), and ``subcounts``: those of
+    each subcount block (``ops.<subcount>`` -> nodes)."""
 
     def __init__(self):
         super().__init__()
         self.sections = {}
+        self.subcounts = {}
 
 
 @contextlib.contextmanager
@@ -184,15 +191,16 @@ def recording():
 
 def tally(record, replays: int = 1) -> None:
     """Count ``replays`` replays of a graph whose capture recorded
-    ``record``: each of its launches, and each section's nodes, that many
-    times."""
+    ``record``: each of its launches, and each section's and subcount's
+    nodes, that many times."""
     global graph_replays
     with _COUNT_LOCK:
         for name, blocks in record:
             launch_counts[name] += replays
             launch_blocks[name] += replays * blocks
-        for key, n in record.sections.items():
-            launch_counts[key] += replays * n
+        for counts in (record.sections, record.subcounts):
+            for key, n in counts.items():
+                launch_counts[key] += replays * n
         graph_replays += replays
 
 

@@ -75,9 +75,11 @@ Each step is a body over static buffers (``_Graph``):
   ``tracing.counting``, so the boundary's section marks
   (``tracing.section``: global statistics, evolutionary and population
   moves, ledger, sweep preparation, kernel and update) count the graph's
-  device nodes into ``record.sections``.  Each replay adds the record to
-  ``_cuda.launch_counts`` (``_cuda.tally``): the kernels' launches and
-  ``ops.<section>``, a boundary's device operations section by section;
+  device nodes into ``record.sections`` (and the mpox model's blocks,
+  ``tracing.subcount``, into ``record.subcounts``).  Each replay adds the
+  record to ``_cuda.launch_counts`` (``_cuda.tally``): the kernels'
+  launches and ``ops.<section>``, a boundary's device operations section
+  by section, and ``ops.<subcount>``;
 - the spans: a dispatch's copy-in, capture, replays and hand-off are
   ``tracing.span`` ranges (``delphy.dispatch.*``), seen by a profiler
   and nothing else.
@@ -331,7 +333,8 @@ class _Graph:
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 with tracing.counting(self.record.sections,
-                                      tracing.DeviceNodes(stream)):
+                                      tracing.DeviceNodes(stream),
+                                      self.record.subcounts):
                     self.written, self.out = step()
             except BaseException:
                 _end_failed_capture(self.graph)

@@ -37,6 +37,15 @@ mark.  The capture's record keeps them, and each replay adds them to
 ``_cuda.launch_counts["ops.<section>"]``.  Anywhere else (a replay,
 which runs no Python; the eager loop; the CPU) it does nothing, so it
 costs the replay path nothing and puts nothing into a graph.
+
+``subcount(name)`` is a block inside a section whose device nodes are
+counted on their own, under ``SUBCOUNTS``: the mpox model's partitioned
+statistics (``mpox.stats``) and its (mu, rho) rounds (``mpox.rounds``),
+both inside ``global.evo_moves``.  Like ``section`` it counts only inside
+``counting``, into the capture record's ``subcounts``, which each replay
+adds to ``_cuda.launch_counts["ops.<subcount>"]``.  It leaves the
+sections as they are: their counts still partition the graph's nodes,
+and a subcount's nodes are counted in its section as well.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ from torch.autograd import profiler as _profiler
 
 SECTIONS = ("global.stats", "global.evo_moves", "global.pop_moves",
             "global.ledger", "sweep.prep", "sweep.kernel", "sweep.update")
+SUBCOUNTS = ("mpox.stats", "mpox.rounds")
 
 _OFF = contextlib.nullcontext()
 
@@ -150,14 +160,15 @@ class DeviceNodes:
 
 
 @contextlib.contextmanager
-def counting(sections: dict, nodes):
+def counting(sections: dict, nodes, subcounts: dict):
     """Within the block (a capture), each ``section`` call of this thread
     closes the section marked before it: the nodes ``nodes()`` (a
     ``DeviceNodes``) counted since that mark are added to
     ``sections["ops." + name]``.  The last section closes at the block's
-    end; nodes before the first mark belong to no section."""
+    end; nodes before the first mark belong to no section.  Each
+    ``subcount`` block adds its nodes to ``subcounts["ops." + name]``."""
     _STATE.open = state = {"nodes": nodes, "name": None, "at": 0,
-                           "sections": sections}
+                           "sections": sections, "subcounts": subcounts}
     try:
         yield
         if state["name"] is not None:
@@ -185,3 +196,23 @@ def section(name: str) -> None:
         raise ValueError(f"unknown section {name!r}")
     state["at"] = _close(state)
     state["name"] = name
+
+
+def subcount(name: str):
+    """A block whose device nodes under capture are added to
+    ``subcounts["ops." + name]`` of the ``counting`` around it (``name``
+    one of ``SUBCOUNTS``); outside ``counting`` a shared no-op context."""
+    state = getattr(_STATE, "open", None)
+    if state is None:
+        return _OFF
+    if name not in SUBCOUNTS:
+        raise ValueError(f"unknown subcount {name!r}")
+    return _subcounted(state, "ops." + name)
+
+
+@contextlib.contextmanager
+def _subcounted(state, key: str):
+    at = state["nodes"]()
+    yield
+    counts = state["subcounts"]
+    counts[key] = counts.get(key, 0) + state["nodes"]() - at

@@ -28,19 +28,31 @@ US = {"global.stats": 3.0, "global.evo_moves": 5.0,
       "sweep.kernel": 17.0, "sweep.update": 19.0}
 
 
-def _dispatch(boundaries, ops=True):
-    launches = {"sweep_chain": boundaries, "hky_chain": boundaries,
-                "exp_pop_chain": boundaries}
+# an mpox boundary: no hky kernel; global.evo_moves is the partitioned
+# statistics (two events) and the rounds (three), each counted apart too
+BOUNDARY_MPOX = dict(BOUNDARY, **{
+    "global.evo_moves": ["prefix_beta", "Ttwiddle_beta", "gamma", "where",
+                         "argmax"]})
+SUBCOUNTS_MPOX = {"ops.mpox.stats": 2, "ops.mpox.rounds": 3}
+
+
+def _dispatch(boundaries, ops=True, boundary=BOUNDARY, subcounts=None):
+    launches = {"sweep_chain": boundaries, "exp_pop_chain": boundaries}
+    if boundary is BOUNDARY:
+        launches["hky_chain"] = boundaries
     if ops:
         launches.update({"ops." + s: boundaries * len(ev)
-                         for s, ev in BOUNDARY.items()})
+                         for s, ev in boundary.items()})
+        launches.update({k: boundaries * n
+                         for k, n in (subcounts or {}).items()})
     return {"boundaries": boundaries, "launches": launches,
             "shapes": {"P": 8, "NC": 64, "MC": 80, "C": 400, "N": 161,
                        "n_inner": 80, "n_blocks": 24, "fsize": 8,
                        "knots": 0}}
 
 
-def _rec(dispatches=(2, 1), ops=True, spans=()):
+def _rec(dispatches=(2, 1), ops=True, spans=(), boundary=BOUNDARY,
+         subcounts=None):
     """A slice of dispatches of these many boundaries: the copy-in, the
     boundaries with the replay's prologue fills before each, the
     hand-off."""
@@ -56,12 +68,13 @@ def _rec(dispatches=(2, 1), ops=True, spans=()):
         for _ in range(b):
             for _ in range(_sections.PROLOGUE):
                 event("fill", 0.25)
-            for s, names in BOUNDARY.items():
+            for s, names in boundary.items():
                 for n in names:
                     event(n, US[s])
         event("cat", 0.75)
-    return {"device": device, "dispatches": [_dispatch(b, ops)
-                                             for b in dispatches],
+    return {"device": device,
+            "dispatches": [_dispatch(b, ops, boundary, subcounts)
+                           for b in dispatches],
             "spans": list(spans), "slice": (0.0, 1000.0),
             "window_s": 1e-3, "busy_s": sum(e[2] for e in device) * 1e-6,
             "capture_ms": [], "calls": 1}
@@ -188,3 +201,35 @@ def test_existing_readers_unmoved_by_the_section_counts(name):
     with_ops, without = _rec(spans=spans), _rec(ops=False, spans=spans)
     a, b = _read(name, with_ops), _read(name, without)
     assert a is not None and a == b
+
+
+def test_mpox_readers_on_an_mpox_record():
+    """An mpox slice: ``mpox_moves_device_ms`` reads ``global.evo_moves``,
+    ``mpox_rounds_ops_per_boundary`` the rounds' count a boundary, and the
+    subcounts move none of the section readers nor the global moves'
+    count."""
+    rec = _rec(boundary=BOUNDARY_MPOX, subcounts=SUBCOUNTS_MPOX)
+    plain = _rec(boundary=BOUNDARY_MPOX)
+    evo = len(BOUNDARY_MPOX["global.evo_moves"]) * US["global.evo_moves"]
+    assert _read("mpox_moves_device_ms.skygrid-alphanu",
+                 rec) == pytest.approx(evo * 1e-3)
+    assert _read("mpox_rounds_ops_per_boundary.skygrid-alphanu", rec) == 3.0
+    assert _read("global_moves_ops_per_boundary.skygrid-alphanu", rec) == 10.0
+    assert _sections.section_us(rec) == _sections.section_us(plain)
+    for name in ("global_moves_device_ms", "model_moves_device_ms",
+                 "sweep_prep_device_ms", "kernels_roofline_pct",
+                 "device_ops_per_boundary"):
+        got = _read(name + ".skygrid-alphanu", rec)
+        assert got is not None and got == _read(
+            name + ".skygrid-alphanu", plain), name
+
+
+def test_mpox_rounds_reader_reads_none_on_the_parent():
+    """A program that counts sections but no subcounts (the parent) gives
+    the rounds' count nothing to read; the section reader still reads its
+    section."""
+    rec = _rec(boundary=BOUNDARY_MPOX)
+    assert _read("mpox_rounds_ops_per_boundary.skygrid-alphanu", rec) is None
+    assert _read("mpox_moves_device_ms.skygrid-alphanu", rec) is not None
+    assert _read("mpox_moves_device_ms.skygrid-alphanu",
+                 _rec(ops=False)) is None

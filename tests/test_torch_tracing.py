@@ -149,7 +149,7 @@ def test_tally_counts_sections_once_per_replay():
     _cuda.reset_launch_counts()
     nodes = _FakeNodes()
     with _cuda.recording() as rec:
-        with tracing.counting(rec.sections, nodes):
+        with tracing.counting(rec.sections, nodes, rec.subcounts):
             nodes.n = 2                       # before any mark
             tracing.section("global.stats")
             nodes.n = 7
@@ -179,19 +179,57 @@ def test_tally_counts_sections_once_per_replay():
 
 
 def test_section_keys_are_registered_at_import():
-    """Every section has its key in the launch counts before any capture,
-    so a per-dispatch difference of the counts carries it."""
+    """Every section and subcount has its key in the launch counts before
+    any capture, so a per-dispatch difference of the counts carries it;
+    no subcount key is one that a reader of the sections or of the global
+    moves' counts sums, nor a kernel's."""
+    assert tracing.SUBCOUNTS == ("mpox.stats", "mpox.rounds")
     assert [k for k in _cuda.launch_counts if k.startswith("ops.")] == [
-        "ops." + s for s in tracing.SECTIONS]
+        "ops." + s for s in tracing.SECTIONS + tracing.SUBCOUNTS]
     assert all(k in _cuda.launch_blocks for k in _cuda.launch_counts)
+    for s in tracing.SUBCOUNTS:
+        assert s not in tracing.SECTIONS and not s.startswith("global.")
+        assert "ops." + s not in _cuda.kernel_counts()
 
 
-def test_eager_and_cpu_dispatches_count_no_sections():
-    """Outside a capture the marks do nothing: a CPU Run's dispatches,
-    through the eager loop or the graph plumbing, count no section."""
+def test_subcounts_count_their_block_apart_from_the_sections():
+    """A subcount block under a fake capture adds its nodes to the
+    record's ``subcounts`` and leaves the sections as they were; each
+    replay adds them to ``ops.<subcount>``; outside a capture it is the
+    shared no-op context, and an unknown name raises."""
     _cuda.reset_launch_counts()
-    run = _run(seed=3)
+    nodes = _FakeNodes()
+    with _cuda.recording() as rec:
+        with tracing.counting(rec.sections, nodes, rec.subcounts):
+            tracing.section("global.evo_moves")
+            with tracing.subcount("mpox.stats"):
+                nodes.n = 9
+            with tracing.subcount("mpox.rounds"):
+                nodes.n = 30
+            tracing.section("global.pop_moves")
+            nodes.n = 32
+            with pytest.raises(ValueError, match="unknown subcount"):
+                tracing.subcount("global.stats")
+    assert rec.sections == {"ops.global.evo_moves": 30,
+                            "ops.global.pop_moves": 2}
+    assert rec.subcounts == {"ops.mpox.stats": 9, "ops.mpox.rounds": 21}
+    assert tracing.subcount("mpox.stats") is tracing.subcount("mpox.rounds")
+    _cuda.tally(rec, 4)
+    assert _cuda.launch_counts["ops.mpox.stats"] == 36
+    assert _cuda.launch_counts["ops.mpox.rounds"] == 84
+    assert _cuda.launch_counts["ops.global.evo_moves"] == 120
+    _cuda.reset_launch_counts()
+
+
+@pytest.mark.parametrize("mpox", [False, True])
+def test_eager_and_cpu_dispatches_count_no_sections(mpox):
+    """Outside a capture the marks do nothing: a CPU Run's dispatches,
+    through the eager loop or the graph plumbing, count no section, and
+    under the mpox model no subcount."""
+    _cuda.reset_launch_counts()
+    run = _run(seed=3, mpox_hack=mpox)
     run.do_mcmc_steps(2 * run.local_moves_per_global_move)
+    assert run.hyp.mpox_enabled == mpox
     assert not any(_cuda.launch_counts.values())
 
 
@@ -222,12 +260,14 @@ def _graph_device_nodes(graph) -> int:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["exp", "skygrid"])
+@pytest.mark.parametrize("model", ["exp", "skygrid", "mpox"])
 def test_sections_sum_to_the_graph_device_nodes(device, model,
                                                  monkeypatch):
     """On the card, the sections a boundary graph's capture counted add up
     to the device nodes the captured graph holds (kept for the check), and
-    each replay adds them to ``ops.<section>``."""
+    each replay adds them to ``ops.<section>``.  Under the mpox model (alpha
+    off) the two subcounts split ``global.evo_moves`` exactly; elsewhere
+    nothing is subcounted."""
     orig = torch.cuda.CUDAGraph
     monkeypatch.setattr(torch.cuda, "CUDAGraph",
                         lambda: orig(keep_graph=True))
@@ -236,7 +276,8 @@ def test_sections_sum_to_the_graph_device_nodes(device, model,
         seed=11)
     tree = build_initial_tree(ref, deltas, miss, dates, names=names,
                               rng=np.random.default_rng(11))
-    kw = {"pop_model": model}
+    kw = ({"pop_model": "exp", "mpox_hack": True} if model == "mpox"
+          else {"pop_model": model})
     run = Run(tree, seed=11, num_cells=128, device=device, **kw)
     _cuda.reset_launch_counts()
     run.do_mcmc_steps(3 * run.local_moves_per_global_move)
@@ -248,8 +289,20 @@ def test_sections_sum_to_the_graph_device_nodes(device, model,
         assert set(sec) == {"ops." + s for s in tracing.SECTIONS}, sec
         assert sum(sec.values()) == _graph_device_nodes(
             g.graph.raw_cuda_graph())
+        sub = g.record.subcounts
+        if model == "mpox":
+            assert set(sub) == {"ops." + s for s in tracing.SUBCOUNTS}
+            assert min(sub.values()) > 0
+            assert sum(sub.values()) == sec["ops.global.evo_moves"]
+        else:
+            assert sub == {}
     replays = _cuda.graph_replays
     assert replays == run._graphs.replays
     if len(graphs) == 1:
-        for k, n in graphs[0].record.sections.items():
+        rec = graphs[0].record
+        for k, n in {**rec.sections, **rec.subcounts}.items():
             assert _cuda.launch_counts[k] == replays * n
+    if model == "mpox":
+        assert (_cuda.launch_counts["ops.mpox.stats"]
+                + _cuda.launch_counts["ops.mpox.rounds"]
+                == _cuda.launch_counts["ops.global.evo_moves"])
