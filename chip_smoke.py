@@ -433,9 +433,10 @@ def build_all(baseline):
 # conversion to or from float64
 F64_OPCODE = re.compile(r"^(DADD|DMUL|DFMA|DSETP|DMNMX|DMMA|DRCP)|\.F64")
 # the float32 instantiations of the kernel templates (hky 1, exp_pop 2,
-# sweep 3 models x 2 builds, prefix scan 1): mangled names with the float
+# sweep 3 models x 2 builds, prefix scan 1, reference-state prefix 3: 4
+# keys with and without the counts, 8 keys): mangled names with the float
 # argument
-N_F32_KERNELS = 10
+N_F32_KERNELS = 13
 
 
 def check_f32_sass(lib_path: str) -> None:
@@ -667,6 +668,7 @@ def compare_kernels(run, device, base, floor_so, dtype=torch.float64):
     records.append(rec)
     records.append(compare_skygrid_sweep(device, base, dtype))
     records.append(compare_prefix_scan(run, device, dtype))
+    records.append(compare_ref_state_prefix(run, device, dtype))
     if floor_so is None:
         return records, None
     floor = launch_floor_ms(floor_so)
@@ -824,6 +826,81 @@ def compare_prefix_scan(run, device, dtype=torch.float64) -> dict:
     return rec
 
 
+def compare_ref_state_prefix(run, device, dtype=torch.float64) -> dict:
+    """Phase 3 (and 12a in float32): the reference-state prefix kernel at
+    the main path's shapes: 4 keys and both tables on the Ebola boundary's
+    own sites (L = 18,959, calc_ref_state_prefix's call), and at mpox's
+    197,209 sites (random states and two partitions, nu all ones, as the
+    mpox cell's) 4 keys and both tables and 8 keys and nucum alone
+    (calc_ref_state_prefix_beta's call).  Every table bit-equal to the
+    plain one-hot torch.cumsum (integers, exact in any order) and over 20
+    launches; timed: the bare kernel, the wrapper, the plain version
+    (``plain_ms``) and the torch.cumsum calls it replaces (``library_ms``,
+    the one-hot built outside the timing).  Bound: the sites read and the
+    tables written, in bytes."""
+    from delphy_tpu_torch.parallel import _cuda, scan_cuda
+
+    sfx = _cuda.suffix(dtype)
+    rec = dict(name=REF + sfx, route="cuda",
+               source="delphy_tpu_torch/csrc/ref_state_prefix.cu",
+               replaces="none (the JAX package leaves jnp.cumsum to XLA)")
+    g = torch.Generator().manual_seed(SEED)
+    n_mpox = 197_209
+    ref_m = torch.randint(0, 4, (n_mpox,), generator=g,
+                          dtype=torch.int32).to(device)
+    part_m = torch.randint(0, 2, (n_mpox,), generator=g,
+                           dtype=torch.int32).to(device)
+    cases = (("L=18959 K=4", run.ts.ref_seq, None,
+              run.evo.nu.to(dtype).contiguous(), 1, True),
+             ("L=197209 K=4", ref_m, None,
+              torch.ones(n_mpox, dtype=dtype, device=device), 1, True),
+             ("L=197209 K=8", ref_m, part_m,
+              torch.ones(n_mpox, dtype=dtype, device=device), 2, False))
+    for tag, ref, part, nu, parts, counts in cases:
+        name = f"{REF}{sfx} {tag}"
+        if not bool((nu == 1).all()):
+            raise AssertionError(f"{name}: nu is not all ones")
+        got = scan_cuda.ref_state_prefix(ref, nu, part, parts, counts)
+        want = scan_cuda.ref_state_prefix_torch(ref, nu, part, parts, counts)
+        for a, b in zip(got, want):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{name}: differs from the plain "
+                                     f"version")
+        if not all(all(a is None or torch.equal(a, b) for a, b in zip(
+                scan_cuda.ref_state_prefix(ref, nu, part, parts, counts),
+                got)) for _ in range(20)):
+            raise AssertionError(f"{name}: launches differ")
+        pk = scan_cuda.pack_ref_launch(ref, nu, part, parts, counts)
+        keys = ref.long() if part is None else part.long() * 4 + ref.long()
+        onehot = torch.nn.functional.one_hot(keys, 4 * parts).to(dtype).T
+        weighted = onehot * nu[None, :]
+
+        def library():
+            if counts:
+                torch.cumsum(onehot, 1)
+            return torch.cumsum(weighted, 1)
+        outs = [o for o in pk.outs if o is not None]
+        n_bytes = nbytes(pk.keep) + nbytes(outs)
+        bound_ms, bound_by = bound(n_bytes, 0, dtype)
+        m = dict(
+            ms=kernel_ms(_cuda.lib(), "delphy_" + REF + sfx, pk.args),
+            wrapper_ms=time_ms(lambda: scan_cuda.ref_state_prefix(
+                ref, nu, part, parts, counts), device),
+            plain_ms=time_ms(lambda: scan_cuda.ref_state_prefix_torch(
+                ref, nu, part, parts, counts), device),
+            library_ms=time_ms(library, device),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+            repeats_bit_equal=20, max_abs_err=0.0)
+        log(f"{name}: kernel {m['ms']:.4f} ms, wrapper "
+            f"{m['wrapper_ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+            f"torch.cumsum {m['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}: {n_bytes} B); equal to the "
+            f"plain version and over 20 launches")
+        rec[tag] = m
+    rec.update(rec["L=18959 K=4"])
+    return rec
+
+
 def main_path(device, card: str):
     """Phase 4: the main path through the user-facing entry points."""
     from delphy_tpu_torch.parallel import _cuda
@@ -884,24 +961,29 @@ def have_flatbuffers() -> bool:
 
 
 # the kernels each path launches every boundary (and no other), beside
-# the prefix scan, which every path launches (SCAN)
+# the prefix scan and the reference-state tables, which every path
+# launches (SCAN, REF)
 EXP_PATH = ("hky_chain", "exp_pop_chain", "sweep_chain")
 SKYGRID_PATH = ("hky_chain", "sweep_chain_skygrid")
 MPOX_PATH = ("exp_pop_chain", "sweep_chain")
 # cumsum0 on the card: ref_cum_Q and T_below at every boundary
 SCAN = "prefix_scan"
+# calc_ref_state_prefix on the card: global.stats and global.ledger at
+# every boundary (and calc_ref_state_prefix_beta under the mpox model)
+REF = "ref_state_prefix"
 
 
 def check_counts(what: str, path=EXP_PATH, graphs=None) -> dict:
     """The kernels' launch counts since the last reset, graph replays
     included (each replay adds its capture's launches): every kernel of
-    ``path`` and the prefix scan (of the path's precision) launched, no
-    other.  ``graphs`` True: the launches came through CUDA graphs
+    ``path``, the prefix scan and the reference-state tables (of the
+    path's precision) launched, no other.  ``graphs`` True: the launches came through CUDA graphs
     (replays > 0); False: through the eager loop (no replay); None:
     either."""
     from delphy_tpu_torch.parallel import _cuda
     f32 = all(k.endswith("_f32") for k in path)
-    path = tuple(path) + (SCAN + ("_f32" if f32 else ""),)
+    path = tuple(path) + tuple(k + ("_f32" if f32 else "")
+                               for k in (SCAN, REF))
     counts = _cuda.kernel_counts()
     replays = _cuda.graph_replays
     for k, v in counts.items():
@@ -2465,9 +2547,10 @@ def unpartitioned_path(device, card: str) -> dict:
     (ts, evo, pop, ledger, stats), gen_end, _ = turns[0]
     for res, end, rec in turns:
         counts = rec["launch_counts"]
-        # the prefix scan twice a boundary: T_below and ref_cum_Q
+        # the prefix scan twice a boundary (T_below and ref_cum_Q), the
+        # reference-state tables twice (global.stats and global.ledger)
         want = {k: (K if k in ("hky_chain", "exp_pop_chain") else
-                    2 * K if k == SCAN else 0) for k in counts}
+                    2 * K if k in (SCAN, REF) else 0) for k in counts}
         if counts != want:
             raise AssertionError(f"phase 11(b) {rec['path']}: launch counts "
                                  f"{counts}, expected {want}")
@@ -2789,7 +2872,8 @@ def bench_recipe(device, card) -> dict:
         run.do_mcmc_steps(10)
         run.do_mcmc_steps(n)
     tot = {"f64": [0, 0.0], "f32": [0, 0.0]}
-    launches = dict.fromkeys(F32_EXP_PATH + (SCAN + "_f32",), 0)
+    launches = dict.fromkeys(F32_EXP_PATH + (SCAN + "_f32", REF + "_f32"),
+                             0)
     for tag in ("f64", "f32", "f32", "f64"):
         run = run32 if tag == "f32" else run64
         _cuda.reset_launch_counts()

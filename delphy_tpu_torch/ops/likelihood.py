@@ -14,7 +14,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from ..evo import EvoParams
 from ..parallel import scan_cuda
@@ -77,12 +76,11 @@ def calc_ref_cum_Q(ts: TreeState, evo: EvoParams):
 
 def calc_ref_state_prefix(ts: TreeState, evo: EvoParams):
     """cnt[a, k] = #{l < k : ref_l == a}; nucum[a, k] = sum of nu_l over the
-    same sites.  Both float[4, L+1] in the dtype of ``evo.nu``."""
-    onehot = F.one_hot(ts.ref_seq.long(), 4).to(evo.nu.dtype).T
-    zeros = torch.zeros((4, 1), dtype=onehot.dtype, device=onehot.device)
-    cnt = torch.cat([zeros, torch.cumsum(onehot, 1)], 1)
-    nucum = torch.cat([zeros, torch.cumsum(onehot * evo.nu[None, :], 1)], 1)
-    return cnt, nucum
+    same sites.  Both float[4, L+1] in the dtype of ``evo.nu``.  On the
+    card one launch of the reference-state kernel, whose float sums follow
+    the index alone (``parallel/scan_cuda.py``); the one-hot's torch.cumsum
+    on the CPU."""
+    return scan_cuda.ref_state_prefix(ts.ref_seq, evo.nu)
 
 
 def calc_branch_delta_lambda(ts: TreeState, evo: EvoParams, ref_cum_Q):
@@ -304,13 +302,11 @@ def calc_Ttwiddle_l(ts: TreeState, evo: EvoParams, tin, tout):
 def calc_ref_state_prefix_beta(ts: TreeState, evo: EvoParams):
     """nu-weighted prefix sums of reference states per partition:
     nucum_pa[p, a, k] = sum of nu_l over l < k with part_l == p and
-    ref_l == a; float[P, 4, L+1]."""
+    ref_l == a; float[P, 4, L+1].  On the card one launch of the
+    reference-state kernel, as calc_ref_state_prefix."""
     P = evo.q_tab.shape[0]
-    comb = evo.part.long() * 4 + ts.ref_seq.long()
-    onehot = F.one_hot(comb, P * 4).to(evo.nu.dtype).T             # [P*4, L]
-    zeros = torch.zeros((P * 4, 1), dtype=onehot.dtype,
-                        device=onehot.device)
-    nucum = torch.cat([zeros, torch.cumsum(onehot * evo.nu[None, :], 1)], 1)
+    _, nucum = scan_cuda.ref_state_prefix(ts.ref_seq, evo.nu, evo.part, P,
+                                          counts=False)
     return nucum.reshape(P, 4, -1)
 
 

@@ -60,7 +60,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("hky_chain.cu", "exp_pop_chain.cu", "sweep_chain.cu",
-           "prefix_scan.cu")
+           "prefix_scan.cu", "ref_state_prefix.cu")
 # headers the sources include (hashed with them)
 HEADERS = ("real.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -69,7 +69,8 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _KERNELS = ("hky_chain", "exp_pop_chain", "sweep_chain",
             "sweep_chain_skygrid", "sweep_chain_global",
-            "sweep_chain_skygrid_global", "prefix_scan")
+            "sweep_chain_skygrid_global", "prefix_scan",
+            "ref_state_prefix")
 launch_counts = dict.fromkeys(
     list(_KERNELS) + [k + "_f32" for k in _KERNELS]
     + ["ops." + s for s in tracing.SECTIONS + tracing.SUBCOUNTS], 0)
@@ -98,6 +99,7 @@ _ARGTYPES = {
     "delphy_sweep_chain_global": _SWEEP + [_P, _P],
     "delphy_sweep_chain_skygrid_global": _SWEEP + [_I, _I, _P, _P, _P, _P],
     "delphy_prefix_scan": [_P, _P, _I, _P],
+    "delphy_ref_state_prefix": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 _ARGTYPES.update({k + "_f32": v for k, v in _ARGTYPES.items()})
 # the shape queries: (argument count, result type)

@@ -486,13 +486,17 @@ def test_model_option_runs_on_card(device, option):
     run = make_run(device, n_tips=40, **kw)
     _cuda.reset_launch_counts()
     run.do_mcmc_steps(3 * run.local_moves_per_global_move)
+    counts = dict(_cuda.launch_counts)
     run.check_derived_quantities(1e-6)
     run.tree().check_integrity()
-    counts = _cuda.launch_counts
     assert counts["sweep_chain"] >= 3 and counts["exp_pop_chain"] >= 3
     assert counts["hky_chain"] == (0 if option == "mpox" else
                                    counts["sweep_chain"])
     assert counts["sweep_chain_skygrid"] == 0
+    # the reference-state tables of global.stats and global.ledger at every
+    # boundary, and under the mpox model its partitioned ones
+    assert counts["ref_state_prefix"] == (
+        3 if option == "mpox" else 2) * counts["exp_pop_chain"]
 
 
 # ---------------------------------------------------------------------------
@@ -814,7 +818,7 @@ def test_unpartitioned_step_on_card(device):
     """The unpartitioned step on 30 Ebola tips: multi_super_step over 3
     boundaries bit-equal to 3 super_step calls from the same generator
     state, hky_chain and exp_pop_chain launched once a boundary, the
-    prefix scan twice, and no sweep kernel, the incremental log_G equal to the recompute, and no host
+    prefix scan and the reference-state tables twice, and no sweep kernel, the incremental log_G equal to the recompute, and no host
     synchronisation while a sweep is enqueued."""
     import warnings
 
@@ -829,9 +833,11 @@ def test_unpartitioned_step_on_card(device):
     ts, evo, pop, led, stats = mk.multi_super_step(
         run.ts, run.evo, run.pop, run.gen, *args, 3)
     counts = _cuda.kernel_counts()
-    # the prefix scan twice a boundary: T_below and ref_cum_Q
+    # the prefix scan twice a boundary (T_below and ref_cum_Q), the
+    # reference-state tables twice (global.stats and global.ledger)
     assert counts == {k: (3 if k in ("hky_chain", "exp_pop_chain") else
-                          6 if k == "prefix_scan" else 0) for k in counts}
+                          6 if k in ("prefix_scan", "ref_state_prefix")
+                          else 0) for k in counts}
     run.gen.set_state(state)
     one = (run.ts, run.evo, run.pop)
     for _ in range(3):
@@ -1147,19 +1153,17 @@ def test_posterior_on_card_matches_jax_reference(device):
 
 
 # each model option as Run arguments, with the kernels its boundary
-# launches (the prefix scan on every path: ref_cum_Q, T_below)
+# launches (on every path the prefix scan, of ref_cum_Q and T_below, and
+# the reference-state tables)
+SCANS = ("prefix_scan", "ref_state_prefix")
 GRAPH_OPTIONS = {
-    "exp": ({}, EXP_KERNELS + ("prefix_scan",)),
+    "exp": ({}, EXP_KERNELS + SCANS),
     "skygrid staircase": ({"pop_model": "skygrid"},
-                          ("hky_chain", "sweep_chain_skygrid",
-                           "prefix_scan")),
+                          ("hky_chain", "sweep_chain_skygrid") + SCANS),
     "skygrid log-linear": ({"pop_model": "skygrid", "log_linear": True},
-                           ("hky_chain", "sweep_chain_skygrid",
-                            "prefix_scan")),
-    "alpha/nu": ({"alpha_move_enabled": True},
-                 EXP_KERNELS + ("prefix_scan",)),
-    "mpox": ({"mpox_hack": True},
-             ("exp_pop_chain", "sweep_chain", "prefix_scan")),
+                           ("hky_chain", "sweep_chain_skygrid") + SCANS),
+    "alpha/nu": ({"alpha_move_enabled": True}, EXP_KERNELS + SCANS),
+    "mpox": ({"mpox_hack": True}, ("exp_pop_chain", "sweep_chain") + SCANS),
 }
 
 
